@@ -6,25 +6,40 @@
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-1. The card's name and power limit; build both CUDA kernels from
+1. The card's name and power limit; build every CUDA kernel from
    minio_tpu_torch/ops/csrc/ (one nvcc per source, started together).
 2. Every kernel against its plain PyTorch version on the card, exact
    byte equality, at the shapes the main path gives it: gf_apply at the
    EC 8+4 PUT window (32 x 8 x 128 KiB, byte and u32 contracts), at the
-   4 x 8 decode rows and at ragged lengths; highwayhash256 at the
-   window's 384 streams x 128 KiB and at ragged lengths, and against the
-   host numpy hash; then the golden erasure and HighwayHash self-tests
-   through the card.
-3. The main path: the S3 server (minio_tpu_torch.server) on 12 drives,
-   EC 8+4, device cuda, in this process. PUT a 256 MiB, a 33 MiB + 777 B
-   and a 200 KiB object over signed HTTP, GET each back; wipe the copies
-   of 4 data-shard drives and GET again; flip one byte of a data-shard
-   block and GET again. Byte identity every time, and every kernel's
-   launch count and the set's put/get/reconstruct window counts must
-   have moved in this phase (they are set to 0 just before it).
-4. Times: each kernel at the main path's shape with CUDA events (inputs
-   rotated over buffers larger than L2 together), its plain version's
-   time and its bound; PUT and GET MiB/s of the 256 MiB object.
+   4 x 8 decode rows, at ragged lengths and at the batcher's 256-block
+   bucket (a sample of 8 batch rows); highwayhash256 at the window's 384
+   streams x 128 KiB and at ragged lengths, and against the host numpy
+   hash; rs_i8 at the 32-block window in words (parity and decode rows),
+   at ragged word counts, and against gf_apply at 256 blocks; then the
+   golden erasure and HighwayHash self-tests through the card.
+3. The main path, one client: the S3 server (minio_tpu_torch.server) on
+   12 drives, EC 8+4, device cuda, in this process. PUT a 256 MiB, a
+   33 MiB + 777 B and a 200 KiB object over signed HTTP, GET each back;
+   wipe the copies of 4 data-shard drives and GET again; flip one byte of
+   a data-shard block and GET again. Byte identity every time.
+4. The main path, concurrent: a fresh server as in 3, with the default
+   MTPU_BATCH_FORCE. 16 client threads each PUT 6 objects (1 MiB,
+   3 MiB + 5 B, 8 MiB, twice) whose keys share one `hash_order`; 16
+   threads GET all 96; the copies on the 4 drives holding data shards 0-3
+   are wiped and 16 threads GET all 96 again. Byte identity every time;
+   on each of the put, get and reconstruct routes at least one device
+   dispatch carried 2 or more requests' windows, no window went to the
+   host, and no deadline culled a member. Then each route's device
+   function alone on one 8-block bucket (host clock), the yardstick for
+   the lane's service times under load.
+5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
+   rs_i8 against make_encoder32, then both timed at 256 blocks.
+   In phases 3, 4 and 5 every kernel's launch count is set to 0 just
+   before the phase and read just after; each kernel of the phase's path
+   must have launched.
+6. Times: each kernel at the main path's shapes with CUDA events (inputs
+   rotated over buffers larger than L2), its plain version's time and
+   its bound; gf_apply and rs_i8 at 32 and 256 blocks.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -32,6 +47,7 @@ The last two lines of standard output are the kernels' JSON record and
 
 from __future__ import annotations
 
+import hashlib
 import http.client
 import json
 import os
@@ -41,12 +57,16 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside tensor cores
+INT8_TC_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core rate
 MIB = 1 << 20
+K, M = 8, 4
+SHARD = (1 << 20) // K         # EC 8+4 shard block of a 1 MiB erasure block
 
 
 def check(cond: bool, what: str) -> None:
@@ -59,7 +79,7 @@ def log(*parts) -> None:
 
 
 class Timer:
-    """CUDA-event time of fn() in ms: warm-up, then the mean of `iters`."""
+    """CUDA-event time of fn(i) in ms: warm-up, then the mean of `iters`."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -87,8 +107,15 @@ def max_abs_err(torch, a, b) -> int:
     return int((a.int() - b.int()).abs().max().item()) if a.numel() else 0
 
 
+def decode_rows():
+    from minio_tpu_torch.ops import gf256
+    return np.ascontiguousarray(
+        gf256.decode_matrix(K, M, tuple(range(4, 12)))[:4])
+
+
 def phase_kernels(torch, dev, rng, errs):
     from minio_tpu_torch.erasure.selftest import erasure_self_test
+    from minio_tpu_torch.experiments import rs_i8_kernel
     from minio_tpu_torch.ops import gf256, hh_device, rs_device
     from minio_tpu_torch.storage import bitrot
     from minio_tpu_torch.utils.highwayhash import MAGIC_KEY, highwayhash256_many
@@ -97,51 +124,73 @@ def phase_kernels(torch, dev, rng, errs):
         return torch.from_numpy(rng.integers(0, 256, size=shape,
                                              dtype=np.uint8)).to(dev)
 
-    pm = gf256.parity_matrix(8, 4)
-    dec = np.ascontiguousarray(
-        gf256.decode_matrix(8, 4, tuple(range(4, 12)))[:4])
-    window = rand(32, 8, 131072)
+    def note(kern, what, err):
+        log(f"{kern} {what} max_abs_err {err}")
+        errs[kern] = max(errs[kern], err)
+
+    pm = gf256.parity_matrix(K, M)
+    dec = decode_rows()
+    window = rand(32, K, SHARD)
     cases = [("parity u8", pm, window), ("decode rows", dec, window),
-             ("parity ragged 98", pm, rand(1, 8, 98)),
-             ("parity ragged 1543", pm, rand(3, 8, 1543)),
-             ("decode ragged 3200", dec, rand(1, 8, 3200))]
+             ("parity ragged 98", pm, rand(1, K, 98)),
+             ("parity ragged 1543", pm, rand(3, K, 1543)),
+             ("decode ragged 3200", dec, rand(1, K, 3200))]
     for what, mat, data in cases:
-        err = max_abs_err(torch, rs_device.gf_apply(mat, data),
-                          rs_device.gf_apply_plain(mat, data))
-        log(f"gf_apply {what} {tuple(data.shape)} max_abs_err {err}")
-        errs["gf_apply"] = max(errs["gf_apply"], err)
+        note("gf_apply", f"{what} {tuple(data.shape)}", max_abs_err(
+            torch, rs_device.gf_apply(mat, data),
+            rs_device.gf_apply_plain(mat, data)))
     out32 = rs_device.make_encoder32(pm)(window.view(torch.int32))
-    err = max_abs_err(torch, out32, rs_device.gf_apply_plain(pm, window))
-    log(f"gf_apply parity u32 {tuple(out32.shape)} max_abs_err {err}")
-    errs["gf_apply"] = max(errs["gf_apply"], err)
+    note("gf_apply", f"parity u32 {tuple(out32.shape)}", max_abs_err(
+        torch, out32, rs_device.gf_apply_plain(pm, window)))
+    bucket = rand(256, K, SHARD)
+    full = rs_device.gf_apply(pm, bucket)
+    rows = torch.from_numpy(np.sort(rng.choice(256, size=8, replace=False))
+                            ).to(dev)
+    note("gf_apply", "256-block bucket, 8 sampled batch rows",
+         max_abs_err(torch, full.index_select(0, rows),
+                     rs_device.gf_apply_plain(pm, bucket.index_select(0,
+                                                                    rows))))
     torch.cuda.synchronize()
 
-    rows = rand(384, 131072)
-    got = hh_device.hash_rows(rows)
-    t0 = time.perf_counter()
-    plain = hh_device.hash_bytes_plain(rows)
+    words = window.view(torch.int32)                       # [32, 8, 32768]
+    for what, mat in (("parity", pm), ("decode rows", dec)):
+        note("rs_i8", f"{what} words {tuple(words.shape)}", max_abs_err(
+            torch, rs_i8_kernel.rs_apply8(mat, words),
+            rs_i8_kernel.rs_apply8_plain(mat, words)))
+    for l4 in (1, 25, 1000):
+        w = rand(3, K, 4 * l4).view(torch.int32)
+        note("rs_i8", f"ragged words {tuple(w.shape)}", max_abs_err(
+            torch, rs_i8_kernel.rs_apply8(pm, w),
+            rs_i8_kernel.rs_apply8_plain(pm, w)))
+    bw = bucket.view(torch.int32)                          # [256, 8, 32768]
+    note("rs_i8", f"vs gf_apply, words {tuple(bw.shape)}", max_abs_err(
+        torch, rs_i8_kernel.make_encoder8(pm)(bw),
+        rs_device.make_encoder32(pm)(bw)))
+    del bucket, full, bw
     torch.cuda.synchronize()
-    err = max_abs_err(torch, got, plain)
-    log(f"highwayhash256 (384, 131072) max_abs_err {err} "
-        f"(plain version {time.perf_counter() - t0:.3f} s)")
-    errs["highwayhash256"] = max(errs["highwayhash256"], err)
-    words = hh_device.hash_words(rows.view(torch.int32).view(32, 12, -1))
-    err = max_abs_err(torch, words, plain)
-    log(f"highwayhash256 u32 words (32, 12, 32768) max_abs_err {err}")
-    errs["highwayhash256"] = max(errs["highwayhash256"], err)
-    host = highwayhash256_many(MAGIC_KEY, rows[:4].cpu().numpy())
+
+    srows = rand(384, SHARD)
+    got = hh_device.hash_rows(srows)
+    t0 = time.perf_counter()
+    plain = hh_device.hash_bytes_plain(srows)
+    torch.cuda.synchronize()
+    note("highwayhash256", f"(384, {SHARD}) (plain version "
+         f"{time.perf_counter() - t0:.3f} s)", max_abs_err(torch, got, plain))
+    words = hh_device.hash_words(srows.view(torch.int32).view(32, 12, -1))
+    note("highwayhash256", "u32 words (32, 12, 32768)",
+         max_abs_err(torch, words, plain))
+    host = highwayhash256_many(MAGIC_KEY, srows[:4].cpu().numpy())
     check(np.array_equal(got[:4].cpu().numpy(), host),
           "highwayhash256 differs from the host numpy hash")
-    for length in (1, 31, 33, 63, 98, 4097, 131072 + 5):
+    for length in (1, 31, 33, 63, 98, 4097, SHARD + 5):
         r = rand(7, length)
-        err = max_abs_err(torch, hh_device.hash_rows(r),
-                          hh_device.hash_bytes_plain(r))
-        errs["highwayhash256"] = max(errs["highwayhash256"], err)
+        errs["highwayhash256"] = max(errs["highwayhash256"], max_abs_err(
+            torch, hh_device.hash_rows(r), hh_device.hash_bytes_plain(r)))
     log(f"highwayhash256 ragged lengths max_abs_err {errs['highwayhash256']}")
     framed = rand(10, 32 + 1000)
-    err = max_abs_err(torch, hh_device.hash_rows(framed, skip=32),
-                      hh_device.hash_bytes_plain(framed[:, 32:]))
-    errs["highwayhash256"] = max(errs["highwayhash256"], err)
+    errs["highwayhash256"] = max(errs["highwayhash256"], max_abs_err(
+        torch, hh_device.hash_rows(framed, skip=32),
+        hh_device.hash_bytes_plain(framed[:, 32:])))
     check(all(v == 0 for v in errs.values()), f"kernels disagree: {errs}")
 
     erasure_self_test(rs_device.GpuBackend(dev))
@@ -160,7 +209,6 @@ class Client:
         self.access, self.secret = access, secret
 
     def __call__(self, method: str, path: str, body: bytes = b""):
-        import hashlib
         uri, headers = self.sigv4.sign_headers(
             method, self.address, path, self.access, self.secret,
             hashlib.sha256(body).hexdigest())
@@ -181,24 +229,56 @@ def drive_root() -> str:
     return tempfile.mkdtemp(prefix="chip_smoke-")
 
 
-def phase_main_path(torch, rng, root):
-    from minio_tpu_torch import server
-    from minio_tpu_torch.object.erasure_object import hash_order
-    from minio_tpu_torch.ops import hh_device, rs_device
+class Server:
+    """The port's S3 server on 12 fresh drives under `root`, serving from
+    a thread of this process until stop()."""
 
-    drives = [os.path.join(root, f"d{i}") for i in range(12)]
-    srv = server.boot(["--address", "127.0.0.1:0", "--device", "cuda",
-                       *drives])
-    es = srv.objects
-    check(es.default_parity == 4, "12 drives must give EC 8+4")
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
+    def __init__(self, root: str, name: str):
+        from minio_tpu_torch import server
+        self.drives = [os.path.join(root, name, f"d{i}") for i in range(12)]
+        self.srv = server.boot(["--address", "127.0.0.1:0", "--device",
+                                "cuda", *self.drives])
+        self.es = self.srv.objects
+        check(self.es.default_parity == M, "12 drives must give EC 8+4")
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.client = Client(self.srv.address)
+
+    def stop(self) -> None:
+        self.srv.shutdown()
+        self.thread.join(timeout=60)
+
+
+def reset_launches() -> None:
+    from minio_tpu_torch.experiments import rs_i8_kernel
+    from minio_tpu_torch.ops import hh_device, rs_device
+    rs_device.LAUNCHES = hh_device.LAUNCHES = rs_i8_kernel.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from minio_tpu_torch.experiments import rs_i8_kernel
+    from minio_tpu_torch.ops import hh_device, rs_device
+    return {"gf_apply": rs_device.LAUNCHES,
+            "highwayhash256": hh_device.LAUNCHES,
+            "rs_i8": rs_i8_kernel.LAUNCHES}
+
+
+def data_holders(bucket: str, key: str, count: int, first_shard: int = 0):
+    """Drives holding data shards first_shard.. of the key's distribution."""
+    from minio_tpu_torch.object.erasure_object import hash_order
+    dist = hash_order(f"{bucket}/{key}", 12)
+    return [i for i in range(12) if first_shard <= dist[i] - 1 < K][:count]
+
+
+def phase_main_path(torch, rng, root):
+    s = Server(root, "seq")
+    es, c = s.es, s.client
     try:
-        c = Client(srv.address)
         objs = {"big": rng.bytes(256 * MIB),
                 "mid": rng.bytes(33 * MIB + 777),
                 "small": rng.bytes(200 * 1024)}
-        rs_device.LAUNCHES = hh_device.LAUNCHES = 0
+        reset_launches()
         es.device_windows = dict.fromkeys(es.device_windows, 0)
 
         check(c("PUT", "/smoke")[0] == 200, "make bucket")
@@ -216,16 +296,12 @@ def phase_main_path(torch, rng, root):
         log(f"main path: PUT+GET of {len(objs)} objects identical, windows "
             f"{es.device_windows}")
 
-        def data_holders(name, count):
-            dist = hash_order(f"smoke/{name}", 12)
-            return [i for i in range(12) if dist[i] - 1 < 8][:count]
-
         before = es.device_windows["reconstruct"]
         moved = []
         for name in objs:
-            for i in data_holders(name, 4):
-                src = os.path.join(drives[i], "smoke", name)
-                dst = os.path.join(drives[i], f"wiped-{name}")
+            for i in data_holders("smoke", name, 4):
+                src = os.path.join(s.drives[i], "smoke", name)
+                dst = os.path.join(s.drives[i], f"wiped-{name}")
                 os.rename(src, dst)
                 moved.append((dst, src))
         for name, body in objs.items():
@@ -240,7 +316,8 @@ def phase_main_path(torch, rng, root):
 
         before = es.device_windows["reconstruct"]
         for name in ("big", "mid"):
-            d = os.path.join(drives[data_holders(name, 1)[0]], "smoke", name)
+            d = os.path.join(s.drives[data_holders("smoke", name, 1)[0]],
+                             "smoke", name)
             (ddir,) = [e for e in os.listdir(d) if e != "xl.meta"]
             with open(os.path.join(d, ddir, "part.1"), "r+b") as f:
                 f.seek(32 + 100)
@@ -254,68 +331,258 @@ def phase_main_path(torch, rng, root):
               "bitrot-demoted GET did not reconstruct on the card")
         log("main path: GET with one flipped shard byte identical")
 
-        bad = Client(srv.address, secret="wrong-secret")
+        bad = Client(s.srv.address, secret="wrong-secret")
         check(bad("GET", "/smoke/small")[0] == 403, "bad signature not 403")
 
-        launches = {"gf_apply": rs_device.LAUNCHES,
-                    "highwayhash256": hh_device.LAUNCHES}
+        launches = read_launches()
         windows = dict(es.device_windows)
-        log(f"main path launches {launches} set windows {windows}")
-        check(all(launches.values()), f"a kernel never launched: {launches}")
+        log(f"main path launches {launches} set windows {windows} host "
+            f"windows {es.host_windows}")
+        check(launches["gf_apply"] and launches["highwayhash256"],
+              f"a kernel of the path never launched: {launches}")
         check(all(windows.values()), f"a device route never ran: {windows}")
+        check(not any(es.host_windows.values()),
+              f"windows went to the host: {es.host_windows}")
         size = len(objs["big"]) / MIB
         log(f"256 MiB object: PUT {size / times[('put', 'big')]:.1f} MiB/s, "
             f"GET {size / times[('get', 'big')]:.1f} MiB/s (host clock over "
-            "signed HTTP on localhost, synchronous pageable H2D copies "
-            "included)")
-        return launches, times
+            "signed HTTP on localhost, one client)")
+        return launches
     finally:
-        srv.shutdown()
-        thread.join(timeout=60)
+        s.stop()
+
+
+CONC_THREADS = 16
+CONC_SIZES = (MIB, 3 * MIB + 5, 8 * MIB, MIB, 3 * MIB + 5, 8 * MIB)
+
+
+def conc_keys(bucket: str) -> list[list[str]]:
+    """Per thread, one key per object; every key's hash_order over 12
+    drives is the same, so one survivor set serves every degraded read."""
+    want = zlib.crc32(f"{bucket}/t0-o0-0".encode()) % 12
+    out = []
+    for t in range(CONC_THREADS):
+        keys = []
+        for j in range(len(CONC_SIZES)):
+            salt = 0
+            while zlib.crc32(f"{bucket}/t{t}-o{j}-{salt}".encode()) % 12 \
+                    != want:
+                salt += 1
+            keys.append(f"t{t}-o{j}-{salt}")
+        out.append(keys)
+    return out
+
+
+def run_clients(fn, per_thread) -> float:
+    """fn(thread_index, item) for each thread's items in turn, all threads
+    started together; raises the first failure. Returns the wall time."""
+    barrier = threading.Barrier(len(per_thread))
+    errs = []
+
+    def work(t, items):
+        barrier.wait()
+        try:
+            for item in items:
+                fn(t, item)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+    threads = [threading.Thread(target=work, args=(t, items))
+               for t, items in enumerate(per_thread)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads), "a client hung")
+    if errs:
+        raise errs[0]
+    return wall
+
+
+def summarize(hist: dict) -> str:
+    from minio_tpu_torch.utils.latency import summarize as summ
+    s = summ(hist)
+    return f"p50 <= {s['p50'] * 1e3:g} ms, p99 <= {s['p99'] * 1e3:g} ms " \
+        f"(n={s['count']}, mean {hist['sum'] / max(1, hist['count']) * 1e3:.3f} ms)"
+
+
+def phase_concurrent(torch, rng, root):
+    """16 clients at once through the stripe batchers; returns (launches,
+    stats) of the phase."""
+    os.environ.pop("MTPU_BATCH_FORCE", None)      # the default: device
+    s = Server(root, "conc")
+    es, c = s.es, s.client
+    try:
+        bucket = "conc"
+        check(c("PUT", f"/{bucket}")[0] == 200, "make bucket")
+        keys = conc_keys(bucket)
+        bodies = {j: rng.bytes(n) for j, n in enumerate(CONC_SIZES)}
+        # Every thread's j-th object gets its own bytes: a prefix that names
+        # the key in front of the shared random body of that size.
+        objs = {keys[t][j]: keys[t][j].encode().ljust(64, b".")
+                + bodies[j][64:]
+                for t in range(CONC_THREADS) for j in range(len(CONC_SIZES))}
+        total = sum(len(b) for b in objs.values()) / MIB
+        reset_launches()
+
+        def put(t, j):
+            st, _ = c("PUT", f"/{bucket}/{keys[t][j]}", objs[keys[t][j]])
+            check(st == 200, f"PUT {keys[t][j]}: {st}")
+
+        def get(t, j):
+            st, got = c("GET", f"/{bucket}/{keys[t][j]}")
+            check(st == 200 and got == objs[keys[t][j]],
+                  f"GET {keys[t][j]} not identical")
+        items = [list(range(len(CONC_SIZES)))] * CONC_THREADS
+        walls = {"put": run_clients(put, items),
+                 "get": run_clients(get, items)}
+        wiped = data_holders(bucket, keys[0][0], 4)
+        moved = []
+        for i in wiped:
+            for key in objs:
+                src = os.path.join(s.drives[i], bucket, key)
+                dst = os.path.join(s.drives[i], f"wiped-{key}")
+                os.rename(src, dst)
+                moved.append((dst, src))
+        walls["degraded get"] = run_clients(get, items)
+        for dst, src in moved:
+            os.rename(dst, src)
+        launches = read_launches()
+        stats = es.batcher_stats()
+
+        log(f"concurrent: {CONC_THREADS} clients, {len(objs)} objects, "
+            f"{total:.1f} MiB each pass, identical every time; wiped drives "
+            f"{wiped} (data shards 0-3 of every key)")
+        for what, wall in walls.items():
+            log(f"concurrent {what}: {wall:.3f} s, {total / wall:.1f} MiB/s "
+                "aggregate (host clock over signed HTTP on localhost)")
+        for route in ("put", "get", "reconstruct"):
+            r = stats["routes"][route]
+            dev_d = r["dispatches"]["device"]
+            log(f"batcher {route}: device dispatches {dev_d}, host "
+                f"dispatches {r['dispatches']['host']}, members "
+                f"{r['requests']}, mean {r['requests']['device'] / max(1, dev_d):.2f} "
+                f"max {r['max_members']} members a dispatch, "
+                f"{r['multi_member_dispatches']} with 2+, buckets "
+                f"{dict(sorted(r['buckets'].items()))}, fill ratio "
+                f"{r['fill_ratio']:.4f}, deadline culls "
+                f"{r['deadline_failures']}")
+            log(f"batcher {route}: coalescing wait {summarize(r['wait_hist'])}; "
+                f"lane service {summarize(r['lane_hist'])}")
+        lane = stats["lane"]
+        log(f"kernel lane: {lane['submitted_total']} dispatches, service "
+            f"{summarize(lane['service_hist'])}, rejected "
+            f"{lane['rejected_total']}")
+        log(f"concurrent launches {launches} set windows {stats['windows']}")
+        for route in ("put", "get", "reconstruct"):
+            r = stats["routes"][route]
+            check(r["multi_member_dispatches"] >= 1,
+                  f"no {route} dispatch carried 2+ requests' windows")
+            check(r["dispatches"]["host"] == 0
+                  and r["requests"]["host"] == r["requests"]["bypass"] == 0,
+                  f"{route} windows went to the host: {r}")
+            check(r["deadline_failures"] == 0, f"{route} deadline culls")
+            check(stats["windows"]["host"][route] == 0,
+                  f"{route} host windows")
+        check(launches["gf_apply"] and launches["highwayhash256"],
+              f"a kernel of the path never launched: {launches}")
+        return launches, stats
+    finally:
+        s.stop()
+
+
+def solo_dispatch_ms(torch, rng, blocks: int = 8, runs: int = 5) -> dict:
+    """Host-clock ms of each route's device function on one bucket of
+    `blocks` blocks with no request threads around: what a lane dispatch
+    costs when nothing else wants the interpreter."""
+    from minio_tpu_torch.ops import gf256, hh_device, rs_device
+    pm = gf256.parity_matrix(K, M)
+    win = rng.integers(0, 256, size=(blocks, K, SHARD), dtype=np.uint8)
+    framed = rng.integers(0, 256, size=(blocks, K, 32 + SHARD),
+                          dtype=np.uint8)
+    fns = {"put": (hh_device.make_mesh_framer(pm, "cuda"), win),
+           "get": (hh_device.make_mesh_deframer(K, "cuda"), framed),
+           "reconstruct": (rs_device.make_mesh_matrix(decode_rows(), "cuda"),
+                           win)}
+    out = {}
+    for route, (fn, x) in fns.items():
+        fn(x)
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn(x)
+        out[route] = (time.perf_counter() - t0) / runs * 1e3
+    log("solo device function at bucket " + str(blocks) + ", no request "
+        "threads: " + ", ".join(f"{r} {ms:.3f} ms" for r, ms in out.items()))
+    return out
+
+
+def phase_b5_entry_point(torch):
+    """python -m minio_tpu_torch.experiments.rs_i8_kernel, in process."""
+    from minio_tpu_torch.experiments import rs_i8_kernel
+    reset_launches()
+    rc = rs_i8_kernel.main([])
+    launches = read_launches()
+    check(rc == 0, f"rs_i8_kernel entry point exited {rc}")
+    check(launches["rs_i8"] > 0, "rs_i8 never launched from its entry point")
+    log(f"rs_i8 entry point launches {launches}")
+    return launches
+
+
+def bound(nbytes: int, ops: int, ops_per_s: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_times(torch, dev, rng):
-    """(ms, plain_ms, bound_ms, bound_by) per kernel at the main path's
-    shapes."""
+    """{(kernel, blocks): (ms, plain_ms, bound_ms, bound_by)} at the main
+    path's shapes."""
+    from minio_tpu_torch.experiments import rs_i8_kernel
     from minio_tpu_torch.ops import gf256, hh_device, rs_device
 
     timer = Timer(torch)
     out = {}
-    pm = gf256.parity_matrix(8, 4)
-    b, k, r, length = 32, 8, 4, 131072
-    bufs = [torch.from_numpy(rng.integers(0, 256, size=(b, k, length),
-                                          dtype=np.uint8)).to(dev)
-            for _ in range(4)]          # 128 MiB of inputs: L2 is 50 MB
-    ms = timer(lambda i: rs_device.gf_apply(pm, bufs[i % 4]), iters=40)
-    plain = timer(lambda i: rs_device.gf_apply_plain(pm, bufs[i % 4]),
-                  iters=4, warmup=1)
-    nbytes = b * k * length + b * r * length + r * k * 256
-    ops = 2 * b * r * k * length        # one table lookup + one XOR each
-    out["gf_apply"] = (ms, plain) + bound(nbytes, ops)
+    pm = gf256.parity_matrix(K, M)
+    r, length = M, SHARD
+    for b, nbuf in ((32, 4), (256, 2)):      # inputs > 50 MB of L2 together
+        bufs = [torch.from_numpy(rng.integers(0, 256, size=(b, K, length),
+                                              dtype=np.uint8)).to(dev)
+                for _ in range(nbuf)]
+        nbytes = b * K * length + b * r * length
+        ms = timer(lambda i: rs_device.gf_apply(pm, bufs[i % nbuf]), iters=40)
+        plain = timer(lambda i: rs_device.gf_apply_plain(pm, bufs[i % nbuf]),
+                      iters=2, warmup=1)
+        # One table lookup and one XOR per (output row, input shard, byte).
+        out[("gf_apply", b)] = (ms, plain) + bound(
+            nbytes + r * K * 256, 2 * b * r * K * length, INT32_OPS_PER_S)
+        ms = timer(lambda i: rs_i8_kernel.rs_apply8(pm, bufs[i % nbuf]),
+                   iters=40)
+        plain = timer(lambda i: rs_i8_kernel.rs_apply8_plain(
+            pm, bufs[i % nbuf]), iters=2, warmup=1)
+        # The needed int8 product: [8r, 8k] bit matrix over every byte lane.
+        out[("rs_i8", b)] = (ms, plain) + bound(
+            nbytes, 2 * (8 * r) * (8 * K) * b * length, INT8_TC_OPS_PER_S)
+        del bufs
+        torch.cuda.empty_cache()
 
-    s, length = 384, 131072
+    s = 384
     rows = [torch.from_numpy(rng.integers(0, 256, size=(s, length),
                                           dtype=np.uint8)).to(dev)
             for _ in range(2)]          # 96 MiB
     ms = timer(lambda i: hh_device.hash_rows(rows[i % 2]), iters=10)
     plain = timer(lambda i: hh_device.hash_bytes_plain(rows[i % 2]),
                   iters=1, warmup=0)
-    nbytes = s * length + s * 32
     # ~104 32-bit integer operations per packet update (four lanes of
-    # 64-bit adds, 32x32->64 products and XORs, four zipper merges):
-    # the data's packets plus the 10 finalisation rounds.
+    # 64-bit adds, 32x32->64 products and XORs, four zipper merges): the
+    # data's packets plus the 10 finalisation rounds.
     ops = 104 * s * (length // 32 + (1 if length % 32 else 0) + 10)
-    out["highwayhash256"] = (ms, plain) + bound(nbytes, ops)
-    for name, (ms, plain, bms, by) in out.items():
-        log(f"time {name}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}), {bms / ms * 100:.2f}% of bound")
+    out[("highwayhash256", 32)] = (ms, plain) + bound(
+        s * length + s * 32, ops, INT32_OPS_PER_S)
+    for (name, b), (ms, plain, bms, by) in out.items():
+        log(f"time {name} at {b} blocks: {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), {bms / ms * 100:.2f}% of bound")
     return out
-
-
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> int:
@@ -332,7 +599,7 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build()
     log(f"kernel build {time.perf_counter() - t0:.2f} s")
     for kern in _build.KERNELS:
@@ -342,29 +609,39 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1234)
-    errs = {"gf_apply": 0, "highwayhash256": 0}
+    errs = {"gf_apply": 0, "highwayhash256": 0, "rs_i8": 0}
     phase_kernels(torch, dev, rng, errs)
     root = drive_root()
     try:
-        launches, _ = phase_main_path(torch, rng, root)
+        seq = phase_main_path(torch, rng, root)
+        conc, _ = phase_concurrent(torch, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    solo_dispatch_ms(torch, rng)
+    b5 = phase_b5_entry_point(torch)
     times = phase_times(torch, dev, rng)
 
+    launches = {"gf_apply": seq["gf_apply"] + conc["gf_apply"],
+                "highwayhash256": seq["highwayhash256"]
+                + conc["highwayhash256"],
+                "rs_i8": b5["rs_i8"]}
     meta = {
         "gf_apply": ("minio_tpu_torch/ops/csrc/gf_apply.cu",
-                     "minio_tpu/ops/rs_device.py:321"),
+                     "minio_tpu/ops/rs_device.py:321", 32),
         "highwayhash256": ("minio_tpu_torch/ops/csrc/highwayhash.cu",
-                           "minio_tpu/ops/hh_device.py:525"),
+                           "minio_tpu/ops/hh_device.py:525", 32),
+        "rs_i8": ("minio_tpu_torch/ops/csrc/rs_i8.cu",
+                  "experiments/rs_i8_kernel.py:78", 256),
     }
     kernels = []
-    for kern, (src, replaces) in meta.items():
-        ms, plain, bms, by = times[kern]
+    for kern, (src, replaces, blocks) in meta.items():
+        ms, plain, bms, by = times[(kern, blocks)]
         kernels.append({"name": kern, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[kern],
                         "max_abs_err": errs[kern], "ms": ms,
                         "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                         "library_ms": None})
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,9 +4,17 @@ Every entry point (server, ErasureSet, backends, framers) runs on the
 card unless the caller asks for the CPU: `device="cpu"` in the library,
 `--device cpu` on the command line. Asking for the card where none is
 visible raises; nothing falls back to the CPU behind the caller's back.
+
+`lane_stream(device)` is the CUDA stream that the kernel lane's batched
+dispatches (ops/batcher.py through io/engine.kernel_lane) run on, one per
+card, apart from the default stream that request threads use for their
+ragged tails.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -24,3 +32,22 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+_streams: dict[torch.device, torch.cuda.Stream] = {}
+_streams_mu = threading.Lock()
+
+
+def lane_stream(device) -> contextlib.AbstractContextManager:
+    """A context that makes the kernel lane's stream on `device` current
+    (a no-op for the CPU)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _streams_mu:
+        stream = _streams.get(dev)
+        if stream is None:
+            stream = _streams[dev] = torch.cuda.Stream(device=dev)
+    return torch.cuda.stream(stream)

@@ -5,8 +5,8 @@ erasureObjects, cmd/erasure-object.go) for one set of local drives:
 
   * PutObject splits the object into 1 MiB erasure blocks and walks them
     in windows of STREAM_WINDOW_BLOCKS blocks, so device memory stays
-    O(window) for any object size. Every window of full blocks goes
-    through the fused device framer (ops/hh_device.make_encode_framer:
+    O(window) for any object size. Every window's full blocks go
+    through the fused device framer (ops/hh_device.make_mesh_framer:
     RS parity + the HighwayHash-256 of every shard block); the ragged
     last block goes through ops/rs_device.gf_apply and
     ops/hh_device.hash_blocks_device. Shard files (`digest || block`
@@ -16,15 +16,26 @@ erasureObjects, cmd/erasure-object.go) for one set of local drives:
     inline into xl.meta.
   * GetObject picks the version agreed by read quorum, reads the k data
     shards window by window and verifies every block digest on the
-    device (ops/hh_device.make_deframer); the payload is served from the
-    host's own framed bytes.
+    device (ops/hh_device.make_mesh_deframer); the payload is served from
+    the host's own framed bytes.
   * With drives missing, or blocks failing their digest, GetObject
     verifies the surviving shards on the device and rebuilds the data
     shards through the decode matrix on the device
-    (ops/rs_device.GpuBackend).
+    (ops/rs_device.make_mesh_matrix; the ragged tail through GpuBackend).
+
+Full blocks of every window go through the cross-request stripe batcher
+(ops/batcher.StripeBatcher), one per route and config: the PUT framer,
+the GET verify and the degraded-read reconstruct. Windows of concurrent
+requests coalesce into one device dispatch from pinned staging; a lone
+window dispatches straight through (MIN_DEVICE_BLOCKS is 1 here). The
+ragged tail of a window keeps its direct kernel calls.
 
 There is no host cutover: on the card every window runs the kernels, and
-with device="cpu" their plain PyTorch versions. The on-disk bytes are
+with device="cpu" their plain PyTorch versions. The batchers' host rivals
+(`_host_rows`, `_host_deframe`, `_host_apply_rows`) run only when a
+caller pins a route to the host (MTPU_BATCH_FORCE=host, or force(False)),
+and such windows are counted as host windows. A device exception fails
+the request; nothing retries it on the host. The on-disk bytes are
 identical to the TPU package's for the same objects.
 """
 
@@ -42,17 +53,20 @@ import numpy as np
 import torch
 
 from minio_tpu_torch import device as device_mod
-from minio_tpu_torch.erasure.codec import Erasure
+from minio_tpu_torch.erasure.codec import _HOST, Erasure
+from minio_tpu_torch.io.bufpool import global_pool
+from minio_tpu_torch.io.engine import kernel_lane, shutdown_kernel_lane
 from minio_tpu_torch.object.types import (BucketExists, BucketNotFound,
                                           ObjectInfo, ObjectNotFound,
                                           ReadQuorumError, WriteQuorumError)
 from minio_tpu_torch.ops import gf256, hh_device, rs_device
+from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
 from minio_tpu_torch.storage.local import SYS_VOL, VolumeExists
 from minio_tpu_torch.storage.meta import (ErasureInfo, FileInfo,
                                           FileNotFoundErr, ObjectPartInfo,
                                           VersionNotFoundErr, new_uuid, now_ns)
-from minio_tpu_torch.utils.highwayhash import MAGIC_KEY
+from minio_tpu_torch.utils.highwayhash import MAGIC_KEY, highwayhash256_many
 
 BLOCK_SIZE = 1 << 20              # reference blockSizeV2 (cmd/object-api-common.go:37)
 SMALL_FILE_THRESHOLD = 128 << 10  # inline threshold (storage-class.go:278)
@@ -61,6 +75,119 @@ STAGING_PREFIX = "staging"
 # one framer or deframer dispatch and bounds device memory per request.
 STREAM_WINDOW_BLOCKS = 32
 DIGEST = bitrot.digest_size(bitrot.DEFAULT_ALGORITHM)
+# Full blocks a window needs before it may take the device route on its
+# own. The JAX package's 8 was tuned on a TPU; until an H100 measurement
+# sets it, every window of full blocks goes to the card.
+MIN_DEVICE_BLOCKS = 1
+
+
+# -- the stripe batchers' device functions and host rivals --------------------
+
+def _host_rows(k: int, m: int, stacked: np.ndarray) -> list[list]:
+    """Host-codec twin of the framer's rows: per-drive lists over erasure
+    blocks of (digest, block) pieces. The put batcher's host rival."""
+    b, _, shard = stacked.shape
+    n = k + m
+    if m:
+        flat = np.ascontiguousarray(stacked.transpose(1, 0, 2)) \
+            .reshape(k, b * shard)
+        parity = np.asarray(_HOST.apply_matrix(gf256.parity_matrix(k, m),
+                                               flat)) \
+            .reshape(m, b, shard).transpose(1, 0, 2)
+    else:
+        parity = np.zeros((b, 0, shard), dtype=np.uint8)
+    blocks = np.concatenate([stacked, parity], axis=1)   # [B, n, S]
+    digs = highwayhash256_many(MAGIC_KEY, blocks.reshape(b * n, shard)) \
+        .reshape(b, n, DIGEST)
+    return [[(digs[bi, i], blocks[bi, i]) for bi in range(b)]
+            for i in range(n)]
+
+
+@functools.lru_cache(maxsize=64)
+def _mesh_framer_for(k: int, m: int, device: str):
+    """The put batcher's device function for one EC config and device
+    (ops/hh_device.make_mesh_framer)."""
+    return hh_device.make_mesh_framer(gf256.parity_matrix(k, m),
+                                      device=device)
+
+
+def _batcher_for(k: int, m: int, device: str) -> StripeBatcher:
+    """Cross-request PUT batcher for one EC config: concurrent PUT windows
+    coalesce into one framer dispatch staged in pooled (pinned) memory."""
+    return StripeBatcher(_mesh_framer_for(k, m, device),
+                         functools.partial(_host_rows, k, m),
+                         min_device_blocks=MIN_DEVICE_BLOCKS,
+                         pool=global_pool(device), name=f"{k}+{m}")
+
+
+def _host_deframe(stacked: np.ndarray):
+    """Host twin of the device de-framer (the get batcher's host rival):
+    HighwayHash of every framed block of `stacked` [B, k, 32+S], verdicts
+    [B, k] plus the payload as views, field-identical to
+    make_mesh_deframer's run() + _get_split."""
+    b, k, f = stacked.shape
+    s = f - DIGEST
+    digs = highwayhash256_many(
+        MAGIC_KEY, np.ascontiguousarray(stacked[:, :, DIGEST:])
+        .reshape(b * k, s))
+    want = stacked[:, :, :DIGEST].reshape(b * k, DIGEST)
+    ok = (digs == want).all(axis=1).reshape(b, k)
+    return ok, stacked[:, :, DIGEST:]
+
+
+def _get_split(ok, off, c, member):
+    """Demux one coalesced GET verify dispatch: the member's verdict rows
+    plus its payload as views of its OWN framed window (blocks never
+    come back from the card)."""
+    return ok[off:off + c], member[:, :, DIGEST:]
+
+
+def _get_concat(a, b):
+    return (np.concatenate([a[0], b[0]]),
+            np.concatenate([a[1], b[1]]))
+
+
+def _get_batcher_for(k: int, m: int, device: str) -> StripeBatcher:
+    """Cross-request GET verify batcher for one EC config: stacked framed
+    windows [B, k, 32+shard] of concurrent GETs coalesce into one
+    de-framer dispatch (ops/hh_device.make_mesh_deframer)."""
+    return StripeBatcher(hh_device.make_mesh_deframer(k, device=device),
+                         _host_deframe,
+                         min_device_blocks=MIN_DEVICE_BLOCKS,
+                         pool=global_pool(device), name=f"get:{k}+{m}",
+                         route="get", split_fn=_get_split,
+                         concat_fn=_get_concat)
+
+
+def _host_apply_rows(rows: np.ndarray, stacked: np.ndarray) -> np.ndarray:
+    """Host GF application of `rows` [r, k] to a stripe batch [B, k, S]
+    -> [B, r, S] (the reconstruct batcher's host rival): the transform
+    is per byte column, so the batch flattens into one host-codec call."""
+    b, k, s = stacked.shape
+    flat = np.ascontiguousarray(stacked.transpose(1, 0, 2)) \
+        .reshape(k, b * s)
+    out = np.asarray(_HOST.apply_matrix(rows, flat))
+    return np.ascontiguousarray(
+        out.reshape(rows.shape[0], b, s).transpose(1, 0, 2))
+
+
+def _reconstruct_batcher_for(k: int, m: int, use: tuple, missing: tuple,
+                             device: str) -> StripeBatcher:
+    """Batched reconstruct for one (EC config, surviving-shard set):
+    degraded-read windows stack their survivors [B, k, S] and the
+    decode-matrix rows of the missing data shards apply in one dispatch
+    (ops/rs_device.make_mesh_matrix). Concurrent degraded GETs coalesce
+    when their objects share a survivor set."""
+    dec = gf256.decode_matrix(k, m, use)
+    rows = np.ascontiguousarray(dec[list(missing), :])
+    return StripeBatcher(
+        rs_device.make_mesh_matrix(rows, device=device),
+        functools.partial(_host_apply_rows, rows),
+        min_device_blocks=MIN_DEVICE_BLOCKS, pool=global_pool(device),
+        name=f"rec:{k}+{m}:" + ",".join(map(str, use)),
+        route="reconstruct",
+        split_fn=lambda out, off, c, _member: out[off:off + c],
+        concat_fn=lambda a, b: np.concatenate([a, b]))
 
 
 def default_parity(set_size: int) -> int:
@@ -131,31 +258,64 @@ class ErasureSet:
         self.backend = rs_device.GpuBackend(self.device)
         self.pool = ThreadPoolExecutor(max_workers=max(8, 2 * n))
         self._ns = _KeyLocks()
-        # Windows that went through the device kernels, by route.
+        # Windows of full blocks by route, as the batcher routed them:
+        # through the device kernels, or through a host rival (only when
+        # a caller pinned the route to the host).
         self.device_windows = {"put": 0, "get": 0, "reconstruct": 0}
+        self.host_windows = {"put": 0, "get": 0, "reconstruct": 0}
         self._stat_mu = threading.Lock()
-        self._pipelines: dict[tuple, object] = {}   # framers, deframers
+        # Stripe batchers, keyed (route, k, m, use, missing, device).
+        self._batchers: dict[tuple, StripeBatcher] = {}
+        self._batchers_mu = threading.Lock()
 
     def close(self) -> None:
+        """Stop the drive fan-out pool and the batchers, then join the
+        kernel lane, whose worker calls into CUDA and must not outlive
+        the process's useful life."""
         self.pool.shutdown(wait=True)
+        with self._batchers_mu:
+            batchers = list(self._batchers.values())
+            self._batchers.clear()
+        for sb in batchers:
+            sb.close()
+        shutdown_kernel_lane()
 
-    def _count(self, route: str) -> None:
+    def _count(self, route: str, path: str) -> None:
         with self._stat_mu:
-            self.device_windows[route] += 1
+            if path == "device":
+                self.device_windows[route] += 1
+            else:
+                self.host_windows[route] += 1
 
-    def _framer(self, k: int, m: int):
-        key = ("put", k, m)
-        if key not in self._pipelines:
-            self._pipelines[key] = hh_device.make_encode_framer(
-                gf256.parity_matrix(k, m), device=self.device)
-        return self._pipelines[key]
+    def _batcher(self, route: str, k: int, m: int, use: tuple = (),
+                 missing: tuple = ()) -> StripeBatcher:
+        dev = str(self.device)
+        key = (route, k, m, use, missing, dev)
+        with self._batchers_mu:
+            sb = self._batchers.get(key)
+            if sb is None:
+                if route == "put":
+                    sb = _batcher_for(k, m, dev)
+                elif route == "get":
+                    sb = _get_batcher_for(k, m, dev)
+                else:
+                    sb = _reconstruct_batcher_for(k, m, use, missing, dev)
+                self._batchers[key] = sb
+            return sb
 
-    def _deframer(self, k: int):
-        key = ("get", k)
-        if key not in self._pipelines:
-            self._pipelines[key] = hh_device.make_deframer(
-                k, device=self.device)
-        return self._pipelines[key]
+    def batcher_stats(self) -> dict:
+        """Per route: dispatches (device/host), members (requests by path),
+        buckets used, fill ratio, the most members one dispatch carried,
+        dispatches with 2+ members, deadline culls, and the coalescing-
+        wait and kernel-lane service histograms; beside them the kernel
+        lane's own stats and the set's window counts."""
+        with self._batchers_mu:
+            sbs = list(self._batchers.values())
+        with self._stat_mu:
+            windows = {"device": dict(self.device_windows),
+                       "host": dict(self.host_windows)}
+        return {"routes": merge_route_stats([sb.stats() for sb in sbs]),
+                "lane": kernel_lane().stats(), "windows": windows}
 
     def _fanout(self, fns) -> tuple[list, list]:
         """Run one callable per drive in parallel (None = skip). Returns
@@ -215,9 +375,10 @@ class ErasureSet:
                 stacked[:, :BLOCK_SIZE] = buf[:full * BLOCK_SIZE] \
                     .reshape(full, BLOCK_SIZE)
                 stacked = stacked.reshape(full, k, ss)
-            for i, pieces in enumerate(self._framer(k, m)(stacked)):
+            sb = self._batcher("put", k, m)
+            for i, pieces in enumerate(sb.frame(stacked)):
                 rows[i].extend(pieces)
-            self._count("put")
+            self._count("put", sb.last_route())
         if buf.size > full * BLOCK_SIZE:
             data = e.split(buf[full * BLOCK_SIZE:])           # [k, per]
             shards = rs_device.host_tensor(data).to(self.device)
@@ -451,7 +612,7 @@ class ErasureSet:
         if all(r is not None and len(r) == expect for r in raw):
             # Healthy path: every data-shard block verifies on the device.
             blobs = [np.frombuffer(r, dtype=np.uint8) for r in raw]
-            bad = self._verify_data_shards(blobs, k, ss, full, slast)
+            bad = self._verify_data_shards(blobs, k, m, ss, full, slast)
             if not bad:
                 return self._assemble(
                     fi, [self._unframe(b, ss, full, slast) for b in blobs],
@@ -473,16 +634,18 @@ class ErasureSet:
         self._decode_missing(shards, k, m, ss, win_len)
         return self._assemble(fi, shards, k, ss, start_b, nb)
 
-    def _verify_data_shards(self, blobs, k, ss, full, slast) -> set[int]:
-        """Indices of data shards with a block failing its digest."""
+    def _verify_data_shards(self, blobs, k, m, ss, full, slast) -> set[int]:
+        """Indices of data shards with a block failing its digest: the
+        full frames through the get batcher, the ragged tail directly."""
         frame = DIGEST + ss
         bad: set[int] = set()
         if full:
             stacked = np.empty((full, k, frame), dtype=np.uint8)
             for i, arr in enumerate(blobs):
                 stacked[:, i, :] = arr[:full * frame].reshape(full, frame)
-            ok = self._deframer(k)(stacked)
-            self._count("get")
+            sb = self._batcher("get", k, m)
+            ok, _ = sb.frame(stacked)
+            self._count("get", sb.last_route())
             bad |= {i for i in range(k) if not ok[:, i].all()}
         if slast != ss:
             off = full * frame
@@ -527,7 +690,8 @@ class ErasureSet:
     def _decode_missing(self, shards: list, k: int, m: int, ss: int,
                         win_len: int) -> None:
         """Rebuild missing data shards from the first k survivors through
-        the decode matrix on the device."""
+        the decode matrix: the full shard blocks through the reconstruct
+        batcher of this survivor set, the ragged tail directly."""
         missing = [i for i in range(k) if shards[i] is None]
         if not missing:
             return
@@ -538,10 +702,9 @@ class ErasureSet:
         if full:
             stacked = np.stack([shards[i][:full * ss].reshape(full, ss)
                                 for i in use], axis=1)       # [full, k, ss]
-            out = self.backend.apply_matrix_device(
-                rows, rs_device.host_tensor(stacked).to(self.device)) \
-                .cpu().numpy()                              # [full, r, ss]
-            self._count("reconstruct")
+            sb = self._batcher("reconstruct", k, m, use, tuple(missing))
+            out = sb.frame(stacked)                          # [full, r, ss]
+            self._count("reconstruct", sb.last_route())
             for r, arr in enumerate(rebuilt):
                 arr[:full * ss] = out[:, r].reshape(-1)
         if win_len > full * ss:

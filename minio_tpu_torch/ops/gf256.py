@@ -14,9 +14,9 @@ xxhash64 digests from cmd/erasure-coding.go:163).
 Everything here is host-side (numpy) table math: building the (tiny) coding
 matrices, inverting sub-matrices for reconstruct, and the 256x256
 multiplication table whose rows the CUDA GF kernel stages in shared memory
-(minio_tpu_torch/ops/rs_device.py). A copy of minio_tpu/ops/gf256.py
-without the GF(2) bit-matrix expansion, which only the TPU's bitplane
-matmul needed.
+(minio_tpu_torch/ops/rs_device.py), and the GF(2) bit-matrix expansion
+that the tensor-core kernel of minio_tpu_torch/experiments/rs_i8_kernel.py
+multiplies by. A copy of minio_tpu/ops/gf256.py.
 """
 
 from __future__ import annotations
@@ -57,6 +57,10 @@ def _build_mul_table() -> np.ndarray:
     return mul
 
 MUL_TABLE = _build_mul_table()
+
+
+def gf_mul(a: int, b: int) -> int:
+    return int(MUL_TABLE[a, b])
 
 
 def gf_div(a: int, b: int) -> int:
@@ -189,3 +193,43 @@ def gf_matvec_bytes(matrix: np.ndarray, shards: np.ndarray) -> np.ndarray:
                 acc ^= MUL_TABLE[c][shards[j]]
     return out
 
+
+# ---------------------------------------------------------------------------
+# GF(2) bit-matrix decomposition: the bridge to an int8 matrix unit.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _const_mul_bitmatrix(c: int) -> np.ndarray:
+    """8x8 GF(2) matrix B such that bits(c*x) = B @ bits(x) mod 2.
+
+    Bit order: index 0 = least-significant bit. Multiplication by a
+    constant is GF(2)-linear, so it is fully described by its action on
+    the 8 basis bytes 1<<j.
+    """
+    b = np.zeros((8, 8), dtype=np.uint8)
+    for j in range(8):
+        y = gf_mul(c, 1 << j)
+        for i in range(8):
+            b[i, j] = (y >> i) & 1
+    return b
+
+
+def bit_matrix(matrix: np.ndarray) -> np.ndarray:
+    """Expand an (r x k) GF(2^8) matrix into an (r*8 x k*8) GF(2) matrix:
+    row j*8 + c (output byte j, bit c), column i*8 + b (input byte i,
+    bit b).
+
+    With data bytes unpacked to bit planes, the whole Reed-Solomon
+    transform becomes a binary matrix product followed by mod 2. Sums
+    reach k*8 ones, so the product must accumulate exactly: int8
+    operands with int32 accumulation on the tensor cores, or float32 on
+    0/1 values in the plain version (exact below 2^24).
+    """
+    matrix = np.asarray(matrix, dtype=np.uint8)
+    r, k = matrix.shape
+    out = np.zeros((r * 8, k * 8), dtype=np.uint8)
+    for i in range(r):
+        for j in range(k):
+            out[i * 8:(i + 1) * 8, j * 8:(j + 1) * 8] = \
+                _const_mul_bitmatrix(int(matrix[i, j]))
+    return out

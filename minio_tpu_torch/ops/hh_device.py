@@ -19,6 +19,10 @@ under the magic key (reference: cmd/bitrot.go:37, 105-110). Here:
     returned as per-drive (digest, block) pieces with the data blocks as
     zero-copy views of the caller's buffer.
   * `make_deframer` — GetObject's verify: framed [B, k, 32+S] -> ok [B, k].
+  * `make_mesh_framer`, `make_mesh_deframer` — the same run() contracts
+    for the stripe batcher's put and get routes (ops/batcher.py): a
+    staged batch from many requests, copied to the card without blocking
+    on the kernel lane's stream, on one card (`mesh_batch_devices`).
 
 The plain version runs the packet recurrence of the reference algorithm
 on int64 tensors holding 32-bit halves masked with 0xFFFFFFFF (PyTorch has
@@ -368,7 +372,10 @@ def make_encode_framer(matrix: np.ndarray, device=None):
         b, kk, _ = data.shape
         if kk != k:
             raise ValueError(f"framer for k={k} got {kk} data shards")
-        shards, digs = frame_on_device(rs_device.host_tensor(data).to(dev))
+        # Non-blocking: from pinned staging a DMA queued on the current
+        # stream; the copies back below wait for it before run() returns.
+        shards, digs = frame_on_device(
+            rs_device.host_tensor(data).to(dev, non_blocking=True))
         parity = shards[:, k:].cpu().numpy()
         digs = digs.cpu().numpy()
         blocks = [data[:, i] for i in range(k)] \
@@ -404,8 +411,56 @@ def make_deframer(k: int, device=None):
         b, kk, f = framed.shape
         if kk != k:
             raise ValueError(f"deframer for k={k} got {kk} shards")
-        rows = rs_device.host_tensor(framed).to(dev).view(b * kk, f)
+        rows = rs_device.host_tensor(framed).to(dev, non_blocking=True) \
+            .view(b * kk, f)
         digs = hash_rows(rows, skip=DIGEST)
         ok = (digs == rows[:, :DIGEST]).all(dim=1).view(b, kk)
         return ok.cpu().numpy()
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Cross-request pipelines (the stripe batcher's device functions)
+# ---------------------------------------------------------------------------
+
+def mesh_batch_devices(device=None) -> list[torch.device]:
+    """The devices one batched dispatch spreads its batch over: one card
+    (or the CPU). Sharding the batch over several cards, as the JAX
+    package's mesh does over its chips, is still to be ported."""
+    return [device_mod.resolve(device)]
+
+
+def make_mesh_framer(matrix: np.ndarray, device=None):
+    """The put batcher's device function: make_encode_framer's run()
+    contract (stacked uint8 [B, k, L] -> k+m per-drive lists of
+    (digest, block) pieces) for a batch of stripes from many concurrent
+    PutObject windows, run on the kernel lane's stream. The batch is the
+    batcher's pinned staging buffer, copied to the card without blocking;
+    the data-block pieces it returns are views of that buffer, which the
+    batcher re-points to each member's own window before the buffer goes
+    back to the pool."""
+    dev = device_mod.resolve(device)
+    frame = make_encode_framer(matrix, device=dev)
+
+    def run(data: np.ndarray) -> list[list[tuple]]:
+        with device_mod.lane_stream(dev):
+            return frame(data)
+
+    run.mesh_devices = len(mesh_batch_devices(dev))
+    return run
+
+
+def make_mesh_deframer(k: int, device=None):
+    """The get batcher's device function: make_deframer's run() contract
+    (framed uint8 [B, k, F] -> ok bool [B, k]) for a batch of framed
+    blocks from many concurrent GetObject windows, run on the kernel
+    lane's stream. Only the B*k verdicts come back from the card."""
+    dev = device_mod.resolve(device)
+    verify = make_deframer(k, device=dev)
+
+    def run(framed: np.ndarray) -> np.ndarray:
+        with device_mod.lane_stream(dev):
+            return verify(framed)
+
+    run.mesh_devices = len(mesh_batch_devices(dev))
     return run

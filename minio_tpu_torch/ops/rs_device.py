@@ -17,6 +17,8 @@ Two contracts, as in minio_tpu/ops/rs_device.py:
     one byte kernel.
 
 `GpuBackend` is the codec's ECBackend on the card: numpy in, numpy out.
+`make_mesh_matrix` is the reconstruct batcher's device function: a staged
+batch of survivor stripes through `gf_apply` on the kernel lane's stream.
 """
 
 from __future__ import annotations
@@ -62,12 +64,21 @@ def _as_matrix(matrix) -> np.ndarray:
     return m
 
 
+def device_constant(a: np.ndarray, device: str) -> torch.Tensor:
+    """A fixed kernel operand on `device`, complete before it returns:
+    the upload is synchronised, so a kernel on any stream (the kernel
+    lane's or a request thread's) may read it at once."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if t.device.type == "cuda":
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
+
+
 @functools.lru_cache(maxsize=256)
 def _tables_cached(key: bytes, r: int, k: int, device: str) -> torch.Tensor:
     """Product-table rows [r, k, 256]: row (j, i) = MUL[M[j, i]][x]."""
     m = np.frombuffer(key, dtype=np.uint8).reshape(r, k)
-    return torch.from_numpy(np.ascontiguousarray(gf256.MUL_TABLE[m])) \
-        .to(device)
+    return device_constant(gf256.MUL_TABLE[m], device)
 
 
 def product_tables(matrix, device) -> torch.Tensor:
@@ -180,6 +191,37 @@ def host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def make_mesh_matrix(matrix, device=None):
+    """Batched GF(2^8) matrix application for the reconstruct batcher:
+    run(stacked uint8 numpy [B, k, L]) -> numpy [B, r, L] through
+    `gf_apply` on `device`. The batch (a staged, pinned buffer behind the
+    batcher) goes to the card with a non-blocking copy on the kernel
+    lane's stream; the copy of the result back synchronises that stream,
+    so the staging buffer is free again when run() returns."""
+    from minio_tpu_torch.ops.hh_device import mesh_batch_devices
+    m = _as_matrix(matrix)
+    dev = device_mod.resolve(device)
+
+    def run(stacked: np.ndarray) -> np.ndarray:
+        stacked = np.ascontiguousarray(stacked, dtype=np.uint8)
+        with device_mod.lane_stream(dev):
+            data = host_tensor(stacked).to(dev, non_blocking=True)
+            return gf_apply(m, data).cpu().numpy()
+
+    run.mesh_devices = len(mesh_batch_devices(dev))
+    return run
+
+
+def mesh_info(device=None) -> dict:
+    """Device summary for stats surfaces: the backend, the devices torch
+    sees, and how many of them a batched dispatch spreads over."""
+    from minio_tpu_torch.ops.hh_device import mesh_batch_devices
+    dev = device_mod.resolve(device)
+    return {"backend": dev.type,
+            "devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
+            "mesh_devices": len(mesh_batch_devices(dev))}
+
+
 class GpuBackend:
     """ECBackend on the card (minio_tpu_torch/erasure/codec.py): numpy in,
     numpy out, every product through `gf_apply` on `device`."""
@@ -194,8 +236,3 @@ class GpuBackend:
             return np.zeros((m.shape[0], 0), dtype=np.uint8)
         data = host_tensor(shards).to(self.device)[None]
         return gf_apply(m, data)[0].cpu().numpy()
-
-    def apply_matrix_device(self, matrix: np.ndarray,
-                            data: torch.Tensor) -> torch.Tensor:
-        """data uint8 [B, k, L] on the device -> [B, r, L] on the device."""
-        return gf_apply(matrix, data)

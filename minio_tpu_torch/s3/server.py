@@ -65,6 +65,13 @@ def _http_date(ns: int) -> str:
     return email.utils.formatdate(ns / 1e9, usegmt=True)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # socketserver's listen backlog of 5 drops the connects of a burst of
+    # concurrent clients (each then waits a SYN retry); the stripe batcher
+    # wants those requests to arrive together.
+    request_queue_size = 128
+
+
 class S3Server:
     """S3 over HTTP for one object layer (an ErasureSet)."""
 
@@ -76,7 +83,7 @@ class S3Server:
 
         class Handler(_Handler):
             s3 = server
-        self.httpd = ThreadingHTTPServer(address, Handler)
+        self.httpd = _HTTPServer(address, Handler)
         self.httpd.daemon_threads = True
 
     @property

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,11 @@ def test_no_forbidden_imports(path):
 
 def test_importing_the_package_loads_none_of_them():
     mods = ["minio_tpu_torch.server", "minio_tpu_torch.ops.rs_device",
-            "minio_tpu_torch.ops.hh_device", "minio_tpu_torch.storage.bitrot"]
+            "minio_tpu_torch.ops.hh_device", "minio_tpu_torch.storage.bitrot",
+            "minio_tpu_torch.ops.batcher", "minio_tpu_torch.io.engine",
+            "minio_tpu_torch.io.bufpool", "minio_tpu_torch.utils.deadline",
+            "minio_tpu_torch.utils.latency",
+            "minio_tpu_torch.experiments.rs_i8_kernel"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -60,6 +65,13 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
         rs_device.GpuBackend()
     with pytest.raises(RuntimeError):
         hh_device.make_deframer(4)
+    pm = np.array([[1, 1], [1, 2]], dtype=np.uint8)
+    for make in (lambda: hh_device.make_mesh_framer(pm),
+                 lambda: hh_device.make_mesh_deframer(2),
+                 lambda: rs_device.make_mesh_matrix(pm),
+                 lambda: rs_device.mesh_info()):
+        with pytest.raises(RuntimeError):
+            make()
     with pytest.raises(RuntimeError):
         ErasureSet([LocalStorage(str(tmp_path / f"d{i}")) for i in range(4)])
     assert device.resolve("cpu") == torch.device("cpu")
