@@ -29,9 +29,11 @@ and prints no result line):
    are wiped and 16 threads GET all 96 again. Byte identity every time;
    on each of the put, get and reconstruct routes at least one device
    dispatch carried 2 or more requests' windows, no window went to the
-   host, and no deadline culled a member. Then each route's device
-   function alone on one 8-block bucket (host clock), the yardstick for
-   the lane's service times under load.
+   host, and no deadline culled a member. Each route's kernel-lane
+   dispatches are read as round trip, queue wait and service apart. Then
+   each route's device function alone, with no request threads, at every
+   bucket that route used (host clock): the yardstick for the lane's
+   service under load, weighted by the phase's own bucket counts.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, then both timed at 256 blocks.
    In phases 3, 4 and 5 every kernel's launch count is set to 0 just
@@ -468,8 +470,10 @@ def phase_concurrent(torch, rng, root):
                 f"{dict(sorted(r['buckets'].items()))}, fill ratio "
                 f"{r['fill_ratio']:.4f}, deadline culls "
                 f"{r['deadline_failures']}")
-            log(f"batcher {route}: coalescing wait {summarize(r['wait_hist'])}; "
-                f"lane service {summarize(r['lane_hist'])}")
+            log(f"batcher {route}: coalescing wait {summarize(r['wait_hist'])}")
+            for part in ("round_trip", "wait", "service"):
+                log(f"batcher {route}: lane {part.replace('_', ' ')} "
+                    f"{summarize(r[f'lane_{part}_hist'])}")
         lane = stats["lane"]
         log(f"kernel lane: {lane['submitted_total']} dispatches, service "
             f"{summarize(lane['service_hist'])}, rejected "
@@ -492,14 +496,22 @@ def phase_concurrent(torch, rng, root):
         s.stop()
 
 
-def solo_dispatch_ms(torch, rng, blocks: int = 8, runs: int = 5) -> dict:
-    """Host-clock ms of each route's device function on one bucket of
-    `blocks` blocks with no request threads around: what a lane dispatch
-    costs when nothing else wants the interpreter."""
+def mean_ms(hist: dict) -> float:
+    return hist["sum"] / max(1, hist["count"]) * 1e3
+
+
+def solo_dispatch_ms(torch, rng, stats: dict, runs: int = 5) -> dict:
+    """Host-clock ms of each route's device function alone, with no
+    request threads around, at every bucket the route used in the
+    concurrent phase; then each route's lane service mean beside the solo
+    time weighted by that route's own bucket counts."""
     from minio_tpu_torch.ops import gf256, hh_device, rs_device
     pm = gf256.parity_matrix(K, M)
-    win = rng.integers(0, 256, size=(blocks, K, SHARD), dtype=np.uint8)
-    framed = rng.integers(0, 256, size=(blocks, K, 32 + SHARD),
+    routes = stats["routes"]
+    most = max(max(routes[r]["buckets"], default=8)
+               for r in ("put", "get", "reconstruct"))
+    win = rng.integers(0, 256, size=(most, K, SHARD), dtype=np.uint8)
+    framed = rng.integers(0, 256, size=(most, K, 32 + SHARD),
                           dtype=np.uint8)
     fns = {"put": (hh_device.make_mesh_framer(pm, "cuda"), win),
            "get": (hh_device.make_mesh_deframer(K, "cuda"), framed),
@@ -507,13 +519,26 @@ def solo_dispatch_ms(torch, rng, blocks: int = 8, runs: int = 5) -> dict:
                            win)}
     out = {}
     for route, (fn, x) in fns.items():
-        fn(x)
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn(x)
-        out[route] = (time.perf_counter() - t0) / runs * 1e3
-    log("solo device function at bucket " + str(blocks) + ", no request "
-        "threads: " + ", ".join(f"{r} {ms:.3f} ms" for r, ms in out.items()))
+        used = routes[route]["buckets"]
+        solo = {}
+        for b in sorted(used):
+            fn(x[:b])
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn(x[:b])
+            solo[b] = (time.perf_counter() - t0) / runs * 1e3
+        weighted = sum(solo[b] * n for b, n in used.items()) \
+            / max(1, sum(used.values()))
+        r = routes[route]
+        rt, wait, service = (mean_ms(r[f"lane_{p}_hist"]) for p in
+                             ("round_trip", "wait", "service"))
+        log(f"solo {route} device function, no request threads: "
+            + ", ".join(f"bucket {b} {ms:.3f} ms" for b, ms in solo.items())
+            + f"; weighted by the phase's buckets {weighted:.3f} ms")
+        log(f"lane {route} means: round trip {rt:.3f} ms = wait {wait:.3f} "
+            f"+ service {service:.3f} + handoffs {rt - wait - service:.3f}; "
+            f"service / solo at its buckets {service / weighted:.2f}x")
+        out[route] = solo
     return out
 
 
@@ -614,10 +639,10 @@ def main() -> int:
     root = drive_root()
     try:
         seq = phase_main_path(torch, rng, root)
-        conc, _ = phase_concurrent(torch, rng, root)
+        conc, conc_stats = phase_concurrent(torch, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    solo_dispatch_ms(torch, rng)
+    solo_dispatch_ms(torch, rng, conc_stats)
     b5 = phase_b5_entry_point(torch)
     times = phase_times(torch, dev, rng)
 

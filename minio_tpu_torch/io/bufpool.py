@@ -17,8 +17,8 @@ Design:
     staged batch, 256 blocks of an EC 8+4 framed window, is ~256 MiB),
     each class a bounded free list; a larger request is served unpooled
     and counted, never refused;
-  * idle pinned memory is capped (MTPU_BUFPOOL_MAX_IDLE_BYTES): a buffer
-    returned past the cap is freed instead of kept;
+  * idle memory is capped at 2 GiB a pool: a buffer returned past the
+    cap is freed instead of kept;
   * leases: a Lease wraps one buffer; release() returns it to the pool.
     A buffer must go back only after every copy that reads it is done:
     the batcher holds its lease until the dispatch's results are on the
@@ -29,7 +29,6 @@ Design:
 
 Environment:
   MTPU_BUFPOOL_MAX_PER_CLASS   buffers kept per size class (default 16)
-  MTPU_BUFPOOL_MAX_IDLE_BYTES  idle bytes kept per pool (default 2 GiB)
   MTPU_BUFPOOL_OFF             "1"/"on" disables pooling (every lease is
                                a fresh buffer; leases still work)
 """
@@ -46,6 +45,7 @@ import torch
 _MIN_CLASS = 16          # 2**16 = 64 KiB
 _MAX_CLASS = 29          # 2**29 = 512 MiB
 CLASS_SIZES = tuple(1 << p for p in range(_MIN_CLASS, _MAX_CLASS + 1))
+_MAX_IDLE_BYTES = 2 << 30  # idle bytes a pool keeps
 
 
 def _class_for(size: int) -> int:
@@ -120,17 +120,13 @@ class BufferPool:
     """Tiered free lists + lease accounting. Thread-safe."""
 
     def __init__(self, max_per_class: int | None = None,
-                 enabled: bool | None = None, pinned: bool = False,
-                 max_idle_bytes: int | None = None):
+                 enabled: bool | None = None, pinned: bool = False):
         if max_per_class is None:
             max_per_class = _env_int("MTPU_BUFPOOL_MAX_PER_CLASS", 16)
-        if max_idle_bytes is None:
-            max_idle_bytes = _env_int("MTPU_BUFPOOL_MAX_IDLE_BYTES", 2 << 30)
         if enabled is None:
             enabled = os.environ.get("MTPU_BUFPOOL_OFF", "").lower() \
                 not in ("1", "on", "true")
         self.max_per_class = max(1, max_per_class)
-        self.max_idle_bytes = max(0, max_idle_bytes)
         self.enabled = enabled
         self.pinned = pinned
         self._mu = threading.Lock()
@@ -193,7 +189,7 @@ class BufferPool:
             self.outstanding -= 1
             if cls >= 0 and self.enabled \
                     and len(self._free[cls]) < self.max_per_class \
-                    and self.idle_bytes + buf.numel() <= self.max_idle_bytes:
+                    and self.idle_bytes + buf.numel() <= _MAX_IDLE_BYTES:
                 self._free[cls].append(buf)
                 self.idle_bytes += buf.numel()
         # Otherwise the buffer is dropped here and freed with its tensor.

@@ -54,8 +54,9 @@ class DriveQueue:
         self.wait_hist = Histogram()
 
     def submit(self, fn) -> Future:
-        """Queue `fn`; returns its Future. A full or closed queue sheds
-        immediately with EngineSaturated."""
+        """Queue `fn`; returns its Future, which carries `wait_s` (time
+        queued) and `service_s` (time in fn) once resolved. A full or
+        closed queue sheds immediately with EngineSaturated."""
         f: Future = Future()
         self._enqueue((f, fn, _time_mod.perf_counter()))
         return f
@@ -108,16 +109,23 @@ class DriveQueue:
             with self._mu:
                 self.in_flight += 1
             t0 = _time_mod.perf_counter()
+            result = exc = None
             try:
-                f.set_result(fn())
+                result = fn()
             except BaseException as e:  # noqa: BLE001 - ferried to caller
-                f.set_exception(e)
-            finally:
-                t1 = _time_mod.perf_counter()
-                with self._mu:
-                    self.in_flight -= 1
-                self.service_hist.observe(t1 - t0)
-                self.wait_hist.observe(t0 - t_sub)
+                exc = e
+            t1 = _time_mod.perf_counter()
+            with self._mu:
+                self.in_flight -= 1
+            self.service_hist.observe(t1 - t0)
+            self.wait_hist.observe(t0 - t_sub)
+            # This op's own split rides on its future, set before the
+            # caller can wake, so callers can keep it per user of the queue.
+            f.wait_s, f.service_s = t0 - t_sub, t1 - t0
+            if exc is None:
+                f.set_result(result)
+            else:
+                f.set_exception(exc)
 
     def close(self) -> None:
         """Refuse new submissions; workers finish what is queued (the

@@ -151,6 +151,10 @@ _REGISTRY: "weakref.WeakSet[StripeBatcher]" = weakref.WeakSet()
 ROUTES = ("put", "get", "reconstruct", "transform")
 
 
+_HISTS = ("wait_hist", "lane_round_trip_hist", "lane_wait_hist",
+          "lane_service_hist")
+
+
 def _route_zero() -> dict:
     return {
         "dispatches": {"device": 0, "host": 0},
@@ -162,7 +166,9 @@ def _route_zero() -> dict:
         "max_members": 0,
         "multi_member_dispatches": 0,
         "wait_hist": None,
-        "lane_hist": None,
+        "lane_round_trip_hist": None,
+        "lane_wait_hist": None,
+        "lane_service_hist": None,
         "fill_ratio": 0.0,
     }
 
@@ -170,11 +176,10 @@ def _route_zero() -> dict:
 def merge_route_stats(stats: list[dict]) -> dict:
     """Sum per-batcher stats() into per-route totals: dispatch, request
     and bucket counters, fill accounting, deadline culls, the most
-    members one dispatch carried, and the merged coalescing-wait and
-    kernel-lane service histograms."""
+    members one dispatch carried, and the merged histograms (coalescing
+    wait; kernel-lane round trip, queue wait and service)."""
     out = {r: _route_zero() for r in ROUTES}
-    hists: dict[str, list] = {r: [] for r in ROUTES}
-    lanes: dict[str, list] = {r: [] for r in ROUTES}
+    hists: dict[tuple, list] = {}
     for st in stats:
         route = st.get("route", "put")
         agg = out.setdefault(route, _route_zero())
@@ -188,11 +193,11 @@ def merge_route_stats(stats: list[dict]) -> dict:
                     "multi_member_dispatches"):
             agg[key] += st[key]
         agg["max_members"] = max(agg["max_members"], st["max_members"])
-        hists.setdefault(route, []).append(st["wait_hist"])
-        lanes.setdefault(route, []).append(st["lane_hist"])
+        for key in _HISTS:
+            hists.setdefault((route, key), []).append(st[key])
     for r, agg in out.items():
-        agg["wait_hist"] = Histogram.merge(hists.get(r, []))
-        agg["lane_hist"] = Histogram.merge(lanes.get(r, []))
+        for key in _HISTS:
+            agg[key] = Histogram.merge(hists.get((r, key), []))
         cap = agg["capacity_blocks"]
         agg["fill_ratio"] = (agg["batched_blocks"] / cap) if cap else 0.0
     return out
@@ -277,8 +282,13 @@ class StripeBatcher:
         # Per-calling-thread record of the last frame() dispatch path
         # (device|host|bypass), so callers count their windows honestly.
         self._local = threading.local()
-        # Kernel-lane service time of this batcher's device dispatches.
-        self._lane_hist = Histogram()
+        # This batcher's device dispatches on the kernel lane: round trip
+        # (submit to result), and its parts, the wait queued behind other
+        # dispatches and the service (the device function itself); the
+        # rest of a round trip is the two thread handoffs.
+        self._lane_rt_hist = Histogram()
+        self._lane_wait_hist = Histogram()
+        self._lane_service_hist = Histogram()
         _REGISTRY.add(self)
 
     # -- calibration ----------------------------------------------------
@@ -366,7 +376,9 @@ class StripeBatcher:
                 "max_members": self._max_members,
                 "multi_member_dispatches": self._multi_member_dispatches,
                 "wait_hist": self._wait_hist.state(),
-                "lane_hist": self._lane_hist.state(),
+                "lane_round_trip_hist": self._lane_rt_hist.state(),
+                "lane_wait_hist": self._lane_wait_hist.state(),
+                "lane_service_hist": self._lane_service_hist.state(),
                 "window_s": self._cur_wait,
             }
 
@@ -540,16 +552,13 @@ class StripeBatcher:
         if len(live) == 1 and live[0].count == bucket:
             return None, live[0].stacked
         shape = (bucket,) + live[0].stacked.shape[1:]
-        lease = None
-        stacked = None
         if self._pool is not None:
-            try:
-                lease = self._pool.lease(int(np.prod(shape)))
-                stacked = lease.ndarray(shape)
-            except Exception:  # noqa: BLE001 - pool pressure -> fresh
-                lease = None
-        if stacked is None:
-            stacked = np.empty(shape, dtype=np.uint8)
+            # The pool serves any size (an oversized request unpooled), so
+            # an error here is an allocation fault and fails the dispatch.
+            lease = self._pool.lease(int(np.prod(shape)))
+            stacked = lease.ndarray(shape)
+        else:
+            lease, stacked = None, np.empty(shape, dtype=np.uint8)
         off = 0
         for p in live:
             stacked[off:off + p.count] = p.stacked
@@ -563,13 +572,22 @@ class StripeBatcher:
 
     def _lane_dispatch(self, stacked: np.ndarray):
         """Run the device function through the process-wide kernel lane
-        (serialised device access + wait/service attribution); a direct
-        call if the lane is saturated or closed."""
+        (serialised device access), keeping the dispatch's round trip,
+        queue wait and service; a direct call (no wait) if the lane is
+        saturated or closed."""
+        t0 = time.perf_counter()
         try:
             fut = kernel_lane().submit(lambda: self._device_fn(stacked))
         except EngineSaturated:
-            return self._device_fn(stacked)
-        return fut.result()
+            fut = None
+        try:
+            return self._device_fn(stacked) if fut is None else fut.result()
+        finally:
+            rt = time.perf_counter() - t0
+            self._lane_rt_hist.observe(rt)
+            self._lane_wait_hist.observe(0.0 if fut is None else fut.wait_s)
+            self._lane_service_hist.observe(rt if fut is None
+                                            else fut.service_s)
 
     def _run_batch(self, batch: list[_Pending]) -> None:
         # Cull members whose budget is already spent: they fail ALONE
@@ -600,7 +618,6 @@ class StripeBatcher:
             if total >= self._min_device_blocks and self._device_ok:
                 route = "device"
                 lease, stacked = self._stage(live, bucket)
-                t_lane = time.perf_counter()
                 try:
                     rows_all = self._lane_dispatch(stacked)
                 finally:
@@ -608,7 +625,6 @@ class StripeBatcher:
                     # back synchronises the lane's stream, so every copy
                     # that read the staging buffer is done here, and not
                     # before.
-                    self._lane_hist.observe(time.perf_counter() - t_lane)
                     if lease is not None:
                         lease.release()
                 if self._split_fn is not None:

@@ -383,3 +383,52 @@ def test_close_drains_and_joins():
     assert _canon(run.results["m"]) == _canon(_rows(_window(2, 80)))
     st = sb.stats()
     assert st["dispatches"]["device"] == 1 and st["max_members"] == 1
+
+
+def test_lane_wait_and_service_kept_apart():
+    """A dispatch queued behind another on the kernel lane: its wait is
+    the other's service, its own service is its device function, and the
+    round trip covers both."""
+    from minio_tpu_torch.io.engine import kernel_lane
+    gate = threading.Event()
+    blocker = kernel_lane().submit(lambda: gate.wait(30))
+
+    def slow(stacked):
+        time.sleep(0.03)
+        return _rows(stacked)
+    sb = port_batcher.StripeBatcher(slow, _rows, min_device_blocks=8)
+    sb.force(True)
+    run = Runner(sb)
+    run.submit("m", _window(8, 90))
+    time.sleep(0.1)
+    gate.set()
+    run.join()
+    blocker.result(10)
+    assert blocker.wait_s >= 0 and blocker.service_s >= 0.09
+    assert _canon(run.results["m"]) == _canon(_rows(_window(8, 90)))
+    st = sb.stats()
+    wait, service, rt = (st[k] for k in (
+        "lane_wait_hist", "lane_service_hist", "lane_round_trip_hist"))
+    assert wait["count"] == service["count"] == rt["count"] == 1
+    assert wait["sum"] >= 0.05
+    assert 0.03 <= service["sum"] < wait["sum"]
+    assert rt["sum"] >= wait["sum"] + service["sum"] - 1e-6
+    merged = port_batcher.merge_route_stats([st])["put"]
+    assert merged["lane_wait_hist"] == wait
+
+
+def test_staging_fault_fails_the_dispatch():
+    """A pool that cannot allocate fails the members' dispatch: the batch
+    is never staged into unpooled pageable memory behind the caller's
+    back."""
+    class BrokenPool:
+        def lease(self, size):
+            raise RuntimeError("cudaHostAlloc failed")
+    dev = GatedDevice(gated=False)
+    sb = port_batcher.StripeBatcher(dev, _rows, min_device_blocks=8,
+                                    pool=BrokenPool())
+    sb.force(True)
+    with pytest.raises(RuntimeError, match="cudaHostAlloc"):
+        sb.frame(_window(9, 91))          # a 16-block bucket: staged
+    assert dev.shapes == []
+    assert sb.stats()["dispatches"]["device"] == 0

@@ -128,6 +128,11 @@ def test_put_coalesced_on_the_device_route(sets):
     assert st["windows"]["device"]["put"] == THREADS
     assert st["windows"]["host"]["put"] == 0
     assert st["lane"]["service_hist"]["count"] >= put["dispatches"]["device"]
+    for key in ("lane_round_trip_hist", "lane_wait_hist",
+                "lane_service_hist"):
+        assert put[key]["count"] == put["dispatches"]["device"], key
+    assert put["lane_round_trip_hist"]["sum"] >= \
+        put["lane_service_hist"]["sum"]
 
 
 def test_concurrent_get_then_degraded_get(sets):
