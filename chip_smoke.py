@@ -12,8 +12,10 @@ and prints no result line):
    byte equality, at the shapes the main path gives it: gf_apply at the
    EC 8+4 PUT window (32 x 8 x 128 KiB, byte and u32 contracts), at the
    4 x 8 decode rows, at ragged lengths and at the batcher's 256-block
-   bucket (a sample of 8 batch rows); highwayhash256 at the window's 384
-   streams x 128 KiB and at ragged lengths, and against the host numpy
+   bucket (a sample of 8 batch rows); highwayhash256 at 1, 12, 96 and 384
+   streams x 128 KiB, at 3,072 (16 sampled rows), at the edges of its
+   shared-memory ring's stages, at ragged lengths, on framed rows hashed
+   from byte 32 and from an unaligned base, and against the host numpy
    hash; rs_i8 at the 32-block window in words (parity and decode rows),
    at ragged word counts, and against gf_apply at 256 blocks; then the
    golden erasure and HighwayHash self-tests through the card.
@@ -41,7 +43,9 @@ and prints no result line):
    must have launched.
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
-   its bound; gf_apply and rs_i8 at 32 and 256 blocks.
+   its bound; gf_apply and rs_i8 at 32 and 256 blocks; highwayhash256 at
+   1, 12, 96, 384 and 3,072 streams x 128 KiB, each beside its bound and
+   against the 1-stream time, the floor of its packet recurrence.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
@@ -115,6 +119,17 @@ def decode_rows():
         gf256.decode_matrix(K, M, tuple(range(4, 12)))[:4])
 
 
+def hh_shape(s: int, length: int, sms: int, base: int = 0,
+             stride: int | None = None) -> str:
+    """hash_rows' launch shape for s rows of `length` bytes, as text."""
+    from minio_tpu_torch.ops import hh_device
+    sh = hh_device.launch_shape(s, length, sms, base,
+                                length if stride is None else stride)
+    return (f"[{sh.blocks} blocks x <= {sh.streams_per_block} streams, "
+            f"{sh.threads} threads, {sh.stages} stages x {sh.stage_bytes} B, "
+            f"{sh.smem_bytes} B shared]")
+
+
 def phase_kernels(torch, dev, rng, errs):
     from minio_tpu_torch.erasure.selftest import erasure_self_test
     from minio_tpu_torch.experiments import rs_i8_kernel
@@ -171,28 +186,68 @@ def phase_kernels(torch, dev, rng, errs):
     del bucket, full, bw
     torch.cuda.synchronize()
 
+    # highwayhash256 at 1, 12, 96 and 384 streams x 128 KiB: one plain run
+    # over the 384 rows, the smaller launches hash its first rows.
+    sms = hh_device.sm_count(dev)
     srows = rand(384, SHARD)
-    got = hh_device.hash_rows(srows)
     t0 = time.perf_counter()
     plain = hh_device.hash_bytes_plain(srows)
     torch.cuda.synchronize()
-    note("highwayhash256", f"(384, {SHARD}) (plain version "
-         f"{time.perf_counter() - t0:.3f} s)", max_abs_err(torch, got, plain))
+    log(f"highwayhash256 plain version over (384, {SHARD}): "
+        f"{time.perf_counter() - t0:.3f} s; card of {sms} SMs")
+    for s in (1, 12, 96, 384):
+        note("highwayhash256", f"({s}, {SHARD}) {hh_shape(s, SHARD, sms)}",
+             max_abs_err(torch, hh_device.hash_rows(srows[:s]), plain[:s]))
+    got = hh_device.hash_rows(srows)
     words = hh_device.hash_words(srows.view(torch.int32).view(32, 12, -1))
     note("highwayhash256", "u32 words (32, 12, 32768)",
          max_abs_err(torch, words, plain))
     host = highwayhash256_many(MAGIC_KEY, srows[:4].cpu().numpy())
     check(np.array_equal(got[:4].cpu().numpy(), host),
           "highwayhash256 differs from the host numpy hash")
+    del srows, plain, got
+    big = rand(3072, SHARD)        # the batcher's 256-block bucket
+    pick = torch.from_numpy(np.sort(rng.choice(3072, size=16, replace=False))
+                            ).to(dev)
+    note("highwayhash256", f"(3072, {SHARD}) {hh_shape(3072, SHARD, sms)}, "
+         "16 sampled rows", max_abs_err(
+             torch, hh_device.hash_rows(big).index_select(0, pick),
+             hh_device.hash_bytes_plain(big.index_select(0, pick))))
+    del big
+    # Stage edges through the ring: rows 16-byte multiples apart, lengths
+    # of a stage +- 1, 16, 31 and 3 stages + 5, at 7 streams (4 KiB
+    # stages) and 3,072 (2 KiB).
+    for s in (7, 3072):
+        stage, edge = hh_device.launch_shape(s, SHARD, sms).stage_bytes, 0
+        for length in [stage + d for d in (-31, -16, -1, 1, 16, 31)] \
+                + [3 * stage + 5]:
+            r = rand(s, -(-length // 16) * 16)[:, :length]
+            check(hh_device.launch_shape(s, length, sms, r.data_ptr(),
+                                         r.stride(0)).stages > 0,
+                  f"stage edge {length} missed the ring")
+            edge = max(edge, max_abs_err(torch, hh_device.hash_rows(r),
+                                         hh_device.hash_bytes_plain(r)))
+        note("highwayhash256", f"stage edges of {stage} B at {s} streams",
+             edge)
+    ragged = 0
     for length in (1, 31, 33, 63, 98, 4097, SHARD + 5):
         r = rand(7, length)
-        errs["highwayhash256"] = max(errs["highwayhash256"], max_abs_err(
-            torch, hh_device.hash_rows(r), hh_device.hash_bytes_plain(r)))
-    log(f"highwayhash256 ragged lengths max_abs_err {errs['highwayhash256']}")
+        ragged = max(ragged, max_abs_err(torch, hh_device.hash_rows(r),
+                                         hh_device.hash_bytes_plain(r)))
+    note("highwayhash256", "ragged contiguous lengths", ragged)
+    framed = rand(64, 32 + SHARD)
+    note("highwayhash256", f"framed (64, 32 + {SHARD}) skip=32 "
+         f"{hh_shape(64, SHARD, sms, 32, 32 + SHARD)}", max_abs_err(
+             torch, hh_device.hash_rows(framed, skip=32),
+             hh_device.hash_bytes_plain(framed[:, 32:])))
     framed = rand(10, 32 + 1000)
-    errs["highwayhash256"] = max(errs["highwayhash256"], max_abs_err(
-        torch, hh_device.hash_rows(framed, skip=32),
-        hh_device.hash_bytes_plain(framed[:, 32:])))
+    unaligned = rand(12, 5 + 20000)
+    note("highwayhash256", "framed (10, 32 + 1000) skip=32 and unaligned "
+         f"base (12, 5 + 20000) skip=5 {hh_shape(12, 20000, sms, 5, 20005)}",
+         max(max_abs_err(torch, hh_device.hash_rows(framed, skip=32),
+                         hh_device.hash_bytes_plain(framed[:, 32:])),
+             max_abs_err(torch, hh_device.hash_rows(unaligned, skip=5),
+                         hh_device.hash_bytes_plain(unaligned[:, 5:]))))
     check(all(v == 0 for v in errs.values()), f"kernels disagree: {errs}")
 
     erasure_self_test(rs_device.GpuBackend(dev))
@@ -591,22 +646,43 @@ def phase_times(torch, dev, rng):
         del bufs
         torch.cuda.empty_cache()
 
-    s = 384
-    rows = [torch.from_numpy(rng.integers(0, 256, size=(s, length),
-                                          dtype=np.uint8)).to(dev)
-            for _ in range(2)]          # 96 MiB
-    ms = timer(lambda i: hh_device.hash_rows(rows[i % 2]), iters=10)
-    plain = timer(lambda i: hh_device.hash_bytes_plain(rows[i % 2]),
+    # highwayhash256 at 1, 12, 96, 384 and 3,072 streams x 128 KiB. Call i
+    # hashes rows [o_i, o_i + S) of a 512 MiB pool, o_i walking the pool,
+    # so that each launch finds its rows out of L2.
+    pool = torch.from_numpy(rng.integers(0, 256, size=(4096, length),
+                                         dtype=np.uint8)).to(dev)
+    hh = {}
+    for s in (1, 12, 96, 384, 3072):
+        def launch(i, s=s):
+            o = i * s % (4097 - s)
+            return hh_device.hash_rows(pool[o:o + s])
+        ms = timer(launch, iters=20)
+        # ~104 32-bit integer operations per packet update (four lanes of
+        # 64-bit adds, 32x32->64 products and XORs, four zipper merges):
+        # the data's packets plus the 10 finalisation rounds.
+        ops = 104 * s * (length // 32 + (1 if length % 32 else 0) + 10)
+        hh[s] = (ms,) + bound(s * length + s * 32, ops, INT32_OPS_PER_S)
+    plain = timer(lambda i: hh_device.hash_bytes_plain(pool[384 * i:
+                                                            384 * (i + 1)]),
                   iters=1, warmup=0)
-    # ~104 32-bit integer operations per packet update (four lanes of
-    # 64-bit adds, 32x32->64 products and XORs, four zipper merges): the
-    # data's packets plus the 10 finalisation rounds.
-    ops = 104 * s * (length // 32 + (1 if length % 32 else 0) + 10)
-    out[("highwayhash256", 32)] = (ms, plain) + bound(
-        s * length + s * 32, ops, INT32_OPS_PER_S)
+    out[("highwayhash256", 32)] = (hh[384][0], plain) + hh[384][1:]
+    del pool
+    torch.cuda.empty_cache()
     for (name, b), (ms, plain, bms, by) in out.items():
         log(f"time {name} at {b} blocks: {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bound {bms:.4f} ms ({by}), {bms / ms * 100:.2f}% of bound")
+    floor = hh[1][0]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    log(f"highwayhash256 recurrence floor (1 stream x {length} B): "
+        f"{floor:.4f} ms, {floor * 1e3 * mhz / (length // 32 + 10):.1f} "
+        f"cycles a packet update at the {mhz:.0f} MHz maximum SM clock")
+    for s, (ms, bms, by) in hh.items():
+        log(f"time highwayhash256 at {s} streams x {length} B: {ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), {bms / ms * 100:.2f}% of bound, "
+            f"{ms / floor:.3f}x the floor")
     return out
 
 

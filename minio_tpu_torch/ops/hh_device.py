@@ -7,8 +7,9 @@ under the magic key (reference: cmd/bitrot.go:37, 105-110). Here:
     byte offset to the row's end). On a CUDA tensor it launches the
     hand-written kernel `csrc/highwayhash.cu` (which replaces
     minio_tpu/ops/hh_device.py's _hh_kernel_nt, _hh_kernel and the XLA
-    ragged-remainder path: any length, natural layout, one kernel); on a
-    CPU tensor it runs `hash_bytes_plain`. No other fallback.
+    ragged-remainder path: any length, natural layout, one kernel) in the
+    shape `launch_shape` gives; on a CPU tensor it runs
+    `hash_bytes_plain`. No other fallback.
   * `hash_words` / `hash_words_plain` — the u32 contract of
     minio_tpu.ops.hh_device._hash_words_pallas: words [S, W] or [B, X, W]
     (int32 storage, lane w = bytes 4w..4w+3 LE) -> digest words [S, 8].
@@ -34,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -62,9 +64,76 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_uint64, ctypes.c_uint64,
                    ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+                   *[ctypes.c_int] * len(LaunchShape._fields),
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Launch shape of csrc/highwayhash.cu (its C entry point checks it)
+# ---------------------------------------------------------------------------
+
+MAX_STREAMS_PER_BLOCK = 64
+RING_STAGES = 4
+STAGE_MAX = 4096            # bytes of one stream in one ring stage
+SLOT_PAD = 32               # kSlotPad: bytes after each stream's ring slot
+SMEM_MAX = 232448           # kMaxSmem: shared memory a block may use
+_BARRIER_BYTES = 16         # a full and an empty mbarrier per stage
+
+
+class LaunchShape(NamedTuple):
+    """How `hash_rows` launches the kernel, in the C entry point's order."""
+    streams_per_block: int
+    blocks: int
+    threads: int            # 2 per stream, in whole warps, + the producer
+    stages: int             # ring slots; 0 = the byte-load path, no ring
+    stage_bytes: int        # bytes of one stream in one stage
+    smem_bytes: int         # dynamic shared memory: the ring + its barriers
+
+
+def block_streams(block: int, streams: int, blocks: int) -> range:
+    """The streams that `block` of a `blocks`-block launch hashes (the
+    kernel's own split: floor(b * S / blocks) onward)."""
+    return range(block * streams // blocks, (block + 1) * streams // blocks)
+
+
+def launch_shape(streams: int, length: int, sm_count: int, base: int = 0,
+                 stride: int = 0) -> LaunchShape:
+    """Launch shape for `streams` streams of `length` bytes each, the
+    first at address `base`, `stride` bytes apart, on a card of
+    `sm_count` SMs.
+
+    The streams are split evenly over max(min(S, SMs), ceil(S / 64))
+    blocks, so every SM gets a block, no block has more than 64 streams
+    and none is empty. Whole packets go through a ring of up to 4 stages
+    in shared memory; a stage holds a power of two of bytes per stream
+    (at most 4 KiB, less where 4 stages of the block's streams would not
+    fit in a block's shared memory, and never more than the stream's
+    whole packets). A base or stride that is not 16-byte aligned, or a
+    stream without a whole packet, takes the byte path (stages 0)."""
+    if streams < 1 or sm_count < 1 or length < 0:
+        raise ValueError(f"launch_shape: {streams} streams of {length} "
+                         f"bytes on {sm_count} SMs")
+    blocks = max(min(streams, sm_count), -(-streams // MAX_STREAMS_PER_BLOCK))
+    spb = -(-streams // blocks)
+    threads = 32 * (-(-2 * spb // 32) + 1)
+    body = length // 32 * 32
+    aligned = base % 16 == 0 and (streams == 1 or stride % 16 == 0)
+    if not aligned or body == 0:
+        return LaunchShape(spb, blocks, threads, 0, 0, 0)
+    fit = (SMEM_MAX - _BARRIER_BYTES * RING_STAGES) \
+        // (RING_STAGES * spb) - SLOT_PAD
+    stage = min(STAGE_MAX, 1 << (fit.bit_length() - 1), body)
+    stages = min(RING_STAGES, -(-body // stage))
+    smem = stages * spb * (stage + SLOT_PAD) + _BARRIER_BYTES * stages
+    return LaunchShape(spb, blocks, threads, stages, stage, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (cudaDevAttrMultiProcessorCount), queried once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _key_lanes(key: bytes) -> list[int]:
@@ -286,10 +355,10 @@ def hash_rows(rows: torch.Tensor, skip: int = 0,
         return out
     stride = rows.stride(0) if s > 1 else f
     base = rows.data_ptr() + skip
-    vec = base % 16 == 0 and stride % 16 == 0
+    shape = launch_shape(s, f - skip, sm_count(rows.device), base, stride)
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     rc = _kernel()(base, s, stride, f - skip, *_key_lanes(key),
-                   out.data_ptr(), int(vec), stream)
+                   out.data_ptr(), *shape, stream)
     _build.check(rc, "highwayhash256 launch")
     _count()
     return out

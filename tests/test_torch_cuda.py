@@ -71,18 +71,50 @@ def test_gpu_backend_golden_selftest(dev):
     erasure_self_test(rs_device.GpuBackend(dev))
 
 
-@pytest.mark.parametrize("s,length", [(384, 131072), (9, 1024), (6, 4097),
-                                      (64, 63), (5, 0), (3, 17)])
-def test_highwayhash_matches_plain_and_host(dev, s, length):
-    rows = _rand(dev, length, s, length)
+STAGE = hh_device.STAGE_MAX        # the ring stage of one stream a block
+# (streams, length, skip, pad): rows of skip + length bytes; pad > 0 makes
+# them a slice of a buffer whose rows lie a multiple of pad bytes apart
+# (pad 16 sends any length through the kernel's shared-memory ring).
+HH_CASES = [(384, 131072, 0, 0), (96, 131072, 0, 0), (3072, 131072, 0, 0),
+            (64, 131072, 32, 0),               # framed `digest || block`
+            (9, 1024, 0, 0), (6, 4097, 0, 0), (64, 63, 0, 0), (5, 0, 0, 0),
+            (3, 17, 0, 0)]
+HH_CASES += [(9, STAGE + d, 0, 16) for d in (-31, -16, -1, 1, 16, 31)]
+HH_CASES += [(9, 3 * STAGE + 5, 0, 16), (3072, 2048 * 3 + 5, 0, 16)]
+
+
+@pytest.mark.parametrize("s,length,skip,pad", HH_CASES)
+def test_highwayhash_matches_plain_and_host(dev, s, length, skip, pad):
+    width = skip + length
+    buf = _rand(dev, length + s, s, -(-width // pad) * pad if pad else width)
+    rows = buf[:, :width]
     before = hh_device.LAUNCHES
-    got = hh_device.hash_rows(rows)
+    got = hh_device.hash_rows(rows, skip=skip)
     torch.cuda.synchronize()
     assert hh_device.LAUNCHES == before + 1
-    assert torch.equal(got, hh_device.hash_bytes_plain(rows))
+    # All rows against the plain version up to 384 streams, 16 sampled
+    # rows beyond.
+    pick = np.arange(s) if s <= 384 else np.sort(
+        np.random.default_rng(s).choice(s, size=16, replace=False))
+    pick = torch.from_numpy(pick).to(dev)
+    assert torch.equal(got[pick], hh_device.hash_bytes_plain(
+        rows[:, skip:].index_select(0, pick)))
     sub = min(s, 4)
-    want = highwayhash256_many(MAGIC_KEY, rows[:sub].cpu().numpy())
+    want = highwayhash256_many(MAGIC_KEY, rows[:sub, skip:].cpu().numpy())
     assert np.array_equal(got[:sub].cpu().numpy(), want)
+
+
+def test_highwayhash_refuses_a_bad_launch_shape(dev, monkeypatch):
+    """The C entry point checks the shape it is given; the wrapper raises
+    and counts no launch."""
+    good = hh_device.launch_shape
+    monkeypatch.setattr(hh_device, "launch_shape", lambda *a: good(*a)._replace(
+        smem_bytes=good(*a).smem_bytes + 16))
+    rows = _rand(dev, 1, 12, 4096)
+    before = hh_device.LAUNCHES
+    with pytest.raises(RuntimeError, match="highwayhash256 launch"):
+        hh_device.hash_rows(rows)
+    assert hh_device.LAUNCHES == before
 
 
 def test_highwayhash_unaligned_rows_words_and_selftest(dev):
