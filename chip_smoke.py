@@ -12,7 +12,10 @@ and prints no result line):
    byte equality, at the shapes the main path gives it: gf_apply at the
    EC 8+4 PUT window (32 x 8 x 128 KiB, byte and u32 contracts), at the
    4 x 8 decode rows, at ragged lengths and at the batcher's 256-block
-   bucket (a sample of 8 batch rows); highwayhash256 at 1, 12, 96 and 384
+   bucket (a sample of 8 batch rows), at r = 5..8 (two row groups of its
+   row-packed tables), at k = 15 (two groups of shard loads), at bucket
+   8, into the framer's strided out= and from an unaligned base;
+   highwayhash256 at 1, 12, 96 and 384
    streams x 128 KiB, at 3,072 (16 sampled rows), at the edges of its
    shared-memory ring's stages, at ragged lengths, on framed rows hashed
    from byte 32 and from an unaligned base, and against the host numpy
@@ -43,7 +46,10 @@ and prints no result line):
    must have launched.
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
-   its bound; gf_apply and rs_i8 at 32 and 256 blocks; highwayhash256 at
+   its bound; gf_apply at 8, 32 and 256 blocks (parity rows) and at 32
+   (the decode rows of 4 lost data shards and of 1), each also queued
+   behind a spin kernel, which hides the host's launch time; rs_i8 at 32
+   and 256 blocks; highwayhash256 at
    1, 12, 96, 384 and 3,072 streams x 128 KiB, each beside its bound and
    against the 1-stream time, the floor of its packet recurrence.
 
@@ -85,18 +91,26 @@ def log(*parts) -> None:
 
 
 class Timer:
-    """CUDA-event time of fn(i) in ms: warm-up, then the mean of `iters`."""
+    """CUDA-event time of fn(i) in ms: warm-up, then the mean of `iters`.
+    queued=True first puts a spin kernel on the stream, so the launches
+    queue behind it and a launch shorter than its host-side call is timed
+    on the device, not at the host's pace."""
+
+    SPIN_CYCLES_PER_ITER = 200_000      # ~0.1 ms at the H100's clocks
 
     def __init__(self, torch):
         self.torch = torch
 
-    def __call__(self, fn, iters: int, warmup: int = 2) -> float:
+    def __call__(self, fn, iters: int, warmup: int = 2,
+                 queued: bool = False) -> float:
         torch = self.torch
         for i in range(warmup):
             fn(i)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(self.SPIN_CYCLES_PER_ITER * iters)
         e0.record()
         for i in range(iters):
             fn(i)
@@ -167,6 +181,29 @@ def phase_kernels(torch, dev, rng, errs):
          max_abs_err(torch, full.index_select(0, rows),
                      rs_device.gf_apply_plain(pm, bucket.index_select(0,
                                                                     rows))))
+    # Two row groups (r = 5..8), a second group of shard loads (k = 15),
+    # the batcher's bucket 8, the framer's strided out= into [B, 12, L]
+    # and a base that is not 16-byte aligned (the byte path at full width).
+    cases = [(f"parity {K}+{r}", gf256.parity_matrix(K, r),
+              rand(2, K, SHARD)) for r in range(5, 9)]
+    cases += [("parity 8+7 ragged 1543", gf256.parity_matrix(K, 7),
+               rand(3, K, 1543)),
+              ("parity 15+4", gf256.parity_matrix(15, 4), rand(4, 15, SHARD)),
+              ("parity 15+6 ragged 3200", gf256.parity_matrix(15, 6),
+               rand(2, 15, 3200)),
+              ("parity bucket 8", pm, rand(8, K, SHARD)),
+              ("decode rows bucket 8", dec, rand(8, K, SHARD)),
+              ("parity unaligned base", pm,
+               rand(2 * K * SHARD + 3)[3:].view(2, K, SHARD))]
+    for what, mat, data in cases:
+        note("gf_apply", f"{what} {tuple(data.shape)}", max_abs_err(
+            torch, rs_device.gf_apply(mat, data),
+            rs_device.gf_apply_plain(mat, data)))
+    shards = rand(32, K + M, SHARD)
+    rs_device.gf_apply(pm, shards[:, :K], out=shards[:, K:])
+    note("gf_apply", f"strided out= into {tuple(shards.shape)}", max_abs_err(
+        torch, shards[:, K:], rs_device.gf_apply_plain(pm, shards[:, :K])))
+    del cases, shards
     torch.cuda.synchronize()
 
     words = window.view(torch.int32)                       # [32, 8, 32768]
@@ -615,6 +652,14 @@ def bound(nbytes: int, ops: int, ops_per_s: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gf_bound(b: int, r: int = M) -> tuple[float, str]:
+    """gf_apply's bound at b x 8 x 128 KiB stripes and r output rows: the
+    stripes read, the rows written and the byte tables read once; one
+    table lookup and one XOR per (output row, input shard, byte)."""
+    return bound(b * K * SHARD + b * r * SHARD + r * K * 256,
+                 2 * b * r * K * SHARD, INT32_OPS_PER_S)
+
+
 def phase_times(torch, dev, rng):
     """{(kernel, blocks): (ms, plain_ms, bound_ms, bound_by)} at the main
     path's shapes."""
@@ -624,25 +669,42 @@ def phase_times(torch, dev, rng):
     timer = Timer(torch)
     out = {}
     pm = gf256.parity_matrix(K, M)
-    r, length = M, SHARD
-    for b, nbuf in ((32, 4), (256, 2)):      # inputs > 50 MB of L2 together
+    # gf_apply's rows: parity; the decode rows of 4 lost data shards; the
+    # one row of a read that lost data shard 0 alone.
+    mats = {"parity": pm, "decode": decode_rows(),
+            "one-drive decode": gf256.decode_matrix(K, M,
+                                                    tuple(range(1, 9)))[:1]}
+    length = SHARD
+    # The batcher's bucket 8, one client's 32-block window and the largest
+    # bucket; each set of buffers is larger than the 50 MB L2.
+    for b, nbuf in ((8, 12), (32, 4), (256, 2)):
         bufs = [torch.from_numpy(rng.integers(0, 256, size=(b, K, length),
                                               dtype=np.uint8)).to(dev)
                 for _ in range(nbuf)]
-        nbytes = b * K * length + b * r * length
-        ms = timer(lambda i: rs_device.gf_apply(pm, bufs[i % nbuf]), iters=40)
-        plain = timer(lambda i: rs_device.gf_apply_plain(pm, bufs[i % nbuf]),
-                      iters=2, warmup=1)
-        # One table lookup and one XOR per (output row, input shard, byte).
-        out[("gf_apply", b)] = (ms, plain) + bound(
-            nbytes + r * K * 256, 2 * b * r * K * length, INT32_OPS_PER_S)
-        ms = timer(lambda i: rs_i8_kernel.rs_apply8(pm, bufs[i % nbuf]),
-                   iters=40)
-        plain = timer(lambda i: rs_i8_kernel.rs_apply8_plain(
-            pm, bufs[i % nbuf]), iters=2, warmup=1)
-        # The needed int8 product: [8r, 8k] bit matrix over every byte lane.
-        out[("rs_i8", b)] = (ms, plain) + bound(
-            nbytes, 2 * (8 * r) * (8 * K) * b * length, INT8_TC_OPS_PER_S)
+        nbytes = b * K * length + b * M * length
+        for rows, mat in mats.items() if b == 32 else (("parity", pm),):
+            def launch(i, mat=mat):
+                return rs_device.gf_apply(mat, bufs[i % nbuf])
+            ms, queued = timer(launch, 40), timer(launch, 40, queued=True)
+            bms, by = gf_bound(b, len(mat))
+            log(f"time gf_apply {rows} rows at {b} x {K} x {length} B: "
+                f"{ms:.4f} ms ({queued:.4f} ms queued behind a spin "
+                f"kernel), bound {bms:.4f} ms ({by}), {bms / ms * 100:.2f}% "
+                f"of bound ({bms / queued * 100:.2f}% queued)")
+            if rows == "parity":
+                plain = timer(lambda i: rs_device.gf_apply_plain(
+                    pm, bufs[i % nbuf]), iters=2, warmup=1)
+                out[("gf_apply", b)] = (ms, plain, bms, by)
+        if b != 8:
+            ms = timer(lambda i: rs_i8_kernel.rs_apply8(pm, bufs[i % nbuf]),
+                       iters=40)
+            plain = timer(lambda i: rs_i8_kernel.rs_apply8_plain(
+                pm, bufs[i % nbuf]), iters=2, warmup=1)
+            # The needed int8 product: [8r, 8k] bit matrix over every byte
+            # lane.
+            out[("rs_i8", b)] = (ms, plain) + bound(
+                nbytes, 2 * (8 * M) * (8 * K) * b * length,
+                INT8_TC_OPS_PER_S)
         del bufs
         torch.cuda.empty_cache()
 

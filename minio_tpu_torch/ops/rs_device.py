@@ -4,7 +4,9 @@
 over GF(2^8) for any r x k matrix: parity rows for PutObject's encode,
 decode-matrix rows for a degraded GetObject's reconstruct. On a CUDA
 tensor it launches the hand-written kernel `csrc/gf_apply.cu` (which
-replaces minio_tpu/ops/rs_device.py's _rs_kernel32 and _rs_kernel); on a
+replaces minio_tpu/ops/rs_device.py's _rs_kernel32 and _rs_kernel) on the
+row-packed tables of `packed_tables` (one word holds four output rows'
+products of one input byte); on a
 CPU tensor it runs `gf_apply_plain`, the same function as a table gather
 in PyTorch. There is no other fallback: a CUDA tensor gets the kernel or
 an exception.
@@ -86,6 +88,29 @@ def product_tables(matrix, device) -> torch.Tensor:
     return _tables_cached(m.tobytes(), m.shape[0], m.shape[1], str(device))
 
 
+ROWS_PER_WORD = 4           # output rows packed into one table word
+
+
+@functools.lru_cache(maxsize=256)
+def _packed_cached(key: bytes, r: int, k: int, device: str) -> torch.Tensor:
+    m = np.frombuffer(key, dtype=np.uint8).reshape(r, k)
+    groups = -(-r // ROWS_PER_WORD)
+    rows = np.zeros((groups * ROWS_PER_WORD, k, 256), dtype=np.uint8)
+    rows[:r] = gf256.MUL_TABLE[m]
+    words = np.ascontiguousarray(
+        rows.reshape(groups, ROWS_PER_WORD, k, 256).transpose(0, 2, 3, 1))
+    return device_constant(words.view("<i4")[..., 0], device)
+
+
+def packed_tables(matrix, device) -> torch.Tensor:
+    """The kernel's operand: row-packed product tables, int32 storage
+    [ceil(r/4), k, 256]. Byte jj (little-endian) of word [g, i, x] is
+    MUL[M[4g + jj, i]][x], 0 for rows past r: one lookup gives the
+    products of four output rows."""
+    m = _as_matrix(matrix)
+    return _packed_cached(m.tobytes(), m.shape[0], m.shape[1], str(device))
+
+
 def _check_stripes(data: torch.Tensor, k: int, what: str) -> None:
     if data.dtype != torch.uint8 or data.dim() != 3:
         raise ValueError(f"{what}: need uint8 [B, {k}, L], got "
@@ -145,7 +170,7 @@ def gf_apply(matrix, data: torch.Tensor,
         raise ValueError(f"gf_apply: batch {b} exceeds {_MAX_BATCH}")
     if b == 0 or length == 0:
         return out
-    tab = product_tables(m, data.device)
+    tab = packed_tables(m, data.device)
     vec = all(x % 16 == 0 for x in (data.data_ptr(), out.data_ptr(), length,
                                     data.stride(0), out.stride(0)))
     stream = torch.cuda.current_stream(data.device).cuda_stream

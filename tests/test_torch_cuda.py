@@ -36,17 +36,42 @@ def _rand(dev, seed, *shape):
         0, 256, size=shape, dtype=np.uint8)).to(dev)
 
 
-@pytest.mark.parametrize("b,k,m,length", [
-    (32, 8, 4, 131072), (3, 8, 4, 1543), (2, 4, 2, 77), (1, 12, 4, 4096),
-    (4, 8, 4, 131072 + 16), (1, 5, 3, 1), (1, 8, 4, 98)])
-def test_gf_apply_matches_plain(dev, b, k, m, length):
+@pytest.mark.parametrize("b,k,m,length,offset", [
+    (32, 8, 4, 131072, 0), (3, 8, 4, 1543, 0), (2, 4, 2, 77, 0),
+    (1, 12, 4, 4096, 0), (4, 8, 4, 131072 + 16, 0), (1, 5, 3, 1, 0),
+    (1, 8, 4, 98, 0),
+    # Two row groups of the packed tables, two groups of shard loads (and
+    # both together), the batcher's bucket 8, unaligned base pointers.
+    (2, 8, 5, 4096 + 3, 0), (3, 8, 8, 131072, 0), (2, 15, 4, 20000, 0),
+    (2, 15, 8, 1543, 0), (8, 8, 4, 131072, 0), (2, 8, 4, 131072, 3),
+    (3, 8, 6, 1000, 1)])
+def test_gf_apply_matches_plain(dev, b, k, m, length, offset):
     pm = gf256.parity_matrix(k, m)
-    data = _rand(dev, length, b, k, length)
+    data = _rand(dev, length, b * k * length + offset)[offset:].view(
+        b, k, length)
     before = rs_device.LAUNCHES
     got = rs_device.gf_apply(pm, data)
     torch.cuda.synchronize()
     assert rs_device.LAUNCHES == before + 1
     assert torch.equal(got, rs_device.gf_apply_plain(pm, data))
+
+
+@pytest.mark.parametrize("r,k", [
+    (8, 129),       # 2 x 129 row-packed tables: past the lookup's table byte
+    (4, 240)])      # 240 KiB of tables: past a block's shared memory
+def test_gf_apply_refuses_tables_past_shared_memory(dev, r, k):
+    mat = np.random.default_rng(r * k).integers(1, 256, size=(r, k),
+                                                dtype=np.uint8)
+    data = _rand(dev, k, 2, k, 1000)
+    before = rs_device.LAUNCHES
+    with pytest.raises(RuntimeError, match="gf_apply launch"):
+        rs_device.gf_apply(mat, data)
+    assert rs_device.LAUNCHES == before
+    # The refusal leaves no error behind for the next launch.
+    pm = gf256.parity_matrix(8, 4)
+    ok = _rand(dev, 5, 2, 8, 1000)
+    assert torch.equal(rs_device.gf_apply(pm, ok),
+                       rs_device.gf_apply_plain(pm, ok))
 
 
 def test_gf_apply_decode_rows_u32_and_strided_out(dev):
