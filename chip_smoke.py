@@ -20,13 +20,18 @@ and prints no result line):
    shared-memory ring's stages, at ragged lengths, on framed rows hashed
    from byte 32 and from an unaligned base, and against the host numpy
    hash; rs_i8 at the 32-block window in words (parity and decode rows),
-   at ragged word counts, and against gf_apply at 256 blocks; then the
-   golden erasure and HighwayHash self-tests through the card.
+   at ragged word counts, at k = 12, 15 and 16 with r = 1, 4 and 32 (the
+   widest matrix: one full 128-bit K, 8 row groups), at ragged byte
+   lengths, from an unaligned base, and against gf_apply at 256 blocks;
+   then the golden erasure and HighwayHash self-tests through the card.
 3. The main path, one client: the S3 server (minio_tpu_torch.server) on
    12 drives, EC 8+4, device cuda, in this process. PUT a 256 MiB, a
    33 MiB + 777 B and a 200 KiB object over signed HTTP, GET each back;
    wipe the copies of 4 data-shard drives and GET again; flip one byte of
-   a data-shard block and GET again. Byte identity every time.
+   a data-shard block and GET again. Byte identity every time. Ranged
+   GETs (206, Content-Range) inside a window and across two windows,
+   healthy and with the 4 drives wiped; one aws-chunked
+   (STREAMING-AWS4-HMAC-SHA256-PAYLOAD) PUT read back byte for byte.
 4. The main path, concurrent: a fresh server as in 3, with the default
    MTPU_BATCH_FORCE. 16 client threads each PUT 6 objects (1 MiB,
    3 MiB + 5 B, 8 MiB, twice) whose keys share one `hash_order`; 16
@@ -40,7 +45,9 @@ and prints no result line):
    bucket that route used (host clock): the yardstick for the lane's
    service under load, weighted by the phase's own bucket counts.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
-   rs_i8 against make_encoder32, then both timed at 256 blocks.
+   rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
+   and s8 m16n8k32 mma.sync, with the time each shape's product needs at
+   256 blocks), then both kernels timed at 256 blocks.
    In phases 3, 4 and 5 every kernel's launch count is set to 0 just
    before the phase and read just after; each kernel of the phase's path
    must have launched.
@@ -49,7 +56,7 @@ and prints no result line):
    its bound; gf_apply at 8, 32 and 256 blocks (parity rows) and at 32
    (the decode rows of 4 lost data shards and of 1), each also queued
    behind a spin kernel, which hides the host's launch time; rs_i8 at 32
-   and 256 blocks; highwayhash256 at
+   and 256 blocks, also queued; highwayhash256 at
    1, 12, 96, 384 and 3,072 streams x 128 KiB, each beside its bound and
    against the 1-stream time, the floor of its packet recurrence.
 
@@ -60,6 +67,7 @@ The last two lines of standard output are the kernels' JSON record and
 from __future__ import annotations
 
 import hashlib
+import hmac
 import http.client
 import json
 import os
@@ -216,6 +224,21 @@ def phase_kernels(torch, dev, rng, errs):
         note("rs_i8", f"ragged words {tuple(w.shape)}", max_abs_err(
             torch, rs_i8_kernel.rs_apply8(pm, w),
             rs_i8_kernel.rs_apply8_plain(pm, w)))
+    # k = 12, 15, 16 at r = 1, 4, 32; ragged byte lengths; unaligned base.
+    cases = [(f"{k}+{r}", k, r, rand(4, k, SHARD))
+             for k, r in ((12, 4), (15, 1), (16, 32), (16, 1), (8, 32))]
+    cases += [(f"{k}+{r} ragged {n}", k, r, rand(3, k, n))
+              for k, r, n in ((8, 4, 98), (16, 32, 1543), (15, 1, 3200))]
+    cases += [("8+4 unaligned base", 8, 4,
+               rand(2 * K * SHARD + 3)[3:].view(2, K, SHARD)),
+              ("16+32 unaligned base ragged", 16, 32,
+               rand(2 * 16 * 4001 + 5)[5:].view(2, 16, 4001))]
+    for what, k, r, data in cases:
+        mat = rng.integers(0, 256, size=(r, k), dtype=np.uint8)
+        note("rs_i8", f"{what} {tuple(data.shape)}", max_abs_err(
+            torch, rs_i8_kernel.rs_apply8(mat, data),
+            rs_i8_kernel.rs_apply8_plain(mat, data)))
+    del cases
     bw = bucket.view(torch.int32)                          # [256, 8, 32768]
     note("rs_i8", f"vs gf_apply, words {tuple(bw.shape)}", max_abs_err(
         torch, rs_i8_kernel.make_encoder8(pm)(bw),
@@ -303,17 +326,72 @@ class Client:
         self.access, self.secret = access, secret
 
     def __call__(self, method: str, path: str, body: bytes = b""):
+        return self.send(method, path, body)[:2]
+
+    def send(self, method: str, path: str, body: bytes = b"",
+             extra: dict | None = None, payload_hash: str | None = None,
+             encode=None) -> tuple[int, bytes, dict]:
+        """(status, body, lowercased response headers). encode(signed
+        headers) -> the wire body, for bodies framed after signing."""
         uri, headers = self.sigv4.sign_headers(
             method, self.address, path, self.access, self.secret,
-            hashlib.sha256(body).hexdigest())
+            payload_hash or hashlib.sha256(body).hexdigest(), extra=extra)
         host, _, port = self.address.rpartition(":")
         conn = http.client.HTTPConnection(host, int(port), timeout=600)
         try:
-            conn.request(method, uri, body=body, headers=headers)
+            conn.request(method, uri, headers=headers,
+                         body=body if encode is None else encode(headers))
             resp = conn.getresponse()
-            return resp.status, resp.read()
+            return resp.status, resp.read(), {
+                k.lower(): v for k, v in resp.getheaders()}
         finally:
             conn.close()
+
+    def ranged_get(self, path: str, lo: int, hi: int):
+        """GET bytes lo..hi: (status, body, Content-Range)."""
+        st, body, h = self.send("GET", path, extra={"range":
+                                                   f"bytes={lo}-{hi}"})
+        return st, body, h.get("content-range")
+
+    def chunked_put(self, path: str, body: bytes, chunk: int = 64 * 1024):
+        """A STREAMING-AWS4-HMAC-SHA256-PAYLOAD PUT: `chunk`-byte frames,
+        each signature chained from the previous, from the request's."""
+        sigv4 = self.sigv4
+
+        def encode(headers):
+            amz_date, prev = headers["x-amz-date"], \
+                headers["authorization"].rsplit("Signature=", 1)[1]
+            scope = f"{amz_date[:8]}/us-east-1/s3/aws4_request"
+            key = sigv4.signing_key(self.secret, amz_date[:8], "us-east-1")
+            out = bytearray()
+            for data in [body[i:i + chunk]
+                         for i in range(0, len(body), chunk)] + [b""]:
+                sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", amz_date, scope,
+                                 prev, sigv4.EMPTY_SHA256,
+                                 hashlib.sha256(data).hexdigest()])
+                prev = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+                out += f"{len(data):x};chunk-signature={prev}\r\n".encode()
+                out += data + b"\r\n"
+            return bytes(out)
+        return self.send("PUT", path, extra={
+            "content-encoding": "aws-chunked",
+            "x-amz-decoded-content-length": str(len(body))},
+            payload_hash=sigv4.STREAMING_PAYLOAD, encode=encode)
+
+
+# Ranged GETs of phase 3: (object, first byte, last byte) inside one
+# 32-block window and across the boundary of two.
+WINDOW = 32 * MIB
+RANGES = (("big", 1000, 2999), ("big", 3 * WINDOW - 1000, 3 * WINDOW + 500),
+          ("mid", WINDOW - 5 * MIB - 7, WINDOW + 700))
+
+
+def check_ranges(c: "Client", objs: dict, what: str) -> None:
+    for name, lo, hi in RANGES:
+        st, got, crange = c.ranged_get(f"/smoke/{name}", lo, hi)
+        check(st == 206 and crange == f"bytes {lo}-{hi}/{len(objs[name])}"
+              and got == objs[name][lo:hi + 1],
+              f"{what} ranged GET {name} bytes={lo}-{hi}: {st} {crange}")
 
 
 def drive_root() -> str:
@@ -389,6 +467,16 @@ def phase_main_path(torch, rng, root):
             check(st == 200 and got == body, f"GET {name} not identical")
         log(f"main path: PUT+GET of {len(objs)} objects identical, windows "
             f"{es.device_windows}")
+        check_ranges(c, objs, "healthy")
+        body = rng.bytes(5 * MIB + 3)
+        st, _, h = c.chunked_put("/smoke/chunked", body)
+        check(st == 200 and h.get("etag") == f'"{hashlib.md5(body).hexdigest()}"',
+              f"aws-chunked PUT: {st} {h.get('etag')}")
+        check(c("GET", "/smoke/chunked") == (200, body),
+              "aws-chunked PUT did not read back identical")
+        log(f"main path: {len(RANGES)} ranged GETs (inside a window, across "
+            "two) answered 206 with the range; aws-chunked PUT of "
+            f"{len(body)} B read back identical")
 
         before = es.device_windows["reconstruct"]
         moved = []
@@ -404,9 +492,14 @@ def phase_main_path(torch, rng, root):
                   f"degraded GET {name} (4 data drives wiped) not identical")
         check(es.device_windows["reconstruct"] > before,
               "degraded GET did not reconstruct on the card")
+        before = es.device_windows["reconstruct"]
+        check_ranges(c, objs, "4 data drives wiped")
+        check(es.device_windows["reconstruct"] > before,
+              "degraded ranged GET did not reconstruct on the card")
         for dst, src in moved:
             os.rename(dst, src)
-        log("main path: GET with 4 data-shard drives wiped identical")
+        log("main path: GET and ranged GETs with 4 data-shard drives wiped "
+            "identical")
 
         before = es.device_windows["reconstruct"]
         for name in ("big", "mid"):
@@ -696,8 +789,9 @@ def phase_times(torch, dev, rng):
                     pm, bufs[i % nbuf]), iters=2, warmup=1)
                 out[("gf_apply", b)] = (ms, plain, bms, by)
         if b != 8:
-            ms = timer(lambda i: rs_i8_kernel.rs_apply8(pm, bufs[i % nbuf]),
-                       iters=40)
+            def launch(i):
+                return rs_i8_kernel.rs_apply8(pm, bufs[i % nbuf])
+            ms, queued = timer(launch, 40), timer(launch, 40, queued=True)
             plain = timer(lambda i: rs_i8_kernel.rs_apply8_plain(
                 pm, bufs[i % nbuf]), iters=2, warmup=1)
             # The needed int8 product: [8r, 8k] bit matrix over every byte
@@ -705,6 +799,11 @@ def phase_times(torch, dev, rng):
             out[("rs_i8", b)] = (ms, plain) + bound(
                 nbytes, 2 * (8 * M) * (8 * K) * b * length,
                 INT8_TC_OPS_PER_S)
+            bms = out[("rs_i8", b)][2]
+            log(f"time rs_i8 parity rows at {b} x {K} x {length} B: "
+                f"{ms:.4f} ms ({queued:.4f} ms queued behind a spin "
+                f"kernel), bound {bms:.4f} ms, {bms / ms * 100:.2f}% of "
+                f"bound ({bms / queued * 100:.2f}% queued)")
         del bufs
         torch.cuda.empty_cache()
 

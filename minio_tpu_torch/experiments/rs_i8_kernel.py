@@ -2,17 +2,20 @@
 
 The port of experiments/rs_i8_kernel.py (rs_apply8 / _rs_kernel8): the
 Reed-Solomon transform out[b, j, t] = XOR_i M[j, i] * data[b, i, t] as
-bits(out) = bit_matrix(M) @ bits(data) mod 2, an int8 product with int32
-accumulation, then the bits packed back into bytes. On a CUDA tensor
-`rs_apply8` launches the hand-written kernel `ops/csrc/rs_i8.cu`
-(mma.sync m16n8k32, s8 operands, s32 accumulation); on a CPU tensor it
-runs `rs_apply8_plain`. Its output is byte-identical to
-ops/rs_device.make_encoder32 and gf_apply.
+bits(out) = bit_matrix(M) @ bits(data) mod 2, then the bits packed back
+into bytes. On a CUDA tensor `rs_apply8` launches the hand-written
+kernel `ops/csrc/rs_i8.cu` (binary mma.sync m16n8k128 AND+POPC: the
+data bytes as the A operand, the bit matrix laid out by `b_fragments`
+as B, whole output bytes packed per thread); on a CPU tensor it runs
+`rs_apply8_plain`. Its output is byte-identical to
+ops/rs_device.make_encoder32 and gf_apply. `mma_rates` times the binary
+and the int8 mma.sync shapes on the card.
 
 Like the JAX experiment, this is off the server's path: the stripe
 batcher's routes use gf_apply. Its entry point checks the kernel against
-the u32 encoder and times both at the cross-request batcher's largest
-bucket, 256 blocks of EC 8+4 (B = 256, k = 8, L4 = 32768 words):
+the u32 encoder, prints `mma_rates`, and times both kernels at the
+cross-request batcher's largest bucket, 256 blocks of EC 8+4 (B = 256,
+k = 8, L4 = 32768 words):
 
     python -m minio_tpu_torch.experiments.rs_i8_kernel      (needs a card)
 
@@ -38,8 +41,8 @@ from minio_tpu_torch.ops import _build, gf256, rs_device
 LAUNCHES = 0
 _count_lock = threading.Lock()
 
-MAX_K = 16                  # the kernel keeps ceil(k/4) <= 4 k-tiles
-MAX_R = 32                  # and ceil(r/2) m-tiles of A in shared memory
+MAX_K = 16                  # one 128-bit K: 4 threads x 4 shards x 8 bits
+MAX_R = 32                  # ceil(r/4) row groups of B in shared memory
 
 
 def _count() -> None:
@@ -59,32 +62,76 @@ def _kernel():
     return fn
 
 
-def a_fragments(matrix) -> np.ndarray:
-    """The [8r, 8k] bit matrix laid out as mma.m16n8k32 A fragments:
-    int32 [ceil(r/2), ceil(k/4), 32 lanes, 4 registers], zero padded to
-    whole 16 x 32 tiles. Lane (g = lane >> 2, tig = lane & 3) holds rows
-    g and g+8 of the tile at columns tig*4..+3 (registers 0, 1) and
-    16+tig*4..+3 (registers 2, 3), one int8 per byte, little-endian."""
+@functools.lru_cache(maxsize=1)
+def _probe():
+    fn = _build.load("rs_i8").mtt_mma_probe
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# The rate probe's two shapes: (name, operations of one mma), counting a
+# multiply-add (an AND and a POPC step for b1) as 2 operations.
+PROBE_SHAPES = (("b1 m16n8k128 and.popc", 2 * 16 * 8 * 128),
+                ("s8 m16n8k32", 2 * 16 * 8 * 32))
+
+
+def mma_rates(device="cuda", iters: int = 4096) -> dict[str, float]:
+    """Tensor-core rate of each PROBE_SHAPES mma.sync on the card, in
+    operations a second: one launch of 8 blocks an SM, each thread 8
+    independent accumulator chains x iters, timed with CUDA events."""
+    dev = torch.device(device)
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {}
+    for kind, (name, ops) in enumerate(PROBE_SHAPES):
+        for _ in range(2):                        # warm-up, then timed
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _build.check(_probe()(kind, blocks, iters, out.data_ptr(),
+                                  stream), "mma probe launch")
+            e1.record()
+            torch.cuda.synchronize(dev)
+        # One mma.sync is issued by a whole warp: 8 warps a block.
+        total = blocks * 8 * 8 * iters * ops
+        rates[name] = total / (e0.elapsed_time(e1) / 1e3)
+    return rates
+
+
+def b_fragments(matrix) -> np.ndarray:
+    """BM^T, the kernel's fixed B operand, in mma.m16n8k128 b1 fragment
+    order: int32 [ceil(r/4) row groups, 32 lanes, 4 n-tiles]. Lane
+    (g = lane >> 2, tig = lane & 3) holds column g of each n-tile over
+    K bits 32tig..32tig+31, bit p of the word being K = 32tig + p, that
+    is input shard 4tig + p // 8, bit p % 8 (the kernel's A words carry
+    shard 4tig + e in byte e). Column g of n-tile t in row group grp is
+    output byte 4grp + g // 2, bit 2t + g % 2, so the accumulator of
+    thread (g, tig) holds bits 2t and 2t + 1 of output byte 4grp + tig.
+    Shards past k and rows past r are zero."""
     m = rs_device._as_matrix(matrix)
     r, k = m.shape
-    mt, kt = (r + 1) // 2, (k + 3) // 4
-    a = np.zeros((mt * 16, kt * 32), dtype=np.uint8)
-    a[:8 * r, :8 * k] = gf256.bit_matrix(m)
-    tiles = a.reshape(mt, 16, kt, 32).transpose(0, 2, 1, 3)   # [MT, KT, 16, 32]
+    groups = (r + 3) // 4
+    bm = np.zeros((32 * groups, 8 * MAX_K), dtype=np.uint8)
+    bm[:8 * r, :8 * k] = gf256.bit_matrix(m)     # [8j + c, 8i + b]
     lane = np.arange(32)
     g, tig = lane >> 2, lane & 3
-    frag = np.empty((mt, kt, 32, 4, 4), dtype=np.uint8)
-    for reg, (row0, col0) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
-        rows = (g + row0)[:, None]                            # [32, 1]
-        cols = col0 + tig[:, None] * 4 + np.arange(4)         # [32, 4]
-        frag[:, :, :, reg, :] = tiles[:, :, rows, cols]
-    return np.ascontiguousarray(frag).reshape(mt, kt, 32, 16).view(np.int32)
+    grp, t = np.arange(groups), np.arange(4)
+    rows = (8 * (4 * grp[:, None, None] + (g >> 1)[None, :, None])
+            + 2 * t[None, None, :] + (g & 1)[None, :, None])  # [G, 32, 4]
+    cols = 32 * tig[:, None] + np.arange(32)[None, :]         # [32, 32]
+    bits = bm[rows[..., None], cols[None, :, None, :]]        # [G, 32, 4, 32]
+    words = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)) \
+        .sum(axis=-1).astype(np.uint32)
+    return np.ascontiguousarray(words).view(np.int32)
 
 
 @functools.lru_cache(maxsize=256)
 def _fragments_cached(key: bytes, r: int, k: int, device: str) -> torch.Tensor:
     m = np.frombuffer(key, dtype=np.uint8).reshape(r, k)
-    return rs_device.device_constant(a_fragments(m), device)
+    return rs_device.device_constant(b_fragments(m), device)
 
 
 def _bytes_view(data: torch.Tensor) -> torch.Tensor:
@@ -191,9 +238,10 @@ def make_encoder8(matrix):
 
 
 def main(argv=None) -> int:
-    """Check the kernel against make_encoder32 on 4 windows, then time both
-    at [256, 8, 32768] words (CUDA events, inputs rotated over buffers
-    larger than L2)."""
+    """Check the kernel against make_encoder32 on 4 windows, print the
+    mma rate probe and the time each shape's product would take at
+    [256, 8, 32768] words, then time both kernels there (CUDA events,
+    inputs rotated over buffers larger than L2)."""
     if not torch.cuda.is_available():
         print("rs_i8_kernel: needs a CUDA device", file=sys.stderr)
         return 2
@@ -212,6 +260,15 @@ def main(argv=None) -> int:
         return 1
     print("correctness OK")
     nbytes = batch * k * l4 * 4
+    # The product each shape needs: 4 n-tiles (8r = 32 columns) per 16
+    # byte lanes, of one K = 128 binary mma, or of 8k / 32 s8 m16n8k32.
+    ntiles = batch * l4 * 4 // 16 * 4
+    (b1, b1_ops), (s8, s8_ops) = PROBE_SHAPES
+    need = {b1: ntiles * b1_ops, s8: ntiles * (8 * k // 32) * s8_ops}
+    for name, rate in mma_rates(dev).items():
+        print(f"mma rate probe {name}: {rate / 1e12:.1f} TOPS; the product "
+              f"at {batch} blocks ({need[name]:.3g} ops) needs "
+              f"{need[name] / rate * 1e3:.4f} ms")
 
     def timed(fn, iters=20) -> float:
         for i in range(2):

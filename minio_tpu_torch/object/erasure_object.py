@@ -57,8 +57,9 @@ from minio_tpu_torch.erasure.codec import _HOST, Erasure
 from minio_tpu_torch.io.bufpool import global_pool
 from minio_tpu_torch.io.engine import kernel_lane, shutdown_kernel_lane
 from minio_tpu_torch.object.types import (BucketExists, BucketNotFound,
-                                          ObjectInfo, ObjectNotFound,
-                                          ReadQuorumError, WriteQuorumError)
+                                          InvalidRange, ObjectInfo,
+                                          ObjectNotFound, ReadQuorumError,
+                                          WriteQuorumError)
 from minio_tpu_torch.ops import gf256, hh_device, rs_device
 from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
@@ -79,6 +80,24 @@ DIGEST = bitrot.digest_size(bitrot.DEFAULT_ALGORITHM)
 # own. The JAX package's 8 was tuned on a TPU; until an H100 measurement
 # sets it, every window of full blocks goes to the card.
 MIN_DEVICE_BLOCKS = 1
+
+
+def _resolve_range(spec: tuple, size: int, bucket: str, object_: str):
+    """(start|None, end|None) -> (offset, length), HTTP Range semantics
+    (minio_tpu/object/erasure_object.py `_resolve_range`)."""
+    lo, hi = spec
+    if lo is None:                       # suffix: last `hi` bytes
+        if hi is None or hi <= 0:
+            raise InvalidRange(bucket, object_)
+        start = max(0, size - hi)
+        return start, size - start
+    if lo >= size:
+        raise InvalidRange(bucket, object_)
+    if hi is None:
+        return lo, size - lo
+    if lo > hi:
+        raise InvalidRange(bucket, object_)
+    return lo, min(hi, size - 1) - lo + 1
 
 
 # -- the stripe batchers' device functions and host rivals --------------------
@@ -548,17 +567,33 @@ class ErasureSet:
         info, chunks = self.get_object_stream(bucket, object_)
         return info, b"".join(chunks)
 
-    def get_object_stream(self, bucket: str, object_: str
+    def get_object_stream(self, bucket: str, object_: str, offset: int = 0,
+                          length: Optional[int] = None
                           ) -> tuple[ObjectInfo, Iterator[memoryview]]:
-        """(info, iterator over the object's bytes, one window each)."""
+        """(info, iterator over bytes [offset, offset + length) of the
+        object, one window each; length None reads to the end). Only the
+        erasure blocks that cover the range are read, in windows of
+        STREAM_WINDOW_BLOCKS from block offset // BLOCK_SIZE; the first
+        and last windows are sliced. A range past the object's end is
+        InvalidRange."""
         fi, fis = self._quorum_fileinfo(bucket, object_, read_data=True)
-        nblocks = -(-fi.size // BLOCK_SIZE)
+        if length is None:
+            length = fi.size - offset
+        if offset < 0 or length < 0 or offset + length > fi.size:
+            raise InvalidRange(bucket, object_)
+        end = offset + length
 
         def gen():
-            for b0 in range(0, nblocks, STREAM_WINDOW_BLOCKS):
-                b1 = min(nblocks, b0 + STREAM_WINDOW_BLOCKS) - 1
-                yield memoryview(self._read_window(bucket, object_, fi, fis,
-                                                   b0, b1))
+            if not length:
+                return
+            last = (end - 1) // BLOCK_SIZE
+            for b0 in range(offset // BLOCK_SIZE, last + 1,
+                            STREAM_WINDOW_BLOCKS):
+                b1 = min(last, b0 + STREAM_WINDOW_BLOCKS - 1)
+                win = self._read_window(bucket, object_, fi, fis, b0, b1)
+                lo = b0 * BLOCK_SIZE
+                yield memoryview(win)[max(offset, lo) - lo:
+                                      min(end, lo + win.size) - lo]
         return self._to_info(bucket, object_, fi), gen()
 
     def _read_window(self, bucket: str, object_: str, fi: FileInfo,

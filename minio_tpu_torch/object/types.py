@@ -28,6 +28,10 @@ class ObjectNotFound(ObjectError):
     pass
 
 
+class InvalidRange(ObjectError):
+    """The requested byte range does not overlap the object."""
+
+
 class ReadQuorumError(ObjectError):
     """errErasureReadQuorum: not enough consistent metadata/shards."""
 

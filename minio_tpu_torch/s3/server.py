@@ -5,8 +5,11 @@ keep-alive. It serves PUT/HEAD bucket and PUT/GET/HEAD/DELETE object,
 every request authenticated with header SigV4 (s3/sigv4.py; a wrong
 signature is 403 SignatureDoesNotMatch), errors rendered as S3 XML
 (reference cmd/api-errors.go). GET bodies stream one erasure window at a
-time. The rest of the S3 surface is minio_tpu/s3/server.py's and comes
-in later slices.
+time; a `Range: bytes=` GET or HEAD answers 206 with the erasure blocks
+of that range only. PUT bodies may be aws-chunked (the three streaming
+payload hashes) and may come with `Transfer-Encoding: chunked`; the body
+is read whole into memory. The rest of the S3 surface is
+minio_tpu/s3/server.py's and comes in later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from xml.sax.saxutils import escape
 
 from minio_tpu_torch.object import types as ot
+from minio_tpu_torch.object.erasure_object import _resolve_range
 from minio_tpu_torch.s3 import sigv4
 
 # code -> (http status, message)
@@ -32,6 +36,9 @@ ERRORS = {
     "AuthorizationHeaderMalformed": (400, "The authorization header is malformed."),
     "XAmzContentSHA256Mismatch": (400, "The provided 'x-amz-content-sha256' header does not match what was computed."),
     "IncompleteBody": (400, "You did not provide the number of bytes specified by the Content-Length HTTP header."),
+    "InvalidChunkSizeError": (400, "Invalid chunk size."),
+    "InvalidRange": (416, "The requested range is not satisfiable."),
+    "InvalidArgument": (400, "Invalid argument."),
     "MissingContentLength": (411, "You must provide the Content-Length HTTP header."),
     "InvalidBucketName": (400, "The specified bucket is not valid."),
     "NoSuchBucket": (404, "The specified bucket does not exist."),
@@ -47,6 +54,7 @@ _OBJECT_ERRORS = {
     ot.BucketNotFound: "NoSuchBucket",
     ot.BucketExists: "BucketAlreadyOwnedByYou",
     ot.ObjectNotFound: "NoSuchKey",
+    ot.InvalidRange: "InvalidRange",
     ot.ReadQuorumError: "SlowDownRead",
     ot.WriteQuorumError: "SlowDownWrite",
 }
@@ -63,6 +71,25 @@ class S3Error(Exception):
 
 def _http_date(ns: int) -> str:
     return email.utils.formatdate(ns / 1e9, usegmt=True)
+
+
+def _range_spec(rng: str):
+    """Range header -> (start|None, end|None) spec, or None if absent
+    (minio_tpu/s3/server.py `_range_spec`)."""
+    if not rng:
+        return None
+    if not rng.startswith("bytes="):
+        raise S3Error("InvalidArgument")
+    spec = rng[len("bytes="):]
+    if "," in spec:
+        raise S3Error("NotImplemented", "multiple ranges")
+    lo, _, hi = spec.partition("-")
+    try:
+        if lo == "":
+            return (None, int(hi))
+        return (int(lo), int(hi) if hi else None)
+    except ValueError:
+        raise S3Error("InvalidArgument") from None
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -132,12 +159,16 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             headers = {k.lower(): v for k, v in self.headers.items()}
             body = self._read_body(method, headers)
-            sigv4.verify_request(
+            streaming = headers.get("x-amz-content-sha256") \
+                in sigv4.STREAMING_HASHES
+            auth = sigv4.verify_request(
                 method, raw_path,
                 urllib.parse.parse_qs(qs, keep_blank_values=True), headers,
                 self.s3.credentials.get,
                 body_hash=hashlib.sha256(body).hexdigest()
-                if method == "PUT" else None)
+                if method == "PUT" and not streaming else None)
+            if method == "PUT" and streaming:
+                body = self._decode_aws_chunked(body, auth, headers)
             bucket, _, key = self._resource.lstrip("/").partition("/")
             if not bucket:
                 raise S3Error("NotImplemented", "ListBuckets")
@@ -165,8 +196,12 @@ class _Handler(BaseHTTPRequestHandler):
         if method != "PUT":
             return b""
         if "content-length" not in headers:
+            if "chunked" in headers.get("transfer-encoding", "").lower():
+                return self._read_http_chunked()
             raise S3Error("MissingContentLength")
-        length = int(headers["content-length"])
+        return self._read_exact(int(headers["content-length"]))
+
+    def _read_exact(self, length: int) -> bytearray:
         body = bytearray(length)
         view, got = memoryview(body), 0
         while got < length:
@@ -175,6 +210,53 @@ class _Handler(BaseHTTPRequestHandler):
                 self.close_connection = True
                 raise S3Error("IncompleteBody")
             got += n
+        return body
+
+    def _read_http_chunked(self) -> bytearray:
+        """A `Transfer-Encoding: chunked` body (RFC 9112 section 7.1):
+        hex-size lines and data up to the zero-size chunk, then trailer
+        fields up to a blank line, which are dropped."""
+        body = bytearray()
+        while True:
+            line = self.rfile.readline(4096)
+            if not line.endswith(b"\n"):
+                self.close_connection = True
+                raise S3Error("IncompleteBody")
+            try:
+                size = int(line.split(b";", 1)[0], 16)
+            except ValueError:
+                self.close_connection = True
+                raise S3Error("IncompleteBody") from None
+            if size <= 0:
+                break
+            body += self._read_exact(size)
+            if self.rfile.readline(4096).strip():
+                self.close_connection = True
+                raise S3Error("IncompleteBody")
+        while self.rfile.readline(4096).strip():
+            pass
+        return body
+
+    def _decode_aws_chunked(self, raw, auth, headers: dict) -> bytearray:
+        """The decoded body of an aws-chunked PUT, every signature checked
+        and its size held to x-amz-decoded-content-length. As the JAX
+        package's server answers: no declared size is 411; a body longer
+        than declared is 400 IncompleteBody; a shorter one is 500
+        InternalError (its sized reader runs dry)."""
+        declared = headers.get("x-amz-decoded-content-length")
+        if declared is None:
+            raise S3Error("MissingContentLength")
+        declared = int(declared)
+        body = sigv4.decode_chunked_payload(
+            raw, auth, self.s3.credentials[auth.credential.access_key],
+            verify_signatures=auth.payload_hash
+            != sigv4.STREAMING_UNSIGNED_TRAILER)
+        if len(body) > declared:
+            raise S3Error("IncompleteBody",
+                          "body exceeds decoded content length")
+        if len(body) < declared:
+            raise S3Error("InternalError", f"body ended {declared - len(body)}"
+                          " bytes short of declared size")
         return body
 
     def _send(self, status: int, headers: dict, body: bytes = b"",
@@ -227,14 +309,48 @@ class _Handler(BaseHTTPRequestHandler):
             user_metadata=meta)
         self._send(200, {"ETag": f'"{info.etag}"'})
 
-    def _head_object(self, bucket, key, _body, _headers):
-        info = self.s3.objects.get_object_info(bucket, key)
-        self._send(200, self._object_headers(info), length=info.size)
+    @staticmethod
+    def _resolve(spec, info, bucket, key) -> tuple:
+        """(spec, offset, length) of a parsed Range spec on the object;
+        spec None reads it whole. As the JAX package: 416 InvalidRange
+        for a range the object cannot satisfy, and a suffix range of an
+        empty object is a whole-object read."""
+        if spec is None:
+            return None, 0, info.size
+        start, length = _resolve_range(spec, info.size, bucket, key)
+        if info.size == 0 and spec[0] is None:
+            return None, 0, 0
+        return spec, start, length
 
-    def _get_object(self, bucket, key, _body, _headers):
-        info, chunks = self.s3.objects.get_object_stream(bucket, key)
+    def _answer(self, info, spec, start, length) -> tuple[int, dict]:
+        """Status and headers of a GET or HEAD: 206 with Content-Range for
+        a range, else 200."""
+        headers = self._object_headers(info)
+        if spec is None:
+            return 200, headers
+        headers["Content-Range"] = \
+            f"bytes {start}-{start + length - 1}/{info.size}"
+        return 206, headers
+
+    def _head_object(self, bucket, key, _body, headers):
+        spec = _range_spec(headers.get("range", ""))
+        info = self.s3.objects.get_object_info(bucket, key)
+        spec, start, length = self._resolve(spec, info, bucket, key)
+        self._send(*self._answer(info, spec, start, length), length=length)
+
+    def _get_object(self, bucket, key, _body, headers):
+        spec = _range_spec(headers.get("range", ""))
+        start, length = 0, None
+        if spec is not None:
+            spec, start, length = self._resolve(
+                spec, self.s3.objects.get_object_info(bucket, key), bucket,
+                key)
+        info, chunks = self.s3.objects.get_object_stream(bucket, key, start,
+                                                         length)
+        if length is None:
+            length = info.size
         first = next(chunks, b"")          # errors before the head is sent
-        self._send(200, self._object_headers(info), length=info.size)
+        self._send(*self._answer(info, spec, start, length), length=length)
         try:
             self.wfile.write(first)
             for chunk in chunks:

@@ -3,7 +3,9 @@
 The slice's subset of minio_tpu/s3/sigv4.py (itself the public AWS SigV4
 scheme, as the reference implements it in cmd/signature-v4.go):
 canonical request -> string-to-sign -> HMAC chain, for requests signed
-in the Authorization header. `sign_headers` is the client side, used by
+in the Authorization header, and the aws-chunked streaming bodies
+(`decode_chunked_payload`: per-chunk signatures chained from the seed
+signature, signed trailers). `sign_headers` is the client side, used by
 the port's own tools and tests.
 """
 
@@ -18,6 +20,13 @@ from typing import Optional
 
 ALGORITHM = "AWS4-HMAC-SHA256"
 UNSIGNED_PAYLOAD = "UNSIGNED-PAYLOAD"
+STREAMING_PAYLOAD = "STREAMING-AWS4-HMAC-SHA256-PAYLOAD"
+STREAMING_PAYLOAD_TRAILER = "STREAMING-AWS4-HMAC-SHA256-PAYLOAD-TRAILER"
+STREAMING_UNSIGNED_TRAILER = "STREAMING-UNSIGNED-PAYLOAD-TRAILER"
+# x-amz-content-sha256 values whose body is aws-chunked framing: the raw
+# body's SHA-256 is never compared, the decoded chunks are checked instead.
+STREAMING_HASHES = (STREAMING_PAYLOAD, STREAMING_PAYLOAD_TRAILER,
+                    STREAMING_UNSIGNED_TRAILER)
 EMPTY_SHA256 = hashlib.sha256(b"").hexdigest()
 
 
@@ -130,7 +139,8 @@ def verify_request(method: str, raw_path: str, query: dict[str, list[str]],
 
     `secret_for(access_key) -> secret | None`. Raises SigError on any
     mismatch, a clock skew beyond 15 minutes, or a body whose sha256
-    differs from the signed x-amz-content-sha256."""
+    differs from the signed x-amz-content-sha256 (an aws-chunked body is
+    checked by decode_chunked_payload instead)."""
     auth = parse_auth_header(headers)
     secret = secret_for(auth.credential.access_key)
     if secret is None:
@@ -143,8 +153,8 @@ def verify_request(method: str, raw_path: str, query: dict[str, list[str]],
     now = datetime.datetime.now(datetime.timezone.utc)
     if abs((now - t0).total_seconds()) > 15 * 60:
         raise SigError("AccessDenied", "request time too skewed")
-    if body_hash is not None and auth.payload_hash != UNSIGNED_PAYLOAD \
-            and body_hash != auth.payload_hash:
+    if body_hash is not None and body_hash != auth.payload_hash \
+            and auth.payload_hash not in (UNSIGNED_PAYLOAD, *STREAMING_HASHES):
         raise SigError("XAmzContentSHA256Mismatch", "payload mismatch")
     canon = canonical_request(method, raw_path, query, headers,
                               auth.signed_headers, auth.payload_hash)
@@ -154,6 +164,96 @@ def verify_request(method: str, raw_path: str, query: dict[str, list[str]],
     if not hmac.compare_digest(want, auth.signature):
         raise SigError("SignatureDoesNotMatch")
     return auth
+
+
+_MAX_CHUNK_HEADER = 4 * 1024     # the reference's bounds on one frame
+_MAX_CHUNK = 16 << 20
+
+
+def _chunk_sig(key: bytes, auth: ParsedAuth, prev: str, data) -> str:
+    sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", auth.amz_date,
+                     auth.credential.scope(), prev, EMPTY_SHA256,
+                     hashlib.sha256(data).hexdigest()])
+    return hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+
+
+def decode_chunked_payload(body, auth: ParsedAuth, secret: str,
+                           verify_signatures: bool = True) -> bytearray:
+    """Decode an aws-chunked body: `hex-size;chunk-signature=<sig>\r\n
+    <data>\r\n` frames up to a zero-size one, then optional trailer lines
+    (minio_tpu/s3/sigv4.py `decode_chunked_payload`, with the trailer
+    checks of its `ChunkedPayloadReader`; reference
+    cmd/streaming-signature-v4.go).
+
+    With verify_signatures (every hash but STREAMING-UNSIGNED-PAYLOAD-
+    TRAILER), each chunk's signature chains from the previous one,
+    starting at the request's seed signature; in signed-trailer mode the
+    final zero-size chunk is checked when it carries a signature, and
+    x-amz-trailer-signature over the '\n'-terminated trailer lines
+    chains from the last chunk's. Raises SigError: SignatureDoesNotMatch
+    for a bad signature, IncompleteBody or InvalidChunkSizeError for
+    broken framing."""
+    key = signing_key(secret, auth.credential.date, auth.credential.region,
+                      auth.credential.service)
+    signed = verify_signatures and auth.payload_hash in (
+        STREAMING_PAYLOAD, STREAMING_PAYLOAD_TRAILER)
+    prev = auth.signature
+    view = memoryview(body)
+    out = bytearray()
+    pos = 0
+    while True:
+        nl = body.find(b"\r\n", pos)
+        if nl < 0 or nl - pos > _MAX_CHUNK_HEADER:
+            raise SigError("IncompleteBody" if nl < 0 else
+                           "InvalidChunkSizeError", "bad chunk header")
+        header = bytes(view[pos:nl]).decode("latin-1")
+        pos = nl + 2
+        size_hex, _, ext = header.partition(";")
+        try:
+            size = int(size_hex, 16)
+        except ValueError:
+            raise SigError("InvalidChunkSizeError", size_hex) from None
+        if size < 0 or size > _MAX_CHUNK:
+            raise SigError("InvalidChunkSizeError", size_hex)
+        data = view[pos:pos + size]
+        if len(data) != size:
+            raise SigError("IncompleteBody", "short chunk")
+        pos += size
+        if size:
+            if view[pos:pos + 2] != b"\r\n":
+                raise SigError("IncompleteBody", "bad chunk delimiter")
+            pos += 2
+        if signed and (auth.payload_hash == STREAMING_PAYLOAD or size
+                       or "chunk-signature=" in ext):
+            got = next((kv[len("chunk-signature="):] for kv in ext.split(";")
+                        if kv.startswith("chunk-signature=")), "")
+            want = _chunk_sig(key, auth, prev, data)
+            if not hmac.compare_digest(want, got):
+                raise SigError("SignatureDoesNotMatch", "chunk signature")
+            prev = want
+        if not size:
+            break
+        out += data
+    # Trailer lines `name:value\r\n`, the signature line among them.
+    trailer_raw, trailer_sig, trailers = bytearray(), "", 0
+    for line in bytes(view[pos:]).split(b"\r\n")[:-1]:
+        name, sep, value = line.partition(b":")
+        if not sep:
+            continue
+        if name.decode("latin-1").strip().lower() == "x-amz-trailer-signature":
+            trailer_sig = value.decode("latin-1").strip()
+            continue
+        trailer_raw += line + b"\n"
+        trailers += 1
+    if signed and auth.payload_hash == STREAMING_PAYLOAD_TRAILER \
+            and (trailers or trailer_sig):
+        sts = "\n".join(["AWS4-HMAC-SHA256-TRAILER", auth.amz_date,
+                         auth.credential.scope(), prev,
+                         hashlib.sha256(trailer_raw).hexdigest()])
+        want = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+        if not hmac.compare_digest(want, trailer_sig):
+            raise SigError("SignatureDoesNotMatch", "trailer signature")
+    return out
 
 
 def sign_headers(method: str, host: str, path: str, access_key: str,

@@ -173,19 +173,33 @@ def test_framer_and_deframer_on_card(dev):
     assert (~ok).sum() == 1 and not ok[1, 5]
 
 
-@pytest.mark.parametrize("b,k,r,length", [
-    (32, 8, 4, 131072), (2, 8, 4, 4), (3, 8, 4, 100), (2, 8, 4, 4000),
-    (2, 5, 3, 1000), (2, 12, 5, 4096), (1, 16, 16, 640), (1, 1, 1, 17)])
-def test_rs_i8_matches_plain_and_gf_apply(dev, b, k, r, length):
+@pytest.mark.parametrize("b,k,r,length,offset", [
+    (32, 8, 4, 131072, 0), (2, 8, 4, 4, 0), (3, 8, 4, 100, 0),
+    (2, 8, 4, 4000, 0), (2, 5, 3, 1000, 0), (2, 12, 5, 4096, 0),
+    (1, 16, 16, 640, 0), (1, 1, 1, 17, 0),
+    # The widest matrix (k = 16: one full 128-bit K; r = 32: 8 row groups),
+    # one output row, unaligned bases (the masked path at full width) and
+    # a ragged tail past several warp steps.
+    (2, 16, 32, 131072, 0), (3, 16, 32, 1543, 0), (4, 8, 1, 131072, 0),
+    (2, 15, 1, 777, 0), (2, 8, 4, 131072, 3), (3, 12, 4, 4096 + 5, 1),
+    (1, 16, 32, 513, 7)])
+def test_rs_i8_matches_plain_and_gf_apply(dev, b, k, r, length, offset):
     mat = np.random.default_rng(k * r).integers(0, 256, size=(r, k),
                                                 dtype=np.uint8)
-    data = _rand(dev, length + k, b, k, length)
+    data = _rand(dev, length + k, b * k * length + offset)[offset:].view(
+        b, k, length)
     before = rs_i8_kernel.LAUNCHES
     got = rs_i8_kernel.rs_apply8(mat, data)
     torch.cuda.synchronize()
     assert rs_i8_kernel.LAUNCHES == before + 1
     assert torch.equal(got, rs_i8_kernel.rs_apply8_plain(mat, data))
     assert torch.equal(got, rs_device.gf_apply(mat, data))
+
+
+def test_mma_probe_rates(dev):
+    rates = rs_i8_kernel.mma_rates(dev, iters=256)
+    assert [name for name, _ in rs_i8_kernel.PROBE_SHAPES] == list(rates)
+    assert all(v > 1e12 for v in rates.values())
 
 
 def test_rs_i8_u32_contract_matches_encoder32(dev):

@@ -3,14 +3,17 @@
 `rs_apply8_plain` (what `rs_apply8` runs on a CPU tensor) must equal the
 JAX B5 kernel itself, `make_encoder8` run under Pallas's TPU interpret
 mode, and the JAX u32 encoder `make_encoder32`, byte for byte; and the
-port's own `gf_apply_plain` on the byte view. The kernel's fragment
-layout (`a_fragments`) and its index algebra (B operands from 16-byte
-loads, ballot repack) are checked by a numpy emulation of one warp step.
+port's own `gf_apply_plain` on the byte view. The kernel's B layout
+(`b_fragments`) and its data flow (A words from 16-byte loads through a
+4 x 4 byte transpose, binary m16n8k128 products, one bit-field insert
+per output bit) are checked by a numpy emulation of one warp step that
+reads the transpose selectors from the source.
 The CUDA kernel itself is held against the plain version on the card in
 tests/test_torch_cuda.py. Integer math throughout: exact equality.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -105,72 +108,129 @@ def test_rejects_bad_inputs():
         ri.make_encoder8(pm)(torch.zeros((1, 4, 8), dtype=torch.uint8))
 
 
+SRC = (Path(ri.__file__).parents[1] / "ops" / "csrc" / "rs_i8.cu").read_text()
+SEL = {name: int(v, 16) for name, v in re.findall(
+    r"constexpr uint32_t (k\w+) = (0x[0-9a-fA-F]+);", SRC)}
+CONST = {name: int(v) for name, v in re.findall(
+    r"constexpr int (k\w+) = (\d+);", SRC)}
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    """CUDA __byte_perm: byte n of the result is byte (sel >> 4n) & 7 of
+    (x, y), y's bytes being 4..7."""
+    src = (x | (y << 32)).to_bytes(8, "little")
+    return int.from_bytes(bytes(src[(sel >> (4 * n)) & 7] for n in range(4)),
+                          "little")
+
+
+def _transpose4(a, b, c, d):
+    """rs_i8.cu transpose4, selectors read from the source."""
+    p0, p1 = _byte_perm(a, b, SEL["kPairLo"]), _byte_perm(a, b, SEL["kPairHi"])
+    p2, p3 = _byte_perm(c, d, SEL["kPairLo"]), _byte_perm(c, d, SEL["kPairHi"])
+    return (_byte_perm(p0, p2, SEL["kHalfLo"]), _byte_perm(p0, p2, SEL["kHalfHi"]),
+            _byte_perm(p1, p3, SEL["kHalfLo"]), _byte_perm(p1, p3, SEL["kHalfHi"]))
+
+
+def _bits(word: int) -> np.ndarray:
+    return (word >> np.arange(32)) & 1
+
+
+def _mma_b1(a, b) -> np.ndarray:
+    """mma.sync m16n8k128 b1 AND+POPC from the warp's fragments: a[lane]
+    = (a0, a1) holds K bits 32tig..+31 of rows g and g + 8, b[lane] = b0
+    holds the same K bits of column g. Returns d[lane] = (d0..d3): rows
+    g, g, g + 8, g + 8 at columns 2tig, 2tig + 1, 2tig, 2tig + 1."""
+    am = np.zeros((16, 128), dtype=np.int64)
+    bm = np.zeros((128, 8), dtype=np.int64)
+    for lane in range(32):
+        g, tig = lane >> 2, lane & 3
+        am[g, 32 * tig:32 * tig + 32] = _bits(a[lane][0])
+        am[g + 8, 32 * tig:32 * tig + 32] = _bits(a[lane][1])
+        bm[32 * tig:32 * tig + 32, g] = _bits(b[lane])
+    dm = am @ bm
+    return [(dm[lane >> 2, 2 * (lane & 3)], dm[lane >> 2, 2 * (lane & 3) + 1],
+             dm[8 + (lane >> 2), 2 * (lane & 3)],
+             dm[8 + (lane >> 2), 2 * (lane & 3) + 1]) for lane in range(32)]
+
+
 def _emulate_warp_step(matrix, chunk):
-    """One warp step of csrc/rs_i8.cu in numpy: chunk uint8 [k, 128] ->
-    [r, 128]. A tiles are read back from `a_fragments` through the
-    m16n8k32 fragment layout; B operands come from each lane's 16-byte
-    loads; the accumulator's low bits go through warp ballots and the
-    every-4th-bit gather, as the kernel does."""
+    """One warp step of csrc/rs_i8.cu in numpy: chunk uint8 [k, L <= 128]
+    -> [r, L]. Thread (g, tig) loads lanes 16g..16g+15 of shards 4tig..
+    4tig+3 (0 past k and past L), byte-transposes each quarter into one
+    word per lane (selectors from the source), feeds lanes 16g + q and
+    16g + 8 + q as m-tile q's A rows, the wrapper's `b_fragments` as B,
+    inserts each accumulator's low bit at bit 8(q & 3) + 2t + e of its
+    output word and stores lanes 16g.. of row 4grp + tig, as the kernel
+    does."""
     r, k = matrix.shape
-    frag = ri.a_fragments(matrix).view(np.uint8)
-    mt, kt_n = frag.shape[0], frag.shape[1]
-    frag = frag.reshape(mt, kt_n, 32, 4, 4)
-    a = np.zeros((mt, kt_n, 16, 32), dtype=np.int64)
+    chunk_len = chunk.shape[1]
+    step = CONST["kChunk"]
+    buf = np.zeros((CONST["kMaxShards"], step), dtype=np.uint8)
+    buf[:k, :chunk_len] = chunk
+    frag = ri.b_fragments(matrix).view(np.uint32)
+    assert frag.shape == (-(-r // 4), 32, 4)
+    a = []
     for lane in range(32):
         g, tig = lane >> 2, lane & 3
-        for reg, (row0, col0) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
-            a[:, :, g + row0, col0 + tig * 4:col0 + tig * 4 + 4] = \
-                frag[:, :, lane, reg]
-    loads = np.zeros((32, kt_n, 2, 16), dtype=np.int64)
-    for lane in range(32):
-        g, tig = lane >> 2, lane & 3
-        for kt in range(kt_n):
-            for h in range(2):
-                s = 4 * kt + 2 * h + (tig >> 1)
-                if s < k:
-                    loads[lane, kt, h] = chunk[s, 16 * g:16 * g + 16]
-    out = np.zeros((r, 128), dtype=np.uint8)
-    for grp in range((r + 3) // 4):
-        res = np.zeros((32, 16), dtype=np.uint8)
-        for q in range(16):
-            b = np.zeros((kt_n, 32, 8), dtype=np.int64)
-            for lane in range(32):
-                g, tig = lane >> 2, lane & 3
-                for kt in range(kt_n):
-                    for h in range(2):
-                        nibble = (loads[lane, kt, h, q] >> ((tig & 1) * 4)) & 0xF
-                        spread = (int(nibble) * 0x00204081) & 0x01010101
-                        for e in range(4):
-                            b[kt, 16 * h + 4 * tig + e, g] = \
-                                (spread >> (8 * e)) & 1
-            ballots = np.zeros((2, 4), dtype=np.int64)
-            for u in range(2):
-                ut = 2 * grp + u
-                d = sum(a[ut, kt] @ b[kt] for kt in range(kt_n)) \
-                    if ut < mt else np.zeros((16, 8), dtype=np.int64)
-                for i in range(4):
-                    for lane in range(32):
-                        g, tig = lane >> 2, lane & 3
-                        if d[g + 8 * (i >> 1), 2 * tig + (i & 1)] & 1:
-                            ballots[u, i] |= 1 << lane
-            for lane in range(32):
-                srow, scol = lane >> 3, lane & 7
-                mask = int(ballots[srow >> 1, (srow & 1) * 2 + (scol & 1)]) \
-                    >> (scol >> 1)
-                res[lane, q] = sum(((mask >> (4 * gg)) & 1) << gg
-                                   for gg in range(8))
+        loads = [buf[4 * tig + e, 16 * g:16 * g + 16].view("<u4")
+                 for e in range(4)]
+        words = []
+        for qr in range(4):
+            words += _transpose4(*(int(loads[e][qr]) for e in range(4)))
+        a.append(words)
+    out = np.zeros((r, step), dtype=np.uint8)
+    for grp in range(frag.shape[0]):
+        res = [[0] * 4 for _ in range(32)]
+        for q in range(8):
+            for t in range(4):
+                d = _mma_b1([(a[lane][q], a[lane][8 + q]) for lane in range(32)],
+                            [int(frag[grp, lane, t]) for lane in range(32)])
+                for lane in range(32):
+                    bit = 8 * (q & 3) + 2 * t
+                    for i, (word, pos) in enumerate(
+                            ((q >> 2, bit), (q >> 2, bit + 1),
+                             (2 + (q >> 2), bit), (2 + (q >> 2), bit + 1))):
+                        w = res[lane][word] & ~(1 << pos)
+                        res[lane][word] = w | ((int(d[lane][i]) & 1) << pos)
         for lane in range(32):
-            row = 4 * grp + (lane >> 3)
+            row = 4 * grp + (lane & 3)
             if row < r:
-                col = 16 * (lane & 7)
-                out[row, col:col + 16] = res[lane]
-    return out
+                col = 16 * (lane >> 2)
+                out[row, col:col + 16] = np.array(res[lane], "<u4").view(
+                    np.uint8)
+    return out[:, :chunk_len]
 
 
-@pytest.mark.parametrize("r,k", [(4, 8), (3, 5), (5, 12), (1, 2)])
-def test_kernel_index_algebra_emulated(r, k):
+@pytest.mark.parametrize("r,k,length", [(4, 8, 128), (3, 5, 128),
+                                        (5, 12, 128), (1, 2, 128),
+                                        (4, 16, 128), (32, 16, 128),
+                                        (4, 8, 100), (7, 3, 17)])
+def test_kernel_index_algebra_emulated(r, k, length):
     rng = np.random.default_rng(r * 100 + k)
     mat = rng.integers(0, 256, size=(r, k), dtype=np.uint8)
-    chunk = rng.integers(0, 256, size=(k, 128), dtype=np.uint8)
+    chunk = rng.integers(0, 256, size=(k, length), dtype=np.uint8)
     want = rs_device.gf_apply_plain(mat, torch.from_numpy(chunk)[None])[0]
     assert np.array_equal(_emulate_warp_step(mat, chunk), want.numpy())
+
+
+def test_source_limits_match_the_wrapper():
+    assert CONST["kMaxShards"] == ri.MAX_K == 16
+    assert CONST["kMaxRows"] == ri.MAX_R == 32
+    assert "__ballot_sync" not in SRC and "gather8" not in SRC \
+        and "spread4" not in SRC
+
+
+def test_b_fragments_column_permutation():
+    """Column g of n-tile t in row group grp is output byte 4grp + g // 2,
+    bit 2t + g % 2; bit p of lane tig's word is shard 4tig + p // 8, bit
+    p % 8. One nonzero coefficient lights exactly its 8 x 8 block."""
+    mat = np.zeros((6, 11), dtype=np.uint8)
+    mat[5, 9] = 1                                   # identity block
+    frag = ri.b_fragments(mat).view(np.uint32)
+    assert frag.shape == (2, 32, 4)
+    for grp, lane, t in zip(*np.nonzero(frag)):
+        g, tig = lane >> 2, lane & 3
+        j, c = 4 * grp + g // 2, 2 * t + g % 2
+        (p,) = np.nonzero(_bits(int(frag[grp, lane, t])))[0]
+        assert (j, 4 * tig + p // 8, p % 8) == (5, 9, c)
+    assert np.count_nonzero(frag) == 8

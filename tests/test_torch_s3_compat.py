@@ -1,0 +1,416 @@
+"""The port's ranged GET/HEAD and aws-chunked PUT against the JAX package's.
+
+Two servers on 12 drives each (EC 8+4): the port's, booted `--device cpu`
+in a subprocess as in tests/test_torch_server.py, and the JAX package's
+S3Server in this process. The same signed requests (tests/s3client.py)
+go to both, and every status, `Content-Range`, `Content-Length`, error
+code and body must be equal:
+
+  * Range: a table of headers on a 100-byte object and on an object of
+    one full erasure window + 777 B, on GET and on HEAD; a range across
+    the window boundary read from the port with 4 data drives wiped.
+  * aws-chunked: the port's `decode_chunked_payload` against the
+    reference's decoder and `ChunkedPayloadReader` on the same bodies;
+    over HTTP, streaming-signed, signed-trailer, unsigned-trailer and
+    HTTP `Transfer-Encoding: chunked` PUTs read back byte for byte with
+    the ETag of a plain PUT; flipped chunk and trailer signatures, wrong
+    and missing `x-amz-decoded-content-length`.
+"""
+
+import base64
+import hashlib
+import hmac
+import http.client
+import io
+import os
+import re
+import subprocess
+import sys
+import threading
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from minio_tpu.object.erasure_object import ErasureSet
+from minio_tpu.s3 import sigv4 as ref_sigv4
+from minio_tpu.s3.server import S3Server
+from minio_tpu.storage.local import LocalStorage
+from minio_tpu_torch.object.erasure_object import (BLOCK_SIZE,
+                                                   STREAM_WINDOW_BLOCKS,
+                                                   hash_order)
+from minio_tpu_torch.s3 import sigv4
+from tests.s3client import S3Client
+
+REPO = Path(__file__).resolve().parents[1]
+BUCKET = "compat"
+WINDOW = STREAM_WINDOW_BLOCKS * BLOCK_SIZE
+RNG = np.random.default_rng(6)
+OBJECTS = {"small": RNG.bytes(100), "window": RNG.bytes(WINDOW + 777)}
+RANGES = ["bytes=0-9", "bytes=-10", "bytes=90-", "bytes=95-200",
+          "bytes=100-", "bytes=-0", "bytes=5-2", "items=0-1",
+          "bytes=0-1,4-5"]
+
+
+@pytest.fixture(scope="module")
+def servers(tmp_path_factory):
+    """(port address, port drive paths, reference address), both with
+    BUCKET holding OBJECTS."""
+    root = tmp_path_factory.mktemp("s3compat")
+    drives = [str(root / "port" / f"d{i}") for i in range(12)]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch.server", "--device", "cpu",
+         "--address", "127.0.0.1:0", *drives],
+        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    ref = S3Server(ErasureSet([LocalStorage(str(root / "ref" / f"d{i}"))
+                               for i in range(12)]), address="127.0.0.1:0")
+    ref.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving S3 on http://"):
+                address = line.split("http://", 1)[1].split()[0]
+                break
+        else:
+            pytest.fail("server exited during boot:\n" + "".join(lines))
+        threading.Thread(target=lambda: [None for _ in proc.stdout],
+                         daemon=True).start()
+        for addr in (address, ref.address):
+            c = S3Client(addr, timeout=300)
+            assert c.request("PUT", f"/{BUCKET}")[0] == 200
+            for key, body in OBJECTS.items():
+                assert c.request("PUT", f"/{BUCKET}/{key}", body=body)[0] \
+                    == 200
+        yield address, drives, ref.address
+    finally:
+        ref.stop()
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def _code(body: bytes) -> str:
+    m = re.search(rb"<Code>([^<]*)</Code>", body)
+    return m.group(1).decode() if m else ""
+
+
+def _answer(address: str, method: str, path: str, headers=None, **kw):
+    """(status, Content-Range, Content-Length, body or error code)."""
+    st, h, body = S3Client(address, timeout=300).request(
+        method, path, headers=headers, **kw)
+    h = {k.lower(): v for k, v in h.items()}
+    if st >= 300:       # error documents differ in their extra fields
+        return st, h.get("content-range"), None, _code(body)
+    return st, h.get("content-range"), h.get("content-length"), body
+
+
+# -- C1: ranges ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("method", ["GET", "HEAD"])
+@pytest.mark.parametrize("rng", RANGES)
+@pytest.mark.parametrize("key", sorted(OBJECTS))
+def test_range_matches_reference(servers, key, rng, method):
+    port, _, ref = servers
+    path = f"/{BUCKET}/{key}"
+    want = _answer(ref, method, path, {"Range": rng})
+    got = _answer(port, method, path, {"Range": rng})
+    assert got == want
+    if want[0] == 206 and method == "GET":
+        lo, hi = map(int, want[1].split()[1].split("/")[0].split("-"))
+        assert got[3] == OBJECTS[key][lo:hi + 1]
+
+
+@pytest.mark.parametrize("method", ["GET", "HEAD"])
+def test_range_across_window_boundary_matches_reference(servers, method):
+    port, _, ref = servers
+    rng = f"bytes={WINDOW - 1000}-{WINDOW + 500}"
+    want = _answer(ref, method, f"/{BUCKET}/window", {"Range": rng})
+    assert want[0] == 206
+    assert _answer(port, method, f"/{BUCKET}/window", {"Range": rng}) == want
+
+
+def test_range_across_windows_with_four_data_drives_wiped(servers):
+    port, drives, _ = servers
+    dist = hash_order(f"{BUCKET}/window", 12)
+    holders = [i for i in range(12) if dist[i] - 1 < 8][:4]
+    moved = []
+    try:
+        for i in holders:
+            src = os.path.join(drives[i], BUCKET, "window")
+            os.rename(src, src + ".wiped")
+            moved.append(src)
+        lo, hi = WINDOW - 3 * BLOCK_SIZE - 5, WINDOW + 700
+        st, crange, clen, body = _answer(port, "GET", f"/{BUCKET}/window",
+                                         {"Range": f"bytes={lo}-{hi}"})
+        assert (st, crange, int(clen)) == \
+            (206, f"bytes {lo}-{hi}/{WINDOW + 777}", hi - lo + 1)
+        assert body == OBJECTS["window"][lo:hi + 1]
+    finally:
+        for src in moved:
+            os.rename(src + ".wiped", src)
+
+
+def test_object_stream_reads_only_the_range(tmp_path):
+    """get_object_stream(offset, length) on the object layer: the chunks
+    are the range, and only the windows covering it are read."""
+    from minio_tpu_torch.object import erasure_object as eo
+    from minio_tpu_torch.object.types import InvalidRange
+    from minio_tpu_torch.storage.local import LocalStorage as PortStorage
+    es = eo.ErasureSet([PortStorage(str(tmp_path / f"d{i}"))
+                        for i in range(12)], device="cpu")
+    try:
+        body = RNG.bytes(3 * BLOCK_SIZE + 99)
+        es.make_bucket("bkt")
+        es.put_object("bkt", "obj", body)
+        calls = []
+        real = es._read_window
+        es._read_window = lambda *a: calls.append(a[-2:]) or real(*a)
+        for off, length, blocks in ((BLOCK_SIZE + 7, 10, [(1, 1)]),
+                                    (BLOCK_SIZE - 1, 2, [(0, 1)]),
+                                    (3 * BLOCK_SIZE, 99, [(3, 3)]),
+                                    (5, None, [(0, 3)]), (0, 0, [])):
+            calls.clear()
+            _, chunks = es.get_object_stream("bkt", "obj", off, length)
+            end = len(body) if length is None else off + length
+            assert b"".join(chunks) == body[off:end]
+            assert calls == blocks
+        for off, length in ((len(body), 1), (0, len(body) + 1), (-1, 2)):
+            with pytest.raises(InvalidRange):
+                es.get_object_stream("bkt", "obj", off, length)
+    finally:
+        es.close()
+
+
+# -- C2: aws-chunked bodies ----------------------------------------------------
+
+SECRET = "minioadmin"
+AMZ_DATE = "20260803T120000Z"
+SCOPE = f"{AMZ_DATE[:8]}/us-east-1/s3/aws4_request"
+SEED = "c" * 64
+
+
+def _auths(payload_hash):
+    """The same parsed Authorization for the port's and the reference's
+    decoder."""
+    out = []
+    for mod in (sigv4, ref_sigv4):
+        out.append(mod.ParsedAuth(
+            credential=mod.Credential(access_key="minioadmin",
+                                      date=AMZ_DATE[:8], region="us-east-1",
+                                      service="s3"),
+            signed_headers=["host"], signature=SEED, amz_date=AMZ_DATE,
+            payload_hash=payload_hash))
+    return out
+
+
+def _encode(body: bytes, chunk: int, trailers=None, signed=True,
+            flip_chunk=None, flip_trailer=False, sign_final=True,
+            seed=SEED, amz_date=AMZ_DATE) -> bytes:
+    """aws-chunked framing of body chained from the seed signature, as an
+    SDK sends it."""
+    key = ref_sigv4.signing_key(SECRET, amz_date[:8], "us-east-1")
+    scope = f"{amz_date[:8]}/us-east-1/s3/aws4_request"
+    out, prev = bytearray(), seed
+    pieces = [body[i:i + chunk] for i in range(0, len(body), chunk)] + [b""]
+    for j, data in enumerate(pieces):
+        sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", amz_date, scope, prev,
+                         ref_sigv4.EMPTY_SHA256,
+                         hashlib.sha256(data).hexdigest()])
+        sig = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+        sent = signed and bool(data or sign_final)
+        prev = sig if sent else prev   # a bare final chunk ends the chain
+        if j == flip_chunk:
+            sig = ("0" if sig[0] != "0" else "1") + sig[1:]
+        ext = f";chunk-signature={sig}" if sent else ""
+        out += f"{len(data):x}{ext}\r\n".encode() + data
+        out += b"\r\n" if data or trailers is None else b""
+    if trailers is not None:
+        raw = b"".join(f"{k}:{v}\n".encode() for k, v in trailers.items())
+        out += b"".join(f"{k}:{v}\r\n".encode() for k, v in trailers.items())
+        if signed:
+            sts = "\n".join(["AWS4-HMAC-SHA256-TRAILER", amz_date, scope,
+                             prev, hashlib.sha256(raw).hexdigest()])
+            tsig = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+            if flip_trailer:
+                tsig = tsig[:-1] + ("0" if tsig[-1] != "0" else "1")
+            out += f"x-amz-trailer-signature:{tsig}\r\n".encode()
+        out += b"\r\n"
+    return bytes(out)
+
+
+def _ref_reader(raw: bytes, auth, verify: bool) -> bytes:
+    r = ref_sigv4.ChunkedPayloadReader(io.BytesIO(raw), auth, SECRET, verify)
+    out = bytearray()
+    while chunk := r.read(1 << 20):
+        out += chunk
+    r.finalize()
+    return bytes(out)
+
+
+@pytest.mark.parametrize("size,chunk", [(0, 64), (1, 64), (1000, 64),
+                                        (70000, 65536), (200000, 8192)])
+def test_decoder_matches_reference(size, chunk):
+    body = RNG.bytes(size)
+    raw = _encode(body, chunk)
+    mine, ref = _auths(sigv4.STREAMING_PAYLOAD)
+    got = sigv4.decode_chunked_payload(raw, mine, SECRET)
+    assert got == ref_sigv4.decode_chunked_payload(raw, ref, SECRET) == body
+    assert _ref_reader(raw, ref, True) == body
+
+
+@pytest.mark.parametrize("variant", ["signed", "signed bare final",
+                                     "unsigned"])
+def test_trailer_decoder_matches_reference(variant):
+    body = RNG.bytes(5000)
+    signed = variant != "unsigned"
+    ph = sigv4.STREAMING_PAYLOAD_TRAILER if signed \
+        else sigv4.STREAMING_UNSIGNED_TRAILER
+    raw = _encode(body, 1024, trailers={"x-amz-checksum-crc32": "AAAAAA=="},
+                  signed=signed, sign_final=variant == "signed")
+    mine, ref = _auths(ph)
+    got = sigv4.decode_chunked_payload(raw, mine, SECRET, signed)
+    assert got == ref_sigv4.decode_chunked_payload(raw, ref, SECRET, signed)
+    assert got == _ref_reader(raw, ref, signed) == body
+
+
+@pytest.mark.parametrize("case", ["chunk", "final chunk", "trailer",
+                                  "short chunk", "bad size"])
+def test_decoder_refuses_as_reference(case):
+    body = RNG.bytes(3000)
+    ph = sigv4.STREAMING_PAYLOAD_TRAILER if case == "trailer" \
+        else sigv4.STREAMING_PAYLOAD
+    raw = {"chunk": lambda: _encode(body, 1024, flip_chunk=1),
+           "final chunk": lambda: _encode(body, 1024, flip_chunk=3),
+           "trailer": lambda: _encode(body, 1024, trailers={"a": "b"},
+                                      flip_trailer=True),
+           "short chunk": lambda: _encode(body, 1024)[:1500],
+           "bad size": lambda: b"zz;chunk-signature=00\r\n"}[case]()
+    mine, ref = _auths(ph)
+    with pytest.raises(ref_sigv4.SigError) as want:
+        _ref_reader(raw, ref, True)
+    with pytest.raises(sigv4.SigError) as got:
+        sigv4.decode_chunked_payload(raw, mine, SECRET)
+    assert got.value.code == want.value.code
+
+
+class _FlippingClient(S3Client):
+    """Flips one hex digit of the second chunk's signature."""
+
+    def _chunk_body(self, *a, **kw):
+        out = super()._chunk_body(*a, **kw)
+        i = out.index(b"chunk-signature=", out.index(b"chunk-signature=")
+                      + 1) + len(b"chunk-signature=")
+        return out[:i] + (b"0" if out[i:i + 1] != b"0" else b"1") \
+            + out[i + 1:]
+
+
+def _both(servers, fn):
+    port, _, ref = servers
+    return fn(port), fn(ref)
+
+
+@pytest.mark.parametrize("mode", ["chunked", "te_chunked",
+                                  "chunked+te_chunked", "trailers"])
+def test_chunked_put_reads_back_with_plain_etag(servers, mode):
+    body = RNG.bytes(150_000 + len(mode))
+    kw = {"chunked": mode != "te_chunked",
+          "te_chunked": "te_chunked" in mode}
+    if mode == "trailers":
+        crc = base64.b64encode(zlib.crc32(body).to_bytes(4, "big")).decode()
+        kw["trailers"] = {"x-amz-checksum-crc32": crc}
+
+    def run(addr):
+        c = S3Client(addr, timeout=300)
+        key = f"/{BUCKET}/put-{mode}"
+        st, h, err = c.request("PUT", key, body=body, **kw)
+        assert st == 200, err
+        st2, h2, _ = c.request("PUT", key + "-plain", body=body)
+        st3, _, got = c.request("GET", key)
+        assert (st2, st3, got == body) == (200, 200, True)
+        return h["ETag"] == h2["ETag"]
+    assert _both(servers, run) == (True, True)
+
+
+def _raw_chunked_put(addr: str, path: str, body: bytes, payload_hash: str,
+                     extra: dict, **encode) -> tuple[int, str]:
+    """An aws-chunked PUT signed by hand: headers as given in `extra`,
+    chunks chained from the request's own signature."""
+    uri, headers = sigv4.sign_headers("PUT", addr, path, "minioadmin",
+                                      SECRET, payload_hash, extra={
+                                          "content-encoding": "aws-chunked",
+                                          **extra})
+    raw = _encode(body, 65536, seed=headers["authorization"].rsplit(
+        "Signature=", 1)[1], amz_date=headers["x-amz-date"], **encode)
+    conn = http.client.HTTPConnection(addr, timeout=300)
+    try:
+        conn.request("PUT", uri, body=raw, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, _code(resp.read())
+    finally:
+        conn.close()
+
+
+def test_unsigned_trailer_put(servers):
+    body = RNG.bytes(70_000)
+
+    def run(addr):
+        st, _ = _raw_chunked_put(
+            addr, f"/{BUCKET}/unsigned-trailer", body,
+            sigv4.STREAMING_UNSIGNED_TRAILER,
+            {"x-amz-decoded-content-length": str(len(body)),
+             "x-amz-trailer": "x-amz-meta-note"},
+            trailers={"x-amz-meta-note": "x"}, signed=False)
+        _, _, got = S3Client(addr).request("GET", f"/{BUCKET}/unsigned-trailer")
+        return st, got == body
+    assert _both(servers, run) == ((200, True), (200, True))
+
+
+@pytest.mark.parametrize("case", ["flipped chunk", "flipped trailer",
+                                  "decoded short", "decoded long",
+                                  "decoded missing"])
+def test_chunked_put_refusals_match_reference(servers, case):
+    body = RNG.bytes(100_000)
+    key = f"/{BUCKET}/refused-{case.replace(' ', '-')}"
+    headers = {"decoded short": {"x-amz-decoded-content-length": "99999"},
+               "decoded long": {"x-amz-decoded-content-length": "100001"},
+               }.get(case)
+
+    def run(addr):
+        if case == "decoded missing":
+            st, code = _raw_chunked_put(addr, key, body,
+                                        sigv4.STREAMING_PAYLOAD, {})
+        else:
+            cls = _FlippingClient if case == "flipped chunk" else S3Client
+            kw = {"trailers": {"x-amz-meta-a": "b"},
+                  "corrupt_trailer_sig": True} \
+                if case == "flipped trailer" else {}
+            st, _, err = cls(addr, timeout=300).request(
+                "PUT", key, body=body, chunked=True, headers=headers, **kw)
+            code = _code(err)
+        return st, code, S3Client(addr).request("GET", key)[0]
+    got, want = _both(servers, run)
+    assert got == want
+    assert want[0] in (400, 403, 411, 500) and want[2] == 404
+
+
+def test_verify_request_skips_the_raw_hash_only_for_streaming():
+    """The SHA-256 of an aws-chunked body is never compared with its
+    payload hash; any other signed hash still is."""
+    assert set(sigv4.STREAMING_HASHES) == {
+        ref_sigv4.STREAMING_PAYLOAD, ref_sigv4.STREAMING_PAYLOAD_TRAILER,
+        ref_sigv4.STREAMING_UNSIGNED_TRAILER}
+    for ph, ok in ((sigv4.STREAMING_PAYLOAD, True),
+                   (hashlib.sha256(b"x").hexdigest(), False)):
+        uri, h = sigv4.sign_headers("PUT", "h:1", "/b/k", "ak", "sk", ph)
+        call = lambda: sigv4.verify_request(  # noqa: E731
+            "PUT", uri, {}, h, {"ak": "sk"}.get,
+            body_hash=hashlib.sha256(b"y").hexdigest())
+        if ok:
+            call()
+        else:
+            with pytest.raises(sigv4.SigError, match="payload mismatch"):
+                call()
