@@ -31,7 +31,14 @@ and prints no result line):
    a data-shard block and GET again. Byte identity every time. Ranged
    GETs (206, Content-Range) inside a window and across two windows,
    healthy and with the 4 drives wiped; one aws-chunked
-   (STREAMING-AWS4-HMAC-SHA256-PAYLOAD) PUT read back byte for byte.
+   (STREAMING-AWS4-HMAC-SHA256-PAYLOAD) PUT read back byte for byte. The
+   256 MiB object again as a body streamed in 1 MiB writes, signed and
+   UNSIGNED-PAYLOAD; a 40 MiB PUT with an x-amz-checksum-crc32 header and
+   one with a CRC32 aws-chunked trailer (STREAMING-UNSIGNED-PAYLOAD-
+   TRAILER), each read back with x-amz-checksum-mode: ENABLED; a wrong
+   CRC32 answered 400 XAmzContentChecksumMismatch with the key absent; a
+   GET stream closed after its first window. After the phase no lease of
+   the card's pinned pool is outstanding.
 4. The main path, concurrent: a fresh server as in 3, with the default
    MTPU_BATCH_FORCE. 16 client threads each PUT 6 objects (1 MiB,
    3 MiB + 5 B, 8 MiB, twice) whose keys share one `hash_order`; 16
@@ -39,7 +46,8 @@ and prints no result line):
    are wiped and 16 threads GET all 96 again. Byte identity every time;
    on each of the put, get and reconstruct routes at least one device
    dispatch carried 2 or more requests' windows, no window went to the
-   host, and no deadline culled a member. Each route's kernel-lane
+   host, and no deadline culled a member; no pool lease is outstanding
+   after the phase. Each route's kernel-lane
    dispatches are read as round trip, queue wait and service apart. Then
    each route's device function alone, with no request threads, at every
    bucket that route used (host clock): the yardstick for the lane's
@@ -66,6 +74,7 @@ The last two lines of standard output are the kernels' JSON record and
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import hmac
 import http.client
@@ -347,6 +356,38 @@ class Client:
         finally:
             conn.close()
 
+    def stream_put(self, path: str, body: bytes, signed: bool = True,
+                   extra: dict | None = None, piece: int = MIB):
+        """A PUT whose body goes out in `piece`-byte writes behind its
+        Content-Length, signed (the body's SHA-256) or UNSIGNED-PAYLOAD:
+        (status, body, headers)."""
+        view = memoryview(body)
+        return self.send(
+            "PUT", path, extra={"content-length": str(len(body)),
+                                **(extra or {})},
+            payload_hash=hashlib.sha256(body).hexdigest() if signed
+            else self.sigv4.UNSIGNED_PAYLOAD,
+            encode=lambda _h: (view[i:i + piece]
+                               for i in range(0, len(body), piece)))
+
+    def trailer_put(self, path: str, body: bytes, crc: str,
+                    chunk: int = 64 * 1024):
+        """The SDKs' default upload shape: STREAMING-UNSIGNED-PAYLOAD-
+        TRAILER aws-chunked frames and an x-amz-checksum-crc32 trailer."""
+        def encode(_headers):
+            out = bytearray()
+            for i in range(0, len(body), chunk):
+                part = body[i:i + chunk]
+                out += f"{len(part):x}\r\n".encode() + part + b"\r\n"
+            out += f"0\r\nx-amz-checksum-crc32:{crc}\r\n\r\n".encode()
+            return bytes(out)
+        return self.send("PUT", path, extra={
+            "content-encoding": "aws-chunked",
+            "x-amz-decoded-content-length": str(len(body)),
+            "x-amz-trailer": "x-amz-checksum-crc32"},
+            payload_hash=self.sigv4.STREAMING_UNSIGNED_TRAILER,
+            encode=encode)
+
     def ranged_get(self, path: str, lo: int, hi: int):
         """GET bytes lo..hi: (status, body, Content-Range)."""
         st, body, h = self.send("GET", path, extra={"range":
@@ -477,6 +518,7 @@ def phase_main_path(torch, rng, root):
         log(f"main path: {len(RANGES)} ranged GETs (inside a window, across "
             "two) answered 206 with the range; aws-chunked PUT of "
             f"{len(body)} B read back identical")
+        streamed_and_checksummed(c, es, objs["big"], rng, times)
 
         before = es.device_windows["reconstruct"]
         moved = []
@@ -533,10 +575,82 @@ def phase_main_path(torch, rng, root):
         size = len(objs["big"]) / MIB
         log(f"256 MiB object: PUT {size / times[('put', 'big')]:.1f} MiB/s, "
             f"GET {size / times[('get', 'big')]:.1f} MiB/s (host clock over "
-            "signed HTTP on localhost, one client)")
+            "signed HTTP on localhost, one client); streamed PUT signed "
+            f"{size / times[('stream put', 'signed')]:.1f} MiB/s, "
+            f"UNSIGNED-PAYLOAD "
+            f"{size / times[('stream put', 'unsigned')]:.1f} MiB/s")
         return launches
     finally:
         s.stop()
+        check_pool_idle("main path")
+
+
+def check_pool_idle(what: str) -> None:
+    """Every pooled lease of the phase went back to the card's pool (a
+    response's last lease returns just after its last byte is sent)."""
+    from minio_tpu_torch.io.bufpool import global_pool
+    pool = global_pool("cuda")
+    t0 = time.perf_counter()
+    while pool.stats()["outstanding"] and time.perf_counter() - t0 < 10:
+        time.sleep(0.05)
+    st = pool.stats()
+    log(f"{what}: pinned pool {st}")
+    check(st["outstanding"] == 0, f"{what}: {st['outstanding']} pool leases "
+          "outstanding after the phase")
+
+
+def streamed_and_checksummed(c: "Client", es, big: bytes, rng,
+                             times: dict) -> None:
+    """Phase 3's streamed-body cases: the 256 MiB object PUT as a body
+    streamed in 1 MiB writes, signed and UNSIGNED-PAYLOAD; a CRC32 header
+    PUT and an aws-chunked trailer PUT read back with x-amz-checksum-mode;
+    a wrong CRC32 refused with nothing committed; a GET stream closed
+    after its first window."""
+    etag = f'"{hashlib.md5(big).hexdigest()}"'
+    for mode in ("signed", "unsigned"):
+        t0 = time.perf_counter()
+        st, _, h = c.stream_put(f"/smoke/stream-{mode}", big,
+                                signed=mode == "signed")
+        times[("stream put", mode)] = time.perf_counter() - t0
+        check(st == 200 and h.get("etag") == etag,
+              f"streamed {mode} PUT: {st} {h.get('etag')}")
+        check(c("GET", f"/smoke/stream-{mode}") == (200, big),
+              f"streamed {mode} PUT did not read back identical")
+    body = rng.bytes(40 * MIB + 5)
+    crc = base64.b64encode(zlib.crc32(body).to_bytes(4, "big")).decode()
+    for kind in ("header", "trailer"):
+        path = f"/smoke/crc-{kind}"
+        if kind == "header":
+            st, err, h = c.stream_put(path, body,
+                                      extra={"x-amz-checksum-crc32": crc})
+        else:
+            st, err, h = c.trailer_put(path, body, crc)
+        check(st == 200 and h.get("x-amz-checksum-crc32") == crc,
+              f"CRC32 {kind} PUT: {st} {h.get('x-amz-checksum-crc32')} "
+              f"{err[:200]!r}")
+        st, got, h = c.send("GET", path,
+                            extra={"x-amz-checksum-mode": "ENABLED"})
+        check(st == 200 and got == body
+              and h.get("x-amz-checksum-crc32") == crc,
+              f"CRC32 {kind} PUT read back: {st} "
+              f"{h.get('x-amz-checksum-crc32')}")
+    st, err, _ = c.stream_put("/smoke/crc-wrong", body, extra={
+        "x-amz-checksum-crc32": "AAAAAA=="})
+    check(st == 400 and b"<Code>XAmzContentChecksumMismatch</Code>" in err,
+          f"wrong CRC32 PUT answered {st}: {err[:200]!r}")
+    check(c("GET", "/smoke/crc-wrong")[0] == 404,
+          "a refused checksum PUT left its key behind")
+    _, chunks = es.get_object_stream("smoke", "stream-signed")
+    check(bytes(next(chunks)) == big[:WINDOW], "first GET window differs")
+    chunks.close()
+    from minio_tpu_torch.io.bufpool import global_pool
+    out = global_pool("cuda").stats()["outstanding"]
+    check(out == 0, f"GET closed after one window left {out} leases out")
+    log("main path: 256 MiB streamed PUTs (signed, UNSIGNED-PAYLOAD) read "
+        "back identical; CRC32 header and trailer PUTs stored and returned "
+        f"with x-amz-checksum-mode; a wrong CRC32 answered 400 "
+        "XAmzContentChecksumMismatch with nothing committed; a GET closed "
+        "after its first window returned every lease")
 
 
 CONC_THREADS = 16
@@ -679,6 +793,14 @@ def phase_concurrent(torch, rng, root):
         return launches, stats
     finally:
         s.stop()
+        check_pool_idle("concurrent")
+
+
+def release(rows) -> None:
+    """Return the pool leases a framer's rows hold."""
+    from minio_tpu_torch.io.bufpool import leases_of
+    for h in leases_of(rows):
+        h.release()
 
 
 def mean_ms(hist: dict) -> float:
@@ -707,10 +829,10 @@ def solo_dispatch_ms(torch, rng, stats: dict, runs: int = 5) -> dict:
         used = routes[route]["buckets"]
         solo = {}
         for b in sorted(used):
-            fn(x[:b])
+            release(fn(x[:b]))
             t0 = time.perf_counter()
             for _ in range(runs):
-                fn(x[:b])
+                release(fn(x[:b]))
             solo[b] = (time.perf_counter() - t0) / runs * 1e3
         weighted = sum(solo[b] * n for b, n in used.items()) \
             / max(1, sum(used.values()))

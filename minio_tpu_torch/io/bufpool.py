@@ -19,9 +19,12 @@ Design:
     and counted, never refused;
   * idle memory is capped at 2 GiB a pool: a buffer returned past the
     cap is freed instead of kept;
-  * leases: a Lease wraps one buffer; release() returns it to the pool.
-    A buffer must go back only after every copy that reads it is done:
-    the batcher holds its lease until the dispatch's results are on the
+  * leases: a Lease wraps one buffer and is reference-counted:
+    retain() before handing the memory to another holder (a framed PUT
+    window goes to n drive writer threads), release() once per holder;
+    the buffer returns to the pool when the count reaches zero. A buffer
+    must go back only after every copy that reads it is done: the
+    batcher holds its lease until the dispatch's results are on the
     host;
   * leak accounting: a Lease dropped without release() is returned by
     its finalizer and counted (`leaks`); a release() after the count hit
@@ -102,6 +105,14 @@ class Lease:
         return np.frombuffer(self._buf.numpy(), dtype=dtype,
                              count=items).reshape(shape)
 
+    def retain(self) -> "Lease":
+        """One more holder; each holder calls release() once."""
+        with self._state.mu:
+            if self._state.refs <= 0:
+                raise ValueError("retain() after the final release")
+            self._state.refs += 1
+        return self
+
     def release(self) -> None:
         st = self._state
         with st.mu:
@@ -114,6 +125,21 @@ class Lease:
             done = st.refs == 0
         if done:
             self._pool._return_buf(self._buf, self._cls)
+
+
+class LeasedRows(list):
+    """A list whose items view pooled memory, holding one reference on
+    each lease they view (`leases`); whoever consumes the items releases
+    those references."""
+
+    def __init__(self, items=(), leases=()):
+        super().__init__(items)
+        self.leases = list(leases)
+
+
+def leases_of(rows) -> list:
+    """The leases a result's views hold (none for a plain list)."""
+    return list(getattr(rows, "leases", ()))
 
 
 class BufferPool:

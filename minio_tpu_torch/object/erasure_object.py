@@ -3,32 +3,45 @@
 The port of minio_tpu/object/erasure_object.py's main path (reference
 erasureObjects, cmd/erasure-object.go) for one set of local drives:
 
-  * PutObject splits the object into 1 MiB erasure blocks and walks them
-    in windows of STREAM_WINDOW_BLOCKS blocks, so device memory stays
+  * PutObject takes bytes or a utils.streams.Payload and never holds a
+    body of more than one window: it reads the body window by window
+    (STREAM_WINDOW_BLOCKS 1 MiB erasure blocks) straight into a pooled,
+    pinned lease (Payload.readinto), so host and device memory stay
     O(window) for any object size. Every window's full blocks go
     through the fused device framer (ops/hh_device.make_mesh_framer:
-    RS parity + the HighwayHash-256 of every shard block); the ragged
-    last block goes through ops/rs_device.gf_apply and
-    ops/hh_device.hash_blocks_device. Shard files (`digest || block`
-    per erasure block) are staged on every drive in parallel and
-    committed with quorum-counted renames (write quorum k, +1 when
-    k == m). Objects whose shard files fit SMALL_FILE_THRESHOLD go
-    inline into xl.meta.
-  * GetObject picks the version agreed by read quorum, reads the k data
-    shards window by window and verifies every block digest on the
-    device (ops/hh_device.make_mesh_deframer); the payload is served from
-    the host's own framed bytes.
+    RS parity + the HighwayHash-256 of every shard block), whose parity
+    and digests come back into a pinned lease; the ragged last block
+    goes through ops/rs_device.gf_apply and
+    ops/hh_device.hash_blocks_device. One writer thread per drive, fed
+    by a bounded queue, streams its shard file (`digest || block` per
+    erasure block) into staging while the next window is read and
+    framed, and the MD5 ETag runs on a thread of its own
+    (`_stream_framed_writes`; a one-window body writes through the
+    set's fan-out pool instead). The payload's finish hook (content
+    hash, signatures, declared checksums) runs on the last byte, before
+    the commit: quorum-counted renames under the key's lock (write
+    quorum k, +1 when k == m). Objects whose shard files fit
+    SMALL_FILE_THRESHOLD go inline into xl.meta.
+  * GetObject picks the version agreed by read quorum and streams the
+    range window by window with one window read ahead on the set's
+    readahead pool. Each window's k data shards are scatter-read into a
+    pinned region [block, shard, frame], every block digest verified on
+    the device as the region lies (ops/hh_device.make_mesh_deframer),
+    and the payload de-framed into a pooled output lease with one
+    strided copy; each chunk handed out views that lease.
   * With drives missing, or blocks failing their digest, GetObject
     verifies the surviving shards on the device and rebuilds the data
-    shards through the decode matrix on the device
-    (ops/rs_device.make_mesh_matrix; the ragged tail through GpuBackend).
+    shards through the decode matrix on the device from a pinned stack
+    of survivors (ops/rs_device.make_mesh_matrix; the ragged tail
+    through GpuBackend).
 
 Full blocks of every window go through the cross-request stripe batcher
 (ops/batcher.StripeBatcher), one per route and config: the PUT framer,
 the GET verify and the degraded-read reconstruct. Windows of concurrent
 requests coalesce into one device dispatch from pinned staging; a lone
-window dispatches straight through (MIN_DEVICE_BLOCKS is 1 here). The
-ragged tail of a window keeps its direct kernel calls.
+window dispatches straight through (MIN_DEVICE_BLOCKS is 1 here), from
+its own pinned lease when it fills its bucket. The ragged tail of a
+window keeps its direct kernel calls.
 
 There is no host cutover: on the card every window runs the kernels, and
 with device="cpu" their plain PyTorch versions. The batchers' host rivals
@@ -44,6 +57,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
+import queue
 import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -54,7 +68,7 @@ import torch
 
 from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.erasure.codec import _HOST, Erasure
-from minio_tpu_torch.io.bufpool import global_pool
+from minio_tpu_torch.io.bufpool import global_pool, leases_of
 from minio_tpu_torch.io.engine import kernel_lane, shutdown_kernel_lane
 from minio_tpu_torch.object.types import (BucketExists, BucketNotFound,
                                           InvalidRange, ObjectInfo,
@@ -68,6 +82,7 @@ from minio_tpu_torch.storage.meta import (ErasureInfo, FileInfo,
                                           FileNotFoundErr, ObjectPartInfo,
                                           VersionNotFoundErr, new_uuid, now_ns)
 from minio_tpu_torch.utils.highwayhash import MAGIC_KEY, highwayhash256_many
+from minio_tpu_torch.utils.streams import Payload
 
 BLOCK_SIZE = 1 << 20              # reference blockSizeV2 (cmd/object-api-common.go:37)
 SMALL_FILE_THRESHOLD = 128 << 10  # inline threshold (storage-class.go:278)
@@ -76,10 +91,23 @@ STAGING_PREFIX = "staging"
 # one framer or deframer dispatch and bounds device memory per request.
 STREAM_WINDOW_BLOCKS = 32
 DIGEST = bitrot.digest_size(bitrot.DEFAULT_ALGORITHM)
+# Framed windows queued ahead of each drive writer of a streamed PUT.
+WRITE_QUEUE_DEPTH = 2
 # Full blocks a window needs before it may take the device route on its
 # own. The JAX package's 8 was tuned on a TPU; until an H100 measurement
 # sets it, every window of full blocks goes to the card.
 MIN_DEVICE_BLOCKS = 1
+
+
+_SENTINEL = object()
+
+
+def _hold(leases: list):
+    """One more reference on each lease; returns the callback that drops
+    them, for one consumer to call once."""
+    for h in leases:
+        h.retain()
+    return lambda: [h.release() for h in leases]
 
 
 def _resolve_range(spec: tuple, size: int, bucket: str, object_: str):
@@ -276,6 +304,9 @@ class ErasureSet:
         self.device = device_mod.resolve(device)
         self.backend = rs_device.GpuBackend(self.device)
         self.pool = ThreadPoolExecutor(max_workers=max(8, 2 * n))
+        # GET readahead runs apart from the drive fan-out pool it uses.
+        self._readahead = ThreadPoolExecutor(
+            max_workers=max(8, 2 * n), thread_name_prefix="get-readahead")
         self._ns = _KeyLocks()
         # Windows of full blocks by route, as the batcher routed them:
         # through the device kernels, or through a host rival (only when
@@ -291,6 +322,7 @@ class ErasureSet:
         """Stop the drive fan-out pool and the batchers, then join the
         kernel lane, whose worker calls into CUDA and must not outlive
         the process's useful life."""
+        self._readahead.shutdown(wait=True)
         self.pool.shutdown(wait=True)
         with self._batchers_mu:
             batchers = list(self._batchers.values())
@@ -377,129 +409,146 @@ class ErasureSet:
     # PutObject
     # ------------------------------------------------------------------
 
-    def _frame_window(self, e: Erasure, buf: np.ndarray) -> list[list]:
-        """Encode + digest one window of object bytes on the device: per
-        shard index, the [(digest, block), ...] pieces of its frames."""
+    def _frame_window(self, e: Erasure, buf: np.ndarray) -> tuple[list, list]:
+        """Encode + digest one window of object bytes on the device:
+        (per shard index the [(digest, block), ...] pieces of its frames,
+        the pool leases those pieces view, one reference each for the
+        caller to release)."""
         k, m = e.data_blocks, e.parity_blocks
         n, ss = k + m, e.shard_size()
+        pool = global_pool(self.device)
         rows: list[list] = [[] for _ in range(n)]
-        full = buf.size // BLOCK_SIZE
-        if full:
-            if k * ss == BLOCK_SIZE:
-                stacked = buf[:full * BLOCK_SIZE].reshape(full, k, ss)
-            else:
-                # Split pads each block to k*ceil(block/k) with zeros
-                # (reference Split semantics).
-                stacked = np.zeros((full, k * ss), dtype=np.uint8)
-                stacked[:, :BLOCK_SIZE] = buf[:full * BLOCK_SIZE] \
-                    .reshape(full, BLOCK_SIZE)
-                stacked = stacked.reshape(full, k, ss)
-            sb = self._batcher("put", k, m)
-            for i, pieces in enumerate(sb.frame(stacked)):
-                rows[i].extend(pieces)
-            self._count("put", sb.last_route())
-        if buf.size > full * BLOCK_SIZE:
-            data = e.split(buf[full * BLOCK_SIZE:])           # [k, per]
-            shards = rs_device.host_tensor(data).to(self.device)
-            if m:
-                parity = rs_device.gf_apply(gf256.parity_matrix(k, m),
-                                            shards[None])[0]
-                shards = torch.cat([shards, parity])
-            digs = hh_device.hash_blocks_device(MAGIC_KEY, shards).cpu() \
-                .numpy()
-            blocks = list(data) + list(shards[k:].cpu().numpy())
-            for i in range(n):
-                rows[i].append((digs[i], blocks[i]))
-        return rows
+        leases: list = []
+        try:
+            full = buf.size // BLOCK_SIZE
+            if full:
+                if k * ss == BLOCK_SIZE:
+                    stacked = buf[:full * BLOCK_SIZE].reshape(full, k, ss)
+                else:
+                    # Split pads each block to k*ceil(block/k) with zeros
+                    # (reference Split semantics).
+                    leases.append(pool.lease(full * k * ss))
+                    padded = leases[-1].ndarray((full, k * ss))
+                    padded[:, :BLOCK_SIZE] = buf[:full * BLOCK_SIZE] \
+                        .reshape(full, BLOCK_SIZE)
+                    padded[:, BLOCK_SIZE:] = 0
+                    stacked = padded.reshape(full, k, ss)
+                sb = self._batcher("put", k, m)
+                framed = sb.frame(stacked)
+                leases += leases_of(framed)
+                for i, pieces in enumerate(framed):
+                    rows[i].extend(pieces)
+                self._count("put", sb.last_route())
+            if buf.size > full * BLOCK_SIZE:
+                data = e.split(buf[full * BLOCK_SIZE:])           # [k, per]
+                shards = rs_device.host_tensor(data).to(self.device)
+                if m:
+                    parity = rs_device.gf_apply(gf256.parity_matrix(k, m),
+                                                shards[None])[0]
+                    shards = torch.cat([shards, parity])
+                digs = hh_device.hash_blocks_device(MAGIC_KEY, shards)
+                held, (parity, digs) = rs_device.to_host_lease(
+                    pool, shards[k:], digs)
+                leases += held
+                blocks = list(data) + list(parity)
+                for i in range(n):
+                    rows[i].append((digs[i], blocks[i]))
+        except BaseException:
+            for h in leases:
+                h.release()
+            raise
+        return rows, leases
 
     def put_object(self, bucket: str, object_: str, data,
                    content_type: str = "",
-                   user_metadata: Optional[dict] = None) -> ObjectInfo:
-        """data: bytes-like. Writes every shard file in
-        STREAM_WINDOW_BLOCKS windows, then commits under quorum."""
+                   user_metadata: Optional[dict] = None,
+                   internal_metadata: Optional[dict] = None) -> ObjectInfo:
+        """data: bytes-like or a utils.streams.Payload, read window by
+        window and never held whole. internal_metadata: x-internal-*
+        entries stored with the version; it is read after the payload's
+        finish hook ran, so the hook may fill it. A finish hook that
+        raises fails the PUT before anything is committed."""
+        payload = Payload.wrap(data)
         self._check_bucket(bucket)
-        buf = np.frombuffer(data, dtype=np.uint8)
         n = len(self.disks)
         m = self.default_parity
         k = n - m
         write_quorum = k + (1 if k == m else 0)
         distribution = hash_order(f"{bucket}/{object_}", n)
         e = Erasure(k, m, BLOCK_SIZE, backend=self.backend)
-        size = buf.size
-        inline = e.shard_file_size(size) <= SMALL_FILE_THRESHOLD
-        data_dir = "" if inline else new_uuid()
-        staging = f"{STAGING_PREFIX}/p{os.getpid()}-{new_uuid()}"
-        part = f"{staging}/{data_dir}/part.1"
-        md5 = hashlib.md5()
+        size = payload.size
         errors: list = [None] * n
-        window = STREAM_WINDOW_BLOCKS * BLOCK_SIZE
-        inline_rows: list[list] = [[] for _ in range(n)]
-        try:
-            for off in range(0, max(size, 1), window):
-                chunk = buf[off:off + window]
-                md5.update(chunk)
-                rows = self._frame_window(e, chunk) if chunk.size \
-                    else [[] for _ in range(n)]
-                if inline:
-                    for i in range(n):
-                        inline_rows[i].extend(rows[i])
-                    continue
-                last = off + window >= size
 
-                def write(i, rows=rows, first=off == 0, last=last):
-                    pieces = rows[distribution[i] - 1]
-                    self.disks[i].create_file(
-                        SYS_VOL, part, (p for pair in pieces for p in pair),
-                        append=not first, sync=last)
-                _, errs = self._fanout([
-                    (lambda i=i: write(i)) if errors[i] is None else None
-                    for i in range(n)])
-                for i, err in enumerate(errs):
-                    errors[i] = errors[i] or err
-                if sum(err is None for err in errors) < write_quorum:
-                    raise WriteQuorumError(
-                        bucket, object_,
-                        f"{sum(err is not None for err in errors)}/{n} "
-                        "shard writers failed")
-            etag = md5.hexdigest()
+        def make_fi(shard_idx: int, data_dir: str, etag: str,
+                    inline_data=None) -> FileInfo:
+            return FileInfo(
+                volume=bucket, name=object_, data_dir=data_dir,
+                mod_time=mod_time, size=size,
+                metadata={"etag": etag, **({"content-type": content_type}
+                                           if content_type else {}),
+                          **(user_metadata or {}),
+                          **(internal_metadata or {})},
+                parts=[ObjectPartInfo(number=1, size=size,
+                                      actual_size=size, etag=etag)],
+                erasure=ErasureInfo(
+                    data_blocks=k, parity_blocks=m, block_size=BLOCK_SIZE,
+                    index=shard_idx + 1, distribution=tuple(distribution)),
+                inline_data=inline_data)
+
+        if e.shard_file_size(size) <= SMALL_FILE_THRESHOLD:
+            # Inline: the whole (small) body frames at once and goes into
+            # xl.meta; read_all runs the finish hook first.
+            body = np.frombuffer(payload.read_all(), dtype=np.uint8)
+            rows, leases = self._frame_window(e, body) if body.size \
+                else ([[] for _ in range(n)], [])
+            try:
+                frames = [bitrot.join_frames(r) for r in rows]
+            finally:
+                for h in leases:
+                    h.release()
+            etag = hashlib.md5(body).hexdigest()
             mod_time = now_ns()
-
-            def make_fi(shard_idx: int) -> FileInfo:
-                return FileInfo(
-                    volume=bucket, name=object_, data_dir=data_dir,
-                    mod_time=mod_time, size=size,
-                    metadata={"etag": etag, **({"content-type": content_type}
-                                               if content_type else {}),
-                              **(user_metadata or {})},
-                    parts=[ObjectPartInfo(number=1, size=size,
-                                          actual_size=size, etag=etag)],
-                    erasure=ErasureInfo(
-                        data_blocks=k, parity_blocks=m, block_size=BLOCK_SIZE,
-                        index=shard_idx + 1,
-                        distribution=tuple(distribution)),
-                    inline_data=bitrot.join_frames(inline_rows[shard_idx])
-                    if inline else None)
-
-            def commit(i: int):
-                fi = make_fi(distribution[i] - 1)
-                if inline:
-                    self.disks[i].write_metadata(bucket, object_, fi)
-                else:
-                    self.disks[i].rename_data(SYS_VOL, staging, fi,
-                                              bucket, object_)
-            with self._ns.hold(f"{bucket}/{object_}"):
-                _, cerrs = self._fanout([
-                    (lambda i=i: commit(i)) if errors[i] is None else None
-                    for i in range(n)])
-            for i, err in enumerate(cerrs):
-                errors[i] = errors[i] or err
-        finally:
-            if not inline:
+            self._commit(bucket, object_, errors, write_quorum,
+                         lambda i: self.disks[i].write_metadata(
+                             bucket, object_, make_fi(
+                                 distribution[i] - 1, "", etag,
+                                 frames[distribution[i] - 1])))
+        else:
+            data_dir = new_uuid()
+            staging = f"{STAGING_PREFIX}/p{os.getpid()}-{new_uuid()}"
+            try:
+                etag = self._stream_framed_writes(
+                    payload, e, distribution, f"{staging}/{data_dir}/part.1",
+                    write_quorum, errors)
+                mod_time = now_ns()
+                self._commit(bucket, object_, errors, write_quorum,
+                             lambda i: self.disks[i].rename_data(
+                                 SYS_VOL, staging, make_fi(
+                                     distribution[i] - 1, data_dir, etag),
+                                 bucket, object_))
+            finally:
                 # Committed drives already moved their data dir out;
                 # whatever staging is left is debris (errors ignored).
                 self._fanout([lambda d=d: d.delete(SYS_VOL, staging,
                                                    recursive=True)
                               for d in self.disks])
+        return ObjectInfo(bucket=bucket, name=object_, mod_time=mod_time,
+                          size=size, etag=etag, content_type=content_type,
+                          user_metadata=dict(user_metadata or {}),
+                          internal_metadata=dict(internal_metadata or {}))
+
+    def _commit(self, bucket: str, object_: str, errors: list,
+                write_quorum: int, commit_one) -> None:
+        """Run commit_one(i) on every drive still without an error, under
+        the key's namespace lock; below write quorum, take the committed
+        versions back and raise WriteQuorumError."""
+        n = len(self.disks)
+        with self._ns.hold(f"{bucket}/{object_}"):
+            _, cerrs = self._fanout([
+                (lambda i=i: commit_one(i)) if errors[i] is None else None
+                for i in range(n)])
+        for i, err in enumerate(cerrs):
+            errors[i] = errors[i] or err
         ok = sum(err is None for err in errors)
         if ok < write_quorum:
             self._fanout([lambda d=d: d.delete_version(bucket, object_)
@@ -507,9 +556,166 @@ class ErasureSet:
                           for d, err in zip(self.disks, errors)])
             raise WriteQuorumError(bucket, object_,
                                    f"wrote {ok}/{n}, need {write_quorum}")
-        return ObjectInfo(bucket=bucket, name=object_, mod_time=mod_time,
-                          size=size, etag=etag, content_type=content_type,
-                          user_metadata=dict(user_metadata or {}))
+
+    def _stream_framed_writes(self, payload: Payload, e: Erasure,
+                              distribution: Sequence[int], part: str,
+                              write_quorum: int, errors: list) -> str:
+        """Windowed encode + frame with one streamed writer per drive
+        (minio_tpu/object/erasure_object.py `_stream_framed_writes`;
+        reference parallelWriter, cmd/erasure-encode.go:69).
+
+        Each window is read with Payload.readinto straight into a pooled
+        (pinned) lease and framed while the writers still write the
+        windows before it: every drive has a writer thread fed by a
+        bounded queue (WRITE_QUEUE_DEPTH windows) and writing its whole
+        shard file with one create_file, and the MD5 of the ETag runs on
+        a thread of its own. A window's leases are retained once per
+        consumer and return to the pool when the last one is done. A
+        writer that fails records its error in `errors` and drains its
+        queue, so the producer never blocks on it; when fewer than
+        `write_quorum` writers live the stream stops with
+        WriteQuorumError. Returns the MD5 hex ETag.
+
+        A body of one window or less has nothing to overlap: it goes
+        through `_write_one_window`, with no threads of its own, as the
+        JAX package sends such bodies to its buffered path."""
+        window_bytes = STREAM_WINDOW_BLOCKS * BLOCK_SIZE
+        if payload.size <= window_bytes:
+            return self._write_one_window(payload, e, distribution, part,
+                                          write_quorum, errors)
+        n = len(self.disks)
+        pool = global_pool(self.device)
+        qs = [queue.Queue(maxsize=WRITE_QUEUE_DEPTH) for _ in range(n)]
+        md5_q: queue.Queue = queue.Queue(maxsize=WRITE_QUEUE_DEPTH)
+        dead = [False] * n
+        sentinel_seen = [False] * n
+        md5 = hashlib.md5()
+
+        def got_sentinel(i: int, c) -> bool:
+            # Sticky: put back on receipt, so every later get() of this
+            # queue (the drain loop after a failed create_file) sees it.
+            # The producer has stopped feeding the queue, so the put
+            # cannot block.
+            if c is _SENTINEL:
+                sentinel_seen[i] = True
+                qs[i].put(c)
+                return True
+            return False
+
+        def writer(i: int):
+            inflight: list = []       # release hook of the row being written
+
+            def finish_inflight():
+                while inflight:
+                    inflight.pop()()
+
+            def pieces():
+                while True:
+                    c = qs[i].get()
+                    finish_inflight()
+                    if got_sentinel(i, c):
+                        return
+                    row, done = c
+                    inflight.append(done)
+                    for dig, blk in row:
+                        yield dig
+                        yield blk
+            try:
+                self.disks[i].create_file(SYS_VOL, part, pieces())
+            except Exception as exc:  # noqa: BLE001 - collected for quorum
+                errors[i] = exc
+                dead[i] = True
+                while not sentinel_seen[i]:
+                    c = qs[i].get()
+                    if not got_sentinel(i, c):
+                        c[1]()
+            finally:
+                finish_inflight()
+
+        def hasher():
+            while (c := md5_q.get()) is not _SENTINEL:
+                view, done = c
+                try:
+                    md5.update(view)      # releases the GIL on big buffers
+                finally:
+                    done()
+
+        threads = [threading.Thread(target=writer, args=(i,), daemon=True,
+                                    name=f"put-writer-{i}")
+                   for i in range(n)]
+        threads.append(threading.Thread(target=hasher, daemon=True,
+                                        name="put-md5"))
+        for t in threads:
+            t.start()
+        stream_error: Optional[BaseException] = None
+        try:
+            while payload.remaining > 0:
+                want = min(window_bytes, payload.remaining)
+                held = [pool.lease(want)]
+                try:
+                    buf = held[0].ndarray((want,))
+                    payload.readinto(buf)    # the last read runs finish()
+                    rows, more = self._frame_window(e, buf)
+                    held += more
+                    if n - sum(dead) < write_quorum:
+                        raise WriteQuorumError(
+                            "", "", f"{sum(dead)}/{n} shard writers failed "
+                            "mid-stream")
+                    md5_q.put((buf, _hold(held[:1])))
+                    for i in range(n):
+                        if not dead[i]:
+                            qs[i].put((rows[distribution[i] - 1],
+                                       _hold(held)))
+                finally:
+                    # The producer's own references; each consumer
+                    # returns its own.
+                    for h in held:
+                        h.release()
+        except BaseException as exc:  # noqa: BLE001 - writers unwind first
+            stream_error = exc
+        finally:
+            for q in (*qs, md5_q):
+                q.put(_SENTINEL)
+            for t in threads:
+                t.join()
+        if stream_error is not None:
+            raise stream_error
+        if n - sum(dead) < write_quorum:
+            raise WriteQuorumError("", "", f"{sum(dead)}/{n} shard writers "
+                                   "failed")
+        return md5.hexdigest()
+
+    def _write_one_window(self, payload: Payload, e: Erasure,
+                          distribution: Sequence[int], part: str,
+                          write_quorum: int, errors: list) -> str:
+        """`_stream_framed_writes` for a body of one window: read into one
+        pooled lease, framed, written to every drive through the set's
+        fan-out pool while the MD5 runs on this thread."""
+        n = len(self.disks)
+        held = [global_pool(self.device).lease(payload.size)]
+        try:
+            buf = held[0].ndarray((payload.size,))
+            payload.readinto(buf)        # the last read runs finish()
+            rows, more = self._frame_window(e, buf)
+            held += more
+            futs = [self.pool.submit(
+                self.disks[i].create_file, SYS_VOL, part,
+                [p for pair in rows[distribution[i] - 1] for p in pair])
+                for i in range(n)]
+            etag = hashlib.md5(buf).hexdigest()
+            for i, f in enumerate(futs):
+                try:
+                    f.result()
+                except Exception as exc:  # noqa: BLE001 - for quorum
+                    errors[i] = exc
+        finally:
+            for h in held:
+                h.release()
+        failed = sum(err is not None for err in errors)
+        if n - failed < write_quorum:
+            raise WriteQuorumError("", "", f"{failed}/{n} shard writers "
+                                   "failed")
+        return etag
 
     # ------------------------------------------------------------------
     # metadata quorum
@@ -551,9 +757,12 @@ class ErasureSet:
         meta = dict(fi.metadata)
         etag = meta.pop("etag", "")
         ctype = meta.pop("content-type", "")
+        internal = {k: meta.pop(k) for k in list(meta)
+                    if k.startswith("x-internal-")}
         return ObjectInfo(bucket=bucket, name=object_, mod_time=fi.mod_time,
                           size=fi.size, etag=etag, content_type=ctype,
-                          version_id=fi.version_id, user_metadata=meta)
+                          version_id=fi.version_id, user_metadata=meta,
+                          internal_metadata=internal)
 
     def get_object_info(self, bucket: str, object_: str) -> ObjectInfo:
         fi, _ = self._quorum_fileinfo(bucket, object_, read_data=False)
@@ -565,7 +774,9 @@ class ErasureSet:
 
     def get_object(self, bucket: str, object_: str) -> tuple[ObjectInfo, bytes]:
         info, chunks = self.get_object_stream(bucket, object_)
-        return info, b"".join(chunks)
+        # Each chunk is copied as it is pulled: its lease goes back to
+        # the pool at the next pull.
+        return info, b"".join([bytes(c) for c in chunks])
 
     def get_object_stream(self, bucket: str, object_: str, offset: int = 0,
                           length: Optional[int] = None
@@ -575,43 +786,95 @@ class ErasureSet:
         erasure blocks that cover the range are read, in windows of
         STREAM_WINDOW_BLOCKS from block offset // BLOCK_SIZE; the first
         and last windows are sliced. A range past the object's end is
-        InvalidRange."""
+        InvalidRange.
+
+        Readahead (minio_tpu/object/erasure_object.py `_iter_payload`):
+        while window i is with the consumer, window i+1 is read, verified
+        and decoded on the set's readahead pool, one window in flight. A
+        response of one window reads on the calling thread. Each chunk
+        is a view of a pooled lease, valid until the consumer pulls the
+        next chunk or closes the iterator; closing early collects the
+        prefetch in flight and returns its lease."""
         fi, fis = self._quorum_fileinfo(bucket, object_, read_data=True)
         if length is None:
             length = fi.size - offset
         if offset < 0 or length < 0 or offset + length > fi.size:
             raise InvalidRange(bucket, object_)
         end = offset + length
+        descs = [] if not length else [
+            (b0, min((end - 1) // BLOCK_SIZE, b0 + STREAM_WINDOW_BLOCKS - 1))
+            for b0 in range(offset // BLOCK_SIZE, (end - 1) // BLOCK_SIZE + 1,
+                            STREAM_WINDOW_BLOCKS)]
+
+        def read(desc):
+            return self._read_window(bucket, object_, fi, fis, *desc)
+
+        def chunk(desc, win):
+            lo = desc[0] * BLOCK_SIZE
+            return memoryview(win)[max(offset, lo) - lo:
+                                   min(end, lo + win.size) - lo]
 
         def gen():
-            if not length:
+            if not descs:
                 return
-            last = (end - 1) // BLOCK_SIZE
-            for b0 in range(offset // BLOCK_SIZE, last + 1,
-                            STREAM_WINDOW_BLOCKS):
-                b1 = min(last, b0 + STREAM_WINDOW_BLOCKS - 1)
-                win = self._read_window(bucket, object_, fi, fis, b0, b1)
-                lo = b0 * BLOCK_SIZE
-                yield memoryview(win)[max(offset, lo) - lo:
-                                      min(end, lo + win.size) - lo]
+            if len(descs) == 1:
+                win, lease = read(descs[0])
+                try:
+                    yield chunk(descs[0], win)
+                finally:
+                    lease.release()
+                return
+            fut = self._readahead.submit(read, descs[0])
+            lease = None
+            try:
+                for i, desc in enumerate(descs):
+                    win, lease = fut.result()
+                    # Prefetch the next window before handing this one
+                    # out: its reads and kernels overlap the consumer.
+                    fut = self._readahead.submit(read, descs[i + 1]) \
+                        if i + 1 < len(descs) else None
+                    yield chunk(desc, win)
+                    lease.release()
+                    lease = None
+            finally:
+                if lease is not None:
+                    lease.release()
+                if fut is not None:
+                    # A prefetch still in flight (closed early, or a
+                    # window failed): collect it so its lease returns.
+                    try:
+                        fut.result()[1].release()
+                    except BaseException:  # noqa: BLE001 - unwinding
+                        pass
         return self._to_info(bucket, object_, fi), gen()
 
     def _read_window(self, bucket: str, object_: str, fi: FileInfo,
-                     fis: list, start_b: int, end_b: int) -> np.ndarray:
-        """Object bytes of erasure blocks [start_b, end_b]."""
+                     fis: list, start_b: int, end_b: int) -> tuple:
+        """(object bytes of erasure blocks [start_b, end_b], the pooled
+        lease they live in; the caller releases it).
+
+        Every shard's framed bytes are scatter-read straight into a
+        pooled (pinned) region laid out [block, shard, frame], which the
+        get batcher verifies on the device as it stands; the payload then
+        de-frames and interleaves into the output lease in one strided
+        copy. With shards missing or failing their digest, the parity
+        shards are read and verified too and the missing data shards
+        are rebuilt on the device from a pinned stack of survivors."""
         k, m = fi.erasure.data_blocks, fi.erasure.parity_blocks
         n = k + m
         e = Erasure(k, m, fi.erasure.block_size, backend=self.backend)
         ss = e.shard_size()
         frame = DIGEST + ss
-        shard_file_len = e.shard_file_size(fi.size)
-        win_len = min(shard_file_len, (end_b + 1) * ss) - start_b * ss
-        framed_lo = start_b * frame
-        framed_hi = min(bitrot.shard_file_size(shard_file_len, ss),
-                        (end_b + 1) * frame)
+        win_len = min(e.shard_file_size(fi.size), (end_b + 1) * ss) \
+            - start_b * ss
         nb = end_b - start_b + 1
         slast = win_len - (nb - 1) * ss
         full = nb if slast == ss else nb - 1
+        tail = 0 if slast == ss else slast    # payload of a ragged frame
+        tframe = DIGEST + tail if tail else 0
+        span = full * frame + tframe          # framed bytes per shard
+        framed_lo = start_b * frame
+        pool = global_pool(self.device)
 
         holders: dict[int, int] = {}
         for di, dfi in enumerate(fis):
@@ -619,136 +882,167 @@ class ErasureSet:
                     (dfi.mod_time, dfi.data_dir) == (fi.mod_time, fi.data_dir):
                 holders[dfi.erasure.index - 1] = di
 
-        def fetch(shard_idx: int):
-            di = holders.get(shard_idx)
-            if di is None:
-                return None
+        def region(count: int):
+            """A lease holding `count` shards: full frames [full, count,
+            frame] and ragged frames [count, tframe]."""
+            lease = pool.lease(count * span)
+            flat = lease.ndarray((count * span,))
+            return (lease, flat[:full * count * frame]
+                    .reshape(full, count, frame),
+                    flat[full * count * frame:].reshape(count, tframe))
+
+        def fetch(shard_idx: int, fa, ta, j: int) -> bool:
+            di = holders[shard_idx]
             if fis[di].inline_data is not None:
-                return fis[di].inline_data[framed_lo:framed_hi]
+                src = np.frombuffer(fis[di].inline_data, dtype=np.uint8)[
+                    framed_lo:framed_lo + span]
+                if src.size != span:
+                    return False
+                fa[:, j] = src[:full * frame].reshape(full, frame)
+                ta[j] = src[full * frame:]
+                return True
+            bufs = [fa[b, j] for b in range(full)] + ([ta[j]] if tail else [])
             try:
-                return self.disks[di].read_file(
-                    bucket, f"{object_}/{fi.data_dir}/part.1",
-                    offset=framed_lo, length=framed_hi - framed_lo)
+                return self.disks[di].read_file_into(
+                    bucket, f"{object_}/{fi.data_dir}/part.1", framed_lo,
+                    bufs) == span
             except (OSError, FileNotFoundErr):
-                return None                  # unreadable shard == missing
+                return False                 # unreadable shard == missing
 
-        def fetch_many(idxs) -> list:
+        def fetch_many(idxs, fa, ta) -> list[bool]:
             fns: list = [None] * len(self.disks)
-            for s in idxs:
+            for j, s in enumerate(idxs):
                 if s in holders:
-                    fns[holders[s]] = functools.partial(fetch, s)
+                    fns[holders[s]] = functools.partial(fetch, s, fa, ta, j)
             results, _ = self._fanout(fns)
-            return [results[holders[s]] if s in holders else None
-                    for s in idxs]
+            return [s in holders and bool(results[holders[s]]) for s in idxs]
 
-        raw = fetch_many(range(k))
-        expect = nb * DIGEST + win_len
-        shards: list[Optional[np.ndarray]] = [None] * n
-        if all(r is not None and len(r) == expect for r in raw):
-            # Healthy path: every data-shard block verifies on the device.
-            blobs = [np.frombuffer(r, dtype=np.uint8) for r in raw]
-            bad = self._verify_data_shards(blobs, k, m, ss, full, slast)
-            if not bad:
-                return self._assemble(
-                    fi, [self._unframe(b, ss, full, slast) for b in blobs],
-                    k, ss, start_b, nb)
-            for i in range(k):
-                if i not in bad:
-                    shards[i] = self._unframe(blobs[i], ss, full, slast)
-            verify = {k + j: r for j, r in enumerate(fetch_many(range(k, n)))}
-        else:
-            verify = dict(zip(range(n), raw + fetch_many(range(k, n))))
-        got = bitrot.read_framed_blocks_many(list(verify.values()), ss,
-                                             win_len, device=self.device)
-        for idx, arr in zip(verify, got):
-            shards[idx] = arr
-        available = sum(s is not None for s in shards)
-        if available < k:
-            raise ReadQuorumError(bucket, object_,
-                                  f"{available}/{n} shards readable")
-        self._decode_missing(shards, k, m, ss, win_len)
-        return self._assemble(fi, shards, k, ss, start_b, nb)
+        leases: list = []
+        out_lease = None
+        try:
+            dl, dfa, dta = region(k)
+            leases.append(dl)
+            got = fetch_many(range(k), dfa, dta)
+            good = [g and v for g, v in zip(got, self._verify_framed(
+                dfa, dta, k, m, batched=all(got)))]
+            fulls = [dfa[:, i, DIGEST:] for i in range(k)]
+            tails = [dta[i, DIGEST:] for i in range(k)]
+            if all(good):
+                out_lease, out = self._deframe(fi, start_b, nb, k, ss,
+                                               fulls, tails, framed=dfa)
+                return out, out_lease
+            pl, pfa, pta = region(m)
+            leases.append(pl)
+            good += [g and v for g, v in zip(
+                fetch_many(range(k, n), pfa, pta),
+                self._verify_framed(pfa, pta, k, m))]
+            fulls += [pfa[:, j, DIGEST:] for j in range(m)]
+            tails += [pta[j, DIGEST:] for j in range(m)]
+            available = sum(good)
+            if available < k:
+                raise ReadQuorumError(bucket, object_,
+                                      f"{available}/{n} shards readable")
+            leases += self._decode_missing(fulls, tails, good, k, m, full,
+                                           tail, ss)
+            out_lease, out = self._deframe(fi, start_b, nb, k, ss, fulls,
+                                           tails)
+            return out, out_lease
+        except BaseException:
+            if out_lease is not None:
+                out_lease.release()
+            raise
+        finally:
+            for h in leases:
+                h.release()
 
-    def _verify_data_shards(self, blobs, k, m, ss, full, slast) -> set[int]:
-        """Indices of data shards with a block failing its digest: the
-        full frames through the get batcher, the ragged tail directly."""
-        frame = DIGEST + ss
-        bad: set[int] = set()
+    def _verify_framed(self, fa: np.ndarray, ta: np.ndarray, k: int, m: int,
+                       batched: bool = False) -> list[bool]:
+        """Per shard of a framed region (full frames [full, c, frame],
+        ragged frames [c, tframe]), whether every block matches its
+        digest. With `batched` (the k data shards, all read) the full
+        frames go through the get batcher; other regions hash on the
+        device directly."""
+        full, count, frame = fa.shape
+        ok = np.ones(count, dtype=bool)
         if full:
-            stacked = np.empty((full, k, frame), dtype=np.uint8)
-            for i, arr in enumerate(blobs):
-                stacked[:, i, :] = arr[:full * frame].reshape(full, frame)
-            sb = self._batcher("get", k, m)
-            ok, _ = sb.frame(stacked)
-            self._count("get", sb.last_route())
-            bad |= {i for i in range(k) if not ok[:, i].all()}
-        if slast != ss:
-            off = full * frame
-            tails = np.stack([a[off + DIGEST:off + DIGEST + slast]
-                              for a in blobs])
-            digs = hh_device.hash_blocks_device(MAGIC_KEY, tails,
+            if batched:
+                sb = self._batcher("get", k, m)
+                verdict, _ = sb.frame(fa)
+                self._count("get", sb.last_route())
+            else:
+                digs = hh_device.framed_digests_device(
+                    [fa.reshape(full * count, frame)], device=self.device)
+                verdict = (digs.reshape(full, count, DIGEST)
+                           == fa[:, :, :DIGEST]).all(axis=2)
+            ok &= verdict.all(axis=0)
+        if ta.shape[1]:
+            digs = hh_device.hash_blocks_device(MAGIC_KEY, ta[:, DIGEST:],
                                                 device=self.device)
-            bad |= {i for i, a in enumerate(blobs)
-                    if not np.array_equal(digs[i], a[off:off + DIGEST])}
-        return bad
+            ok &= (digs == ta[:, :DIGEST]).all(axis=1)
+        return ok.tolist()
 
-    @staticmethod
-    def _unframe(arr: np.ndarray, ss: int, full: int, slast: int) -> np.ndarray:
-        frame = DIGEST + ss
-        out = np.empty(full * ss + (slast if slast != ss else 0),
-                       dtype=np.uint8)
-        if full:
-            out[:full * ss].reshape(full, ss)[:] = \
-                arr[:full * frame].reshape(full, frame)[:, DIGEST:]
-        if slast != ss:
-            off = full * frame + DIGEST
-            out[full * ss:] = arr[off:off + slast]
-        return out
-
-    @staticmethod
-    def _assemble(fi: FileInfo, shards, k: int, ss: int, start_b: int,
-                  nb: int) -> np.ndarray:
-        """Interleave k data-shard windows block-major, trimming each
-        block's zero padding (k*ss may exceed the block size)."""
+    def _deframe(self, fi: FileInfo, start_b: int, nb: int, k: int, ss: int,
+                 fulls: list, tails: list, framed=None) -> tuple:
+        """(lease, the window's object bytes in it): data shard i's block
+        payloads fulls[i] [full, ss] and ragged payload tails[i]
+        interleave block-major, each block trimmed to its size (k*ss may
+        exceed the block size). Whole blocks of a set with k*ss equal to
+        the block size take one strided copy, straight from the framed
+        region [full, k, frame] when it holds every data shard."""
         bs = fi.erasure.block_size
         total = min(fi.size, (start_b + nb) * bs) - start_b * bs
-        out = np.empty(total, dtype=np.uint8)
-        pos = 0
-        for b in range(nb):
-            take = min(bs, fi.size - (start_b + b) * bs)
-            lo = b * ss
-            block = np.concatenate([s[lo:lo + ss] for s in shards[:k]])
-            out[pos:pos + take] = block[:take]
+        full = fulls[0].shape[0]
+        lease = global_pool(self.device).lease(total)
+        out = lease.ndarray((total,))
+        whole = min(full, total // bs) if k * ss == bs else 0
+        if whole:
+            dst = out[:whole * bs].reshape(whole, k, ss)
+            if framed is not None:
+                dst[:] = framed[:whole, :, DIGEST:]
+            else:
+                for i in range(k):
+                    dst[:, i] = fulls[i][:whole]
+        pos = whole * bs
+        for b in range(whole, nb):
+            take = min(bs, total - pos)
+            w = ss if b < full else tails[0].size
+            for i in range(min(k, -(-take // w))):
+                src = fulls[i][b] if b < full else tails[i]
+                hi = min(take, (i + 1) * w)
+                out[pos + i * w:pos + hi] = src[:hi - i * w]
             pos += take
-        return out
+        return lease, out
 
-    def _decode_missing(self, shards: list, k: int, m: int, ss: int,
-                        win_len: int) -> None:
-        """Rebuild missing data shards from the first k survivors through
-        the decode matrix: the full shard blocks through the reconstruct
-        batcher of this survivor set, the ragged tail directly."""
-        missing = [i for i in range(k) if shards[i] is None]
+    def _decode_missing(self, fulls: list, tails: list, good: list, k: int,
+                        m: int, full: int, tail: int, ss: int) -> list:
+        """Rebuild the data shards that are not good from the first k good
+        shards through the decode matrix, in place in fulls/tails: the
+        full blocks through the reconstruct batcher of this survivor set
+        from a pooled (pinned) stack of the survivors, the ragged tail
+        directly. Returns the leases the rebuilt views hold."""
+        missing = [i for i in range(k) if not good[i]]
         if not missing:
-            return
-        use = tuple(i for i, s in enumerate(shards) if s is not None)[:k]
+            return []
+        use = tuple(i for i, g in enumerate(good) if g)[:k]
         rows = np.ascontiguousarray(gf256.decode_matrix(k, m, use)[missing])
-        full = win_len // ss
-        rebuilt = [np.empty(win_len, dtype=np.uint8) for _ in missing]
+        leases = []
         if full:
-            stacked = np.stack([shards[i][:full * ss].reshape(full, ss)
-                                for i in use], axis=1)       # [full, k, ss]
+            lease = global_pool(self.device).lease(full * k * ss)
+            leases.append(lease)
+            stacked = lease.ndarray((full, k, ss))
+            for j, i in enumerate(use):
+                stacked[:, j] = fulls[i]
             sb = self._batcher("reconstruct", k, m, use, tuple(missing))
             out = sb.frame(stacked)                          # [full, r, ss]
             self._count("reconstruct", sb.last_route())
-            for r, arr in enumerate(rebuilt):
-                arr[:full * ss] = out[:, r].reshape(-1)
-        if win_len > full * ss:
-            tail = np.stack([shards[i][full * ss:] for i in use])
-            tout = self.backend.apply_matrix(rows, tail)
-            for r, arr in enumerate(rebuilt):
-                arr[full * ss:] = tout[r]
-        for r, i in enumerate(missing):
-            shards[i] = rebuilt[r]
+            for r, i in enumerate(missing):
+                fulls[i] = out[:, r]
+        if tail:
+            tout = self.backend.apply_matrix(
+                rows, np.stack([tails[i] for i in use]))
+            for r, i in enumerate(missing):
+                tails[i] = tout[r]
+        return leases
 
     # ------------------------------------------------------------------
     # DeleteObject

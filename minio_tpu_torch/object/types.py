@@ -50,3 +50,6 @@ class ObjectInfo:
     content_type: str = ""
     version_id: str = ""
     user_metadata: dict = dataclasses.field(default_factory=dict)
+    # x-internal-* entries (stored checksums), as the JAX package keeps
+    # them apart from the user's metadata.
+    internal_metadata: dict = dataclasses.field(default_factory=dict)

@@ -67,6 +67,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from minio_tpu_torch.io.bufpool import LeasedRows, leases_of
 from minio_tpu_torch.io.engine import EngineSaturated, kernel_lane
 from minio_tpu_torch.utils import deadline as deadline_mod
 from minio_tpu_torch.utils.deadline import DeadlineExceeded
@@ -125,8 +126,10 @@ def batch_force_mode(route: str = "put") -> str:
 
 def _default_concat(rows, chunk):
     """Oversized-window splice for the PUT rows contract: per-drive
-    lists of per-block piece tuples concatenate drive-wise."""
-    return [r + c for r, c in zip(rows, chunk)]
+    lists of per-block piece tuples concatenate drive-wise, and the
+    leases both hold pass to the result."""
+    return LeasedRows([r + c for r, c in zip(rows, chunk)],
+                      leases_of(rows) + leases_of(chunk))
 
 
 class _Pending:
@@ -299,10 +302,13 @@ class StripeBatcher:
         stacked = np.zeros(
             (_bucket(max(self._min_device_blocks, self.mesh_devices)),)
             + sample.shape[1:], dtype=np.uint8)
-        self._device_fn(stacked)           # warm-up (kernel build)
+        for h in leases_of(self._device_fn(stacked)):   # warm-up
+            h.release()
         t0 = time.perf_counter()
-        self._device_fn(stacked)
+        out = self._device_fn(stacked)
         t_dev = time.perf_counter() - t0
+        for h in leases_of(out):
+            h.release()
         t0 = time.perf_counter()
         self._host_fn(stacked)
         t_host = time.perf_counter() - t0
@@ -636,21 +642,29 @@ class StripeBatcher:
                 else:
                     k = live[0].stacked.shape[1]
                     staged = lease is not None or len(live) > 1
+                    held = leases_of(rows_all)
                     off = 0
-                    for p, c in zip(live, counts):
-                        rows = [drive[off:off + c] for drive in rows_all]
-                        if staged:
-                            # Re-point data drives onto each member's OWN
-                            # window: the framer's data blocks view the
-                            # shared staging buffer, whose lease just went
-                            # back to the pool; digests and parity are
-                            # fresh device output and stay as they are.
-                            for i in range(k):
-                                rows[i] = [(dig, p.stacked[bi, i])
-                                           for bi, (dig, _blk)
-                                           in enumerate(rows[i])]
-                        p.rows = rows
-                        off += c
+                    try:
+                        for p, c in zip(live, counts):
+                            rows = [drive[off:off + c] for drive in rows_all]
+                            if staged:
+                                # Re-point data drives onto each member's
+                                # OWN window: the framer's data blocks view
+                                # the shared staging buffer, whose lease
+                                # just went back to the pool; digests and
+                                # parity stay in the framer's leases.
+                                for i in range(k):
+                                    rows[i] = [(dig, p.stacked[bi, i])
+                                               for bi, (dig, _blk)
+                                               in enumerate(rows[i])]
+                            # Each member holds its own reference on the
+                            # leases its digests and parity view.
+                            p.rows = LeasedRows(
+                                rows, [h.retain() for h in held])
+                            off += c
+                    finally:
+                        for h in held:
+                            h.release()
                 with self._stat_mu:
                     self._dispatches["device"] += 1
                     self._requests["device"] += len(live)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from minio_tpu_torch import device as device_mod
+from minio_tpu_torch.io.bufpool import LeasedRows, global_pool
 from minio_tpu_torch.ops import _build, rs_device
 from minio_tpu_torch.utils.highwayhash import MAGIC_KEY
 
@@ -381,7 +382,7 @@ def hash_blocks_device(key: bytes, blocks, device=None):
         return hash_rows(blocks, key=key)
     dev = device_mod.resolve(device)
     t = rs_device.host_tensor(np.ascontiguousarray(blocks, dtype=np.uint8))
-    return hash_rows(t.to(dev), key=key).cpu().numpy()
+    return rs_device.to_host(hash_rows(t.to(dev), key=key))
 
 
 def framed_digests_device(blobs: list[np.ndarray], device=None) -> np.ndarray:
@@ -403,7 +404,7 @@ def framed_digests_device(blobs: list[np.ndarray], device=None) -> np.ndarray:
     for b in u8:
         frames[off:off + b.shape[0]].copy_(rs_device.host_tensor(b))
         off += b.shape[0]
-    return hash_rows(frames, skip=DIGEST).cpu().numpy()
+    return rs_device.to_host(hash_rows(frames, skip=DIGEST))
 
 
 # ---------------------------------------------------------------------------
@@ -413,17 +414,20 @@ def framed_digests_device(blobs: list[np.ndarray], device=None) -> np.ndarray:
 def make_encode_framer(matrix: np.ndarray, device=None):
     """PutObject's stripe window on the card.
 
-    Returns run(data uint8 numpy [B, k, L]) -> n = k + m per-drive lists;
-    entry i is [(digest32, block), ...] per erasure block, whose
-    concatenation is drive-slot i's framed shard-file bytes. Data-block
-    pieces are views of `data` (zero copy); only parity and digests come
-    back from the device. run.device_step(int32 words [B, k, L4] on the
+    Returns run(data uint8 numpy [B, k, L]) -> n = k + m per-drive lists
+    (a bufpool.LeasedRows); entry i is [(digest32, block), ...] per
+    erasure block, whose concatenation is drive-slot i's framed
+    shard-file bytes. Data-block pieces are views of `data` (zero copy);
+    only parity and digests come back from the device, into leases of
+    the device's pool that the rows hold (the caller releases each of
+    rows.leases once the pieces are written). run.device_step(int32 words [B, k, L4] on the
     device) -> (parity words [B, m, L4], data digests [B, k, 8], parity
     digests [B, m, 8]) is the device part alone, for timing."""
     matrix = rs_device._as_matrix(matrix)
     m, k = matrix.shape
     n = k + m
     dev = device_mod.resolve(device)
+    pool = global_pool(dev)
 
     def frame_on_device(stripes: torch.Tensor):
         """stripes uint8 [B, k, L] on dev -> (shards [B, n, L], digests
@@ -436,7 +440,7 @@ def make_encode_framer(matrix: np.ndarray, device=None):
         digs = hash_rows(shards.view(b * n, length)).view(b, n, DIGEST)
         return shards, digs
 
-    def run(data: np.ndarray) -> list[list[tuple]]:
+    def run(data: np.ndarray) -> LeasedRows:
         data = np.ascontiguousarray(data, dtype=np.uint8)
         b, kk, _ = data.shape
         if kk != k:
@@ -445,12 +449,14 @@ def make_encode_framer(matrix: np.ndarray, device=None):
         # stream; the copies back below wait for it before run() returns.
         shards, digs = frame_on_device(
             rs_device.host_tensor(data).to(dev, non_blocking=True))
-        parity = shards[:, k:].cpu().numpy()
-        digs = digs.cpu().numpy()
+        # Parity and digests come back into pooled (pinned) leases,
+        # which the rows hold until the drive writers release them.
+        leases, (parity, digs) = rs_device.to_host_lease(
+            pool, shards[:, k:], digs)
         blocks = [data[:, i] for i in range(k)] \
             + [parity[:, j] for j in range(m)]
-        return [[(digs[bi, i], blocks[i][bi]) for bi in range(b)]
-                for i in range(n)]
+        return LeasedRows([[(digs[bi, i], blocks[i][bi]) for bi in range(b)]
+                           for i in range(n)], leases)
 
     def device_step(words: torch.Tensor):
         shards, digs = frame_on_device(words.view(torch.uint8))
@@ -484,7 +490,7 @@ def make_deframer(k: int, device=None):
             .view(b * kk, f)
         digs = hash_rows(rows, skip=DIGEST)
         ok = (digs == rows[:, :DIGEST]).all(dim=1).view(b, kk)
-        return ok.cpu().numpy()
+        return rs_device.to_host(ok)
     return run
 
 

@@ -216,6 +216,40 @@ def host_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor's values as a numpy array. From the card the copy
+    lands in pinned host memory (torch's caching host allocator, freed
+    with the array), so it is one DMA; on the CPU it is the tensor's own
+    memory."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out.numpy()
+
+
+def to_host_lease(pool, *tensors: torch.Tensor):
+    """Copy uint8 device tensors into leases of `pool` (pinned for a pool
+    of the card), one lease each so that each takes the size class that
+    fits it: ([leases], [numpy views of them, one per tensor]). The
+    views are valid while the leases are held. Each copy is one
+    synchronous DMA: a single call that gives up the interpreter lock
+    once, which matters on the kernel lane's thread under many request
+    threads."""
+    leases, outs = [], []
+    try:
+        for t in tensors:
+            leases.append(pool.lease(t.numel()))
+            dst = leases[-1].tensor[:t.numel()].view(t.shape)
+            dst.copy_(t)
+            outs.append(dst.numpy())
+    except BaseException:
+        for lease in leases:
+            lease.release()
+        raise
+    return leases, outs
+
+
 def make_mesh_matrix(matrix, device=None):
     """Batched GF(2^8) matrix application for the reconstruct batcher:
     run(stacked uint8 numpy [B, k, L]) -> numpy [B, r, L] through
@@ -231,7 +265,7 @@ def make_mesh_matrix(matrix, device=None):
         stacked = np.ascontiguousarray(stacked, dtype=np.uint8)
         with device_mod.lane_stream(dev):
             data = host_tensor(stacked).to(dev, non_blocking=True)
-            return gf_apply(m, data).cpu().numpy()
+            return to_host(gf_apply(m, data))
 
     run.mesh_devices = len(mesh_batch_devices(dev))
     return run
@@ -260,4 +294,4 @@ class GpuBackend:
         if shards.shape[1] == 0:
             return np.zeros((m.shape[0], 0), dtype=np.uint8)
         data = host_tensor(shards).to(self.device)[None]
-        return gf_apply(m, data)[0].cpu().numpy()
+        return to_host(gf_apply(m, data)[0])

@@ -4,12 +4,26 @@
 keep-alive. It serves PUT/HEAD bucket and PUT/GET/HEAD/DELETE object,
 every request authenticated with header SigV4 (s3/sigv4.py; a wrong
 signature is 403 SignatureDoesNotMatch), errors rendered as S3 XML
-(reference cmd/api-errors.go). GET bodies stream one erasure window at a
-time; a `Range: bytes=` GET or HEAD answers 206 with the erasure blocks
-of that range only. PUT bodies may be aws-chunked (the three streaming
-payload hashes) and may come with `Transfer-Encoding: chunked`; the body
-is read whole into memory. The rest of the S3 surface is
-minio_tpu/s3/server.py's and comes in later slices.
+(reference cmd/api-errors.go).
+
+An object PUT body is never held whole: `_make_payload` (the port of
+minio_tpu/s3/server.py's) hands the object layer a utils.streams.Payload
+that it reads window by window from the socket. A signed body's SHA-256
+runs as it streams and is checked in the payload's finish hook, before
+the commit (400 XAmzContentSHA256Mismatch, nothing committed); under
+UNSIGNED-PAYLOAD no hash runs. aws-chunked bodies (the three streaming
+payload hashes, also inside `Transfer-Encoding: chunked`) decode as they
+stream, every chunk and trailer signature checked. A declared
+x-amz-checksum-crc32, -sha1 or -sha256, in a header or an aws-chunked
+trailer, is checked in the same hook (400 XAmzContentChecksumMismatch),
+stored with the version, and returned on the PUT response and on GET or
+HEAD with `x-amz-checksum-mode: ENABLED`; CRC32C and CRC64NVME answer
+501 NotImplemented (s3/checksum.py). A plain `Transfer-Encoding:
+chunked` body with no declared size is buffered, as in the JAX package.
+GET bodies stream one erasure window at a time with one window read
+ahead; a `Range: bytes=` GET or HEAD answers 206 with the erasure blocks
+of that range only. The rest of the S3 surface is minio_tpu/s3/server.py's
+and comes in later slices.
 """
 
 from __future__ import annotations
@@ -26,7 +40,10 @@ from xml.sax.saxutils import escape
 
 from minio_tpu_torch.object import types as ot
 from minio_tpu_torch.object.erasure_object import _resolve_range
+from minio_tpu_torch.s3 import checksum as ck
 from minio_tpu_torch.s3 import sigv4
+from minio_tpu_torch.utils.streams import (HashingReader, HttpChunkedReader,
+                                           LimitedReader, Payload)
 
 # code -> (http status, message)
 ERRORS = {
@@ -35,6 +52,8 @@ ERRORS = {
     "SignatureDoesNotMatch": (403, "The request signature we calculated does not match the signature you provided."),
     "AuthorizationHeaderMalformed": (400, "The authorization header is malformed."),
     "XAmzContentSHA256Mismatch": (400, "The provided 'x-amz-content-sha256' header does not match what was computed."),
+    "XAmzContentChecksumMismatch": (400, "The provided checksum does not match the computed checksum."),
+    "InvalidRequest": (400, "Invalid Request"),
     "IncompleteBody": (400, "You did not provide the number of bytes specified by the Content-Length HTTP header."),
     "InvalidChunkSizeError": (400, "Invalid chunk size."),
     "InvalidRange": (416, "The requested range is not satisfiable."),
@@ -156,9 +175,15 @@ class _Handler(BaseHTTPRequestHandler):
     def _dispatch(self, method: str) -> None:
         raw_path, _, qs = self.path.partition("?")
         self._resource = urllib.parse.unquote(raw_path)
+        bucket, _, key = self._resource.lstrip("/").partition("/")
+        data_put = method == "PUT" and bool(key)
+        done = False
         try:
             headers = {k.lower(): v for k, v in self.headers.items()}
-            body = self._read_body(method, headers)
+            # An object PUT streams its body (checked as it streams, by
+            # the payload's finish hook); any other body is small and
+            # read whole, its hash checked before the handler runs.
+            body = b"" if data_put else self._read_body(method, headers)
             streaming = headers.get("x-amz-content-sha256") \
                 in sigv4.STREAMING_HASHES
             auth = sigv4.verify_request(
@@ -166,10 +191,10 @@ class _Handler(BaseHTTPRequestHandler):
                 urllib.parse.parse_qs(qs, keep_blank_values=True), headers,
                 self.s3.credentials.get,
                 body_hash=hashlib.sha256(body).hexdigest()
-                if method == "PUT" and not streaming else None)
-            if method == "PUT" and streaming:
+                if method == "PUT" and not data_put and not streaming
+                else None)
+            if method == "PUT" and streaming and not data_put:
                 body = self._decode_aws_chunked(body, auth, headers)
-            bucket, _, key = self._resource.lstrip("/").partition("/")
             if not bucket:
                 raise S3Error("NotImplemented", "ListBuckets")
             if not _BUCKET_RE.match(bucket):
@@ -178,7 +203,10 @@ class _Handler(BaseHTTPRequestHandler):
                               f"{'object' if key else 'bucket'}", None)
             if handler is None:
                 raise S3Error("NotImplemented", f"{method} on this resource")
+            if data_put:
+                body = self._make_payload(auth, headers)
             handler(bucket, key, body, headers)
+            done = True
         except sigv4.SigError as e:
             self._error(S3Error(e.code if e.code in ERRORS else "AccessDenied",
                                 str(e)), method)
@@ -191,6 +219,101 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception:  # noqa: BLE001 - request boundary: log, answer 500
             traceback.print_exc(file=sys.stderr)
             self._error(S3Error("InternalError"), method)
+        finally:
+            if data_put and not done:
+                # A refused object PUT may leave its body unread: the
+                # connection cannot carry another request.
+                self.close_connection = True
+
+    def _make_payload(self, auth, headers: dict) -> Payload:
+        """The sized streaming payload of an object PUT (the port of
+        minio_tpu/s3/server.py `_make_payload`): the body is never
+        materialized; content verification (SHA-256 or chunk signatures)
+        runs as it streams and refuses in the finish hook, before the
+        commit."""
+        te = headers.get("transfer-encoding", "").lower()
+        if auth.payload_hash in sigv4.STREAMING_HASHES:
+            declared = headers.get("x-amz-decoded-content-length")
+            if declared is None:
+                raise S3Error("MissingContentLength")
+            if "chunked" in te:
+                # aws-chunked inside HTTP chunked (the SDKs' shape for a
+                # stream of unknown length): strip the transfer framing
+                # first, as the bytes come.
+                raw = HttpChunkedReader(self.rfile)
+            else:
+                raw = LimitedReader(self.rfile,
+                                    int(headers.get("content-length") or 0))
+            reader = sigv4.chunked_reader(
+                raw, auth, self.s3.credentials[auth.credential.access_key],
+                verify_signatures=auth.payload_hash
+                != sigv4.STREAMING_UNSIGNED_TRAILER)
+            return self._apply_checksums(
+                Payload(reader, int(declared), finish=reader.finalize),
+                headers, trailers=reader)
+        if "content-length" not in headers:
+            if "chunked" not in te:
+                raise S3Error("MissingContentLength")
+            # Plain HTTP chunked (no declared size): buffered, as in the
+            # JAX package; rare for S3 clients.
+            body = self._read_http_chunked()
+            if auth.payload_hash != sigv4.UNSIGNED_PAYLOAD and \
+                    hashlib.sha256(body).hexdigest() != auth.payload_hash:
+                raise S3Error("XAmzContentSHA256Mismatch")
+            return self._apply_checksums(Payload.wrap(body), headers)
+        length = int(headers["content-length"])
+        raw = LimitedReader(self.rfile, length)
+        if auth.payload_hash == sigv4.UNSIGNED_PAYLOAD:
+            return self._apply_checksums(Payload(raw, length), headers)
+        hasher = HashingReader(raw)
+        want = auth.payload_hash
+
+        def fin():
+            if hasher.hexdigest() != want:
+                raise S3Error("XAmzContentSHA256Mismatch")
+        return self._apply_checksums(Payload(hasher, length, finish=fin),
+                                     headers)
+
+    @staticmethod
+    def _apply_checksums(payload: Payload, headers: dict,
+                         trailers=None) -> Payload:
+        """Wrap the payload in the checksums the request declares, in
+        headers or as aws-chunked trailers (`trailers`: the chunked
+        reader, whose finalize() parses them), after the port of
+        minio_tpu/s3/server.py `_apply_checksums`. The check runs in the
+        finish hook, before the commit; the verified values go into the
+        returned payload's `internal_metadata` (what the object layer
+        stores) and `checksum_headers` (what the PUT answers)."""
+        try:
+            declared = dict(ck.declared_algos(headers))
+            t_algos = ck.trailer_algos(headers)
+            algos = ck.single_algo(declared, t_algos)
+        except ck.ChecksumError as e:
+            raise S3Error(e.code, str(e)) from None
+        if not algos:
+            payload.internal_metadata, payload.checksum_headers = {}, {}
+            return payload
+        reader = ck.ChecksumingReader(payload, algos)
+        meta: dict = {}
+        hdrs: dict = {}
+
+        def fin():
+            # A zero-byte body finishes the outer payload without pulling
+            # the inner one, whose own finish parses the trailers: drive
+            # it here (it runs once, whatever the body's size).
+            payload.read(0)
+            expected = dict(declared)
+            got = getattr(trailers, "trailers", {}) or {}
+            for a in t_algos:
+                expected.setdefault(a, got.get(ck.H_PREFIX + a))
+            try:
+                meta.update(ck.verify_and_meta(reader, expected))
+            except ck.ChecksumError as e:
+                raise S3Error(e.code, str(e)) from None
+            hdrs.update(ck.response_headers(meta))
+        out = Payload(reader, payload.size, finish=fin)
+        out.internal_metadata, out.checksum_headers = meta, hdrs
+        return out
 
     def _read_body(self, method: str, headers: dict) -> bytes:
         if method != "PUT":
@@ -301,13 +424,15 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- objects ----------------------------------------------------------
 
-    def _put_object(self, bucket, key, body, headers):
+    def _put_object(self, bucket, key, payload, headers):
         meta = {k[len("x-amz-meta-"):]: v for k, v in headers.items()
                 if k.startswith("x-amz-meta-")}
         info = self.s3.objects.put_object(
-            bucket, key, body, content_type=headers.get("content-type", ""),
-            user_metadata=meta)
-        self._send(200, {"ETag": f'"{info.etag}"'})
+            bucket, key, payload,
+            content_type=headers.get("content-type", ""),
+            user_metadata=meta, internal_metadata=payload.internal_metadata)
+        self._send(200, {"ETag": f'"{info.etag}"',
+                         **payload.checksum_headers})
 
     @staticmethod
     def _resolve(spec, info, bucket, key) -> tuple:
@@ -322,10 +447,14 @@ class _Handler(BaseHTTPRequestHandler):
             return None, 0, 0
         return spec, start, length
 
-    def _answer(self, info, spec, start, length) -> tuple[int, dict]:
+    def _answer(self, info, spec, start, length,
+                headers_in: dict) -> tuple[int, dict]:
         """Status and headers of a GET or HEAD: 206 with Content-Range for
-        a range, else 200."""
+        a range, else 200; the stored checksums when the request asks
+        with x-amz-checksum-mode: ENABLED."""
         headers = self._object_headers(info)
+        if headers_in.get("x-amz-checksum-mode", "").upper() == "ENABLED":
+            headers.update(ck.response_headers(info.internal_metadata))
         if spec is None:
             return 200, headers
         headers["Content-Range"] = \
@@ -336,7 +465,8 @@ class _Handler(BaseHTTPRequestHandler):
         spec = _range_spec(headers.get("range", ""))
         info = self.s3.objects.get_object_info(bucket, key)
         spec, start, length = self._resolve(spec, info, bucket, key)
-        self._send(*self._answer(info, spec, start, length), length=length)
+        self._send(*self._answer(info, spec, start, length, headers),
+                   length=length)
 
     def _get_object(self, bucket, key, _body, headers):
         spec = _range_spec(headers.get("range", ""))
@@ -349,17 +479,23 @@ class _Handler(BaseHTTPRequestHandler):
                                                          length)
         if length is None:
             length = info.size
-        first = next(chunks, b"")          # errors before the head is sent
-        self._send(*self._answer(info, spec, start, length), length=length)
         try:
-            self.wfile.write(first)
-            for chunk in chunks:
-                self.wfile.write(chunk)
-        except Exception:  # noqa: BLE001 - head already sent
-            # A failure mid-body can only cut the connection (the client
-            # sees a short body), never send a second response.
-            traceback.print_exc(file=sys.stderr)
-            self.close_connection = True
+            first = next(chunks, b"")      # errors before the head is sent
+            self._send(*self._answer(info, spec, start, length, headers),
+                       length=length)
+            try:
+                # Each chunk views a pooled lease that returns at the
+                # next pull, so it is on the wire before then.
+                self.wfile.write(first)
+                for chunk in chunks:
+                    self.wfile.write(chunk)
+            except Exception:  # noqa: BLE001 - head already sent
+                # A failure mid-body can only cut the connection (the
+                # client sees a short body), never send a second response.
+                traceback.print_exc(file=sys.stderr)
+                self.close_connection = True
+        finally:
+            chunks.close()        # returns the leases of a cut response
 
     def _delete_object(self, bucket, key, _body, _headers):
         self.s3.objects.delete_object(bucket, key)

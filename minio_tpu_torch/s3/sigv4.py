@@ -4,9 +4,9 @@ The slice's subset of minio_tpu/s3/sigv4.py (itself the public AWS SigV4
 scheme, as the reference implements it in cmd/signature-v4.go):
 canonical request -> string-to-sign -> HMAC chain, for requests signed
 in the Authorization header, and the aws-chunked streaming bodies
-(`decode_chunked_payload`: per-chunk signatures chained from the seed
-signature, signed trailers). `sign_headers` is the client side, used by
-the port's own tools and tests.
+(`ChunkedPayloadReader`: per-chunk signatures chained from the seed
+signature, signed trailers, decoded as the body streams). `sign_headers`
+is the client side, used by the port's own tools and tests.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import datetime
 import hashlib
 import hmac
+import io
 import urllib.parse
 from dataclasses import dataclass
 from typing import Optional
@@ -166,93 +167,199 @@ def verify_request(method: str, raw_path: str, query: dict[str, list[str]],
     return auth
 
 
-_MAX_CHUNK_HEADER = 4 * 1024     # the reference's bounds on one frame
-_MAX_CHUNK = 16 << 20
+class ChunkedPayloadReader:
+    """Incremental aws-chunked decoder (minio_tpu/s3/sigv4.py
+    `ChunkedPayloadReader`; reference cmd/streaming-signature-v4.go
+    s3ChunkedReader).
 
+    Frames `hex-size;chunk-signature=<sig>\r\n<data>\r\n` up to a
+    zero-size one are parsed as the object layer pulls bytes, so a
+    streamed PUT never holds its encoded body. With verify_signatures
+    (every streaming hash but STREAMING-UNSIGNED-PAYLOAD-TRAILER), each
+    chunk's signature chains from the previous one, starting at the
+    request's seed signature; in signed-trailer mode the final zero-size
+    chunk is checked when it carries a signature. `finalize()` consumes
+    the final chunk and parses the trailer lines into `trailers`,
+    checking x-amz-trailer-signature in signed-trailer mode; the PUT path
+    runs it from the payload's finish hook, before the commit. Raises
+    SigError: SignatureDoesNotMatch for a bad signature, IncompleteBody
+    or InvalidChunkSizeError for broken framing.
+    """
 
-def _chunk_sig(key: bytes, auth: ParsedAuth, prev: str, data) -> str:
-    sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", auth.amz_date,
-                     auth.credential.scope(), prev, EMPTY_SHA256,
-                     hashlib.sha256(data).hexdigest()])
-    return hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+    _FILL = 64 * 1024
+    # The reference's bounds on one frame: without them one giant chunk
+    # or a header with no CRLF would buffer the whole body.
+    _MAX_HEADER = 4 * 1024
+    _MAX_CHUNK = 16 << 20
 
+    def __init__(self, raw, auth: ParsedAuth, secret: str,
+                 verify_signatures: bool = True):
+        self._raw = raw
+        self._auth = auth
+        self._verify = verify_signatures
+        self._seed_key = signing_key(secret, auth.credential.date,
+                                     auth.credential.region,
+                                     auth.credential.service)
+        self._prev_sig = auth.signature
+        self._scope = auth.credential.scope()
+        self._buf = bytearray()
+        self._chunk = memoryview(b"")
+        self._done = False
+        self.trailers: dict[str, str] = {}
 
-def decode_chunked_payload(body, auth: ParsedAuth, secret: str,
-                           verify_signatures: bool = True) -> bytearray:
-    """Decode an aws-chunked body: `hex-size;chunk-signature=<sig>\r\n
-    <data>\r\n` frames up to a zero-size one, then optional trailer lines
-    (minio_tpu/s3/sigv4.py `decode_chunked_payload`, with the trailer
-    checks of its `ChunkedPayloadReader`; reference
-    cmd/streaming-signature-v4.go).
+    # -- buffered raw access -------------------------------------------
 
-    With verify_signatures (every hash but STREAMING-UNSIGNED-PAYLOAD-
-    TRAILER), each chunk's signature chains from the previous one,
-    starting at the request's seed signature; in signed-trailer mode the
-    final zero-size chunk is checked when it carries a signature, and
-    x-amz-trailer-signature over the '\n'-terminated trailer lines
-    chains from the last chunk's. Raises SigError: SignatureDoesNotMatch
-    for a bad signature, IncompleteBody or InvalidChunkSizeError for
-    broken framing."""
-    key = signing_key(secret, auth.credential.date, auth.credential.region,
-                      auth.credential.service)
-    signed = verify_signatures and auth.payload_hash in (
-        STREAMING_PAYLOAD, STREAMING_PAYLOAD_TRAILER)
-    prev = auth.signature
-    view = memoryview(body)
-    out = bytearray()
-    pos = 0
-    while True:
-        nl = body.find(b"\r\n", pos)
-        if nl < 0 or nl - pos > _MAX_CHUNK_HEADER:
-            raise SigError("IncompleteBody" if nl < 0 else
-                           "InvalidChunkSizeError", "bad chunk header")
-        header = bytes(view[pos:nl]).decode("latin-1")
-        pos = nl + 2
+    def _fill(self) -> bool:
+        data = self._raw.read(self._FILL)
+        if not data:
+            return False
+        self._buf += data
+        return True
+
+    def _readline(self) -> bytes:
+        while True:
+            nl = self._buf.find(b"\r\n")
+            if nl >= 0:
+                line = bytes(self._buf[:nl])
+                del self._buf[:nl + 2]
+                return line
+            if len(self._buf) > self._MAX_HEADER:
+                raise SigError("InvalidChunkSizeError",
+                               "chunk header too long")
+            if not self._fill():
+                raise SigError("IncompleteBody", "truncated chunk header")
+
+    def _read_raw(self, n: int) -> bytes:
+        while len(self._buf) < n:
+            if not self._fill():
+                raise SigError("IncompleteBody", "short chunk")
+        out = bytes(self._buf[:n])
+        del self._buf[:n]
+        return out
+
+    # -- frame parsing --------------------------------------------------
+
+    def _next_frame(self) -> None:
+        header = self._readline().decode("latin-1")
         size_hex, _, ext = header.partition(";")
         try:
             size = int(size_hex, 16)
         except ValueError:
             raise SigError("InvalidChunkSizeError", size_hex) from None
-        if size < 0 or size > _MAX_CHUNK:
+        if size < 0 or size > self._MAX_CHUNK:
             raise SigError("InvalidChunkSizeError", size_hex)
-        data = view[pos:pos + size]
-        if len(data) != size:
-            raise SigError("IncompleteBody", "short chunk")
-        pos += size
-        if size:
-            if view[pos:pos + 2] != b"\r\n":
-                raise SigError("IncompleteBody", "bad chunk delimiter")
-            pos += 2
-        if signed and (auth.payload_hash == STREAMING_PAYLOAD or size
-                       or "chunk-signature=" in ext):
+        data = self._read_raw(size)
+        if size > 0 and self._read_raw(2) != b"\r\n":
+            raise SigError("IncompleteBody", "bad chunk delimiter")
+        if self._verify and (
+                self._auth.payload_hash == STREAMING_PAYLOAD
+                or (self._auth.payload_hash == STREAMING_PAYLOAD_TRAILER
+                    and (size > 0 or "chunk-signature=" in ext))):
+            # Signed-trailer mode signs the final 0-chunk too and the
+            # trailer signature chains from it; a bare `0` final frame
+            # is tolerated, and the chain then ends at the last data
+            # chunk.
             got = next((kv[len("chunk-signature="):] for kv in ext.split(";")
                         if kv.startswith("chunk-signature=")), "")
-            want = _chunk_sig(key, auth, prev, data)
+            sts = "\n".join([
+                "AWS4-HMAC-SHA256-PAYLOAD", self._auth.amz_date,
+                self._scope, self._prev_sig, EMPTY_SHA256,
+                hashlib.sha256(data).hexdigest()])
+            want = hmac.new(self._seed_key, sts.encode(),
+                            hashlib.sha256).hexdigest()
             if not hmac.compare_digest(want, got):
                 raise SigError("SignatureDoesNotMatch", "chunk signature")
-            prev = want
-        if not size:
-            break
-        out += data
-    # Trailer lines `name:value\r\n`, the signature line among them.
-    trailer_raw, trailer_sig, trailers = bytearray(), "", 0
-    for line in bytes(view[pos:]).split(b"\r\n")[:-1]:
-        name, sep, value = line.partition(b":")
-        if not sep:
-            continue
-        if name.decode("latin-1").strip().lower() == "x-amz-trailer-signature":
-            trailer_sig = value.decode("latin-1").strip()
-            continue
-        trailer_raw += line + b"\n"
-        trailers += 1
-    if signed and auth.payload_hash == STREAMING_PAYLOAD_TRAILER \
-            and (trailers or trailer_sig):
-        sts = "\n".join(["AWS4-HMAC-SHA256-TRAILER", auth.amz_date,
-                         auth.credential.scope(), prev,
-                         hashlib.sha256(trailer_raw).hexdigest()])
-        want = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
-        if not hmac.compare_digest(want, trailer_sig):
-            raise SigError("SignatureDoesNotMatch", "trailer signature")
+            self._prev_sig = want
+        if size == 0:
+            self._done = True
+        else:
+            self._chunk = memoryview(data)
+
+    def read(self, n: int) -> bytes:
+        while not self._chunk and not self._done:
+            self._next_frame()
+        if not self._chunk:
+            return b""
+        out = self._chunk[:n]
+        self._chunk = self._chunk[len(out):]
+        return bytes(out)
+
+    def readinto(self, view) -> int:
+        """Decoded bytes straight into `view` (one chunk's worth at
+        most); 0 after the final chunk."""
+        while not self._chunk and not self._done:
+            self._next_frame()
+        n = min(len(view), len(self._chunk))
+        view[:n] = self._chunk[:n]
+        self._chunk = self._chunk[n:]
+        return n
+
+    def finalize(self) -> None:
+        """Consume the 0-chunk and the trailers; a further data chunk
+        means the body was longer than its declared decoded length.
+        Trailer lines parse into `trailers` (SDKs send their default
+        upload checksums there, x-amz-checksum-crc32 and the like)."""
+        while not self._done:
+            self._next_frame()
+            if self._chunk:
+                raise SigError("IncompleteBody",
+                               "body exceeds decoded content length")
+        self.trailers = {}
+        # `name:value\r\n` lines, the x-amz-trailer-signature line among
+        # them in signed mode, then a blank line.
+        trailer_raw = bytearray()       # the lines as sent, '\n'-ended
+        trailer_sig = ""
+        while True:
+            nl = self._buf.find(b"\r\n")
+            if nl < 0:
+                if not self._fill():
+                    break
+                continue
+            line = bytes(self._buf[:nl])
+            del self._buf[:nl + 2]
+            name, sep, value = line.partition(b":")
+            if not sep:
+                continue
+            lname = name.decode("latin-1").strip().lower()
+            if lname == "x-amz-trailer-signature":
+                trailer_sig = value.decode("latin-1").strip()
+                continue
+            trailer_raw += line + b"\n"
+            self.trailers[lname] = value.decode("latin-1").strip()
+        # Signed-trailer mode authenticates the trailer section too: an
+        # AWS4-HMAC-SHA256-TRAILER string to sign over the hash of the
+        # trailer lines, chained from the last chunk's signature.
+        # Without it a declared trailing checksum could be swapped.
+        if self._verify \
+                and self._auth.payload_hash == STREAMING_PAYLOAD_TRAILER \
+                and (self.trailers or trailer_sig):
+            sts = "\n".join([
+                "AWS4-HMAC-SHA256-TRAILER", self._auth.amz_date,
+                self._scope, self._prev_sig,
+                hashlib.sha256(bytes(trailer_raw)).hexdigest()])
+            want = hmac.new(self._seed_key, sts.encode(),
+                            hashlib.sha256).hexdigest()
+            if not hmac.compare_digest(want, trailer_sig):
+                raise SigError("SignatureDoesNotMatch", "trailer signature")
+
+
+def chunked_reader(raw, auth: ParsedAuth, secret: str,
+                   verify_signatures: bool = True) -> ChunkedPayloadReader:
+    """The aws-chunked streaming decoder of the serve path."""
+    return ChunkedPayloadReader(raw, auth, secret, verify_signatures)
+
+
+def decode_chunked_payload(body, auth: ParsedAuth, secret: str,
+                           verify_signatures: bool = True) -> bytearray:
+    """Decode a whole aws-chunked body held in memory: the chunks of
+    ChunkedPayloadReader, every signature and the trailers checked as
+    it checks them."""
+    reader = ChunkedPayloadReader(io.BytesIO(body), auth, secret,
+                                  verify_signatures)
+    out = bytearray()
+    while chunk := reader.read(1 << 20):
+        out += chunk
+    reader.finalize()
     return out
 
 

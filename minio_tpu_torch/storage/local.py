@@ -142,6 +142,20 @@ class LocalStorage:
         except FileNotFoundError:
             raise FileNotFoundErr(f"{volume}/{path}") from None
 
+    def read_file_into(self, volume: str, path: str, offset: int,
+                       bufs: list) -> int:
+        """Scatter-read a shard file from `offset` into `bufs` (writable
+        buffers, filled in order; one preadv); returns the bytes read,
+        short at the end of the file."""
+        try:
+            fd = os.open(self._obj_dir(volume, path), os.O_RDONLY)
+        except FileNotFoundError:
+            raise FileNotFoundErr(f"{volume}/{path}") from None
+        try:
+            return os.preadv(fd, bufs, offset)
+        finally:
+            os.close(fd)
+
     def delete(self, volume: str, path: str, recursive: bool = False) -> None:
         full = self._obj_dir(volume, path)
         try:

@@ -6,14 +6,19 @@ One 12-drive EC 8+4 ErasureSet on the card (drives under /dev/shm where
 it has room), no HTTP. For one object of --size-mib it times, on the
 host clock and each --reps times (median and spread printed):
 
-  * sha256 of the body (what the S3 front end computes per signed PUT)
-    and md5 (the ETag put_object computes),
-  * put_object, get_object, and get_object with 4 data-shard drives
-    wiped (decode on the card),
+  * sha256 and md5 of the body in one pass each (the signed PUT's
+    content hash and the ETag),
+  * put_object through a Payload over a reader, as the S3 front end
+    calls it: UNSIGNED-PAYLOAD (the reader alone) and signed (the
+    SHA-256 runs as the body streams and is checked in the finish hook),
+  * a GET that drains get_object_stream chunk by chunk, healthy and
+    with 4 data-shard drives wiped (decode on the card), and get_object
+    (the chunks copied into one bytes object) checked against the body,
 
-then runs one PUT and one GET (healthy, then degraded) under
-torch.profiler and reports, per operation, the device time by kernel
-and by copy direction and the card's busy share of the wall time. The
+then runs one signed PUT and one GET (healthy, then degraded) under
+torch.profiler and reports, per operation, the device time by kernel and
+by copy, each copy row marked with the host memory it read or wrote
+(pinned or pageable), and the card's busy share of the wall time. The
 last line is one JSON object with every number, the card's name and its
 power limit. It needs a CUDA card and fails without one.
 """
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -35,6 +41,7 @@ import torch
 
 from minio_tpu_torch.object.erasure_object import ErasureSet, hash_order
 from minio_tpu_torch.storage.local import LocalStorage
+from minio_tpu_torch.utils.streams import HashingReader, LimitedReader, Payload
 
 MIB = 1 << 20
 BUCKET = "prof"
@@ -70,9 +77,30 @@ def _device_profile(fn) -> dict:
                 + ev.device_time_total / 1e6
     busy = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    # Copy rows are named by direction and host memory kind, e.g.
+    # "Memcpy HtoD (Pinned -> Device)".
+    copies = {name: {"s": t, "host_memory": "pageable"
+                     if "Pageable" in name else "pinned"
+                     if "Pinned" in name else "device"}
+              for name, t in by_name.items() if "Memcpy" in name}
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall if wall else 0.0,
-            "device_s_by_name": top}
+            "device_s_by_name": top, "copies": copies}
+
+
+def _payload(body: bytes, want: str | None) -> Payload:
+    """The body as the S3 front end hands it to put_object: a Payload
+    over a length-limited reader; hashed as it streams and checked
+    against the signed SHA-256 `want` when there is one."""
+    raw = LimitedReader(io.BytesIO(body), len(body))
+    if want is None:
+        return Payload(raw, len(body))
+    hasher = HashingReader(raw)
+
+    def fin():
+        if hasher.hexdigest() != want:
+            raise RuntimeError("SHA-256 mismatch")
+    return Payload(hasher, len(body), finish=fin)
 
 
 def main(argv=None) -> int:
@@ -102,23 +130,36 @@ def main(argv=None) -> int:
             es.put_object(BUCKET, "warm", body[:40 * MIB])   # build + warm
             es.get_object(BUCKET, "warm")
 
-            def put():
-                es.put_object(BUCKET, "obj", body)
+            signed = hashlib.sha256(body).hexdigest()
+
+            def put(signed: str | None = signed):
+                es.put_object(BUCKET, "obj", _payload(body, signed))
 
             def get():
-                _, got = es.get_object(BUCKET, "obj")
-                if got != body:
+                _, chunks = es.get_object_stream(BUCKET, "obj")
+                for _ in chunks:
+                    pass
+
+            def get_bytes():
+                if es.get_object(BUCKET, "obj")[1] != body:
                     raise RuntimeError("GET returned other bytes")
 
+            _, got = es.get_object(BUCKET, "warm")
+            if got != body[:40 * MIB]:
+                raise RuntimeError("GET returned other bytes")
             result["sha256"] = _timed(lambda: hashlib.sha256(body), args.reps)
             result["md5"] = _timed(lambda: hashlib.md5(body), args.reps)
+            result["put_unsigned"] = _timed(lambda: put(None), args.reps)
             result["put"] = _timed(put, args.reps)
             result["get"] = _timed(get, args.reps)
+            result["get_bytes"] = _timed(get_bytes, args.reps)
             result["profile_put"] = _device_profile(put)
             result["profile_get"] = _device_profile(get)
             dist = hash_order(f"{BUCKET}/obj", 12)
             for i in [i for i in range(12) if dist[i] - 1 < 8][:4]:
                 shutil.rmtree(os.path.join(drives[i], BUCKET, "obj"))
+            if es.get_object(BUCKET, "obj")[1] != body:
+                raise RuntimeError("degraded GET returned other bytes")
             result["get_degraded"] = _timed(get, args.reps)
             result["profile_get_degraded"] = _device_profile(get)
         finally:
@@ -126,7 +167,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    for op in ("sha256", "md5", "put", "get", "get_degraded"):
+    for op in ("sha256", "md5", "put_unsigned", "put", "get", "get_bytes",
+               "get_degraded"):
         r = result[op]
         print(f"{op}: median {r['median_s']:.4f} s "
               f"({args.size_mib / r['median_s']:.1f} MiB/s), "
@@ -137,6 +179,9 @@ def main(argv=None) -> int:
               f"{r['device_busy_s']:.4f} s ({100 * r['device_busy_share']:.2f}%)")
         for name, s in r["device_s_by_name"].items():
             print(f"    {s * 1e3:10.3f} ms  {name[:90]}")
+        for name, c in r["copies"].items():
+            print(f"    copy {c['s'] * 1e3:10.3f} ms  host memory "
+                  f"{c['host_memory']:8s}  {name[:70]}")
     print(json.dumps(result))
     return 0
 

@@ -414,3 +414,109 @@ def test_verify_request_skips_the_raw_hash_only_for_streaming():
         else:
             with pytest.raises(sigv4.SigError, match="payload mismatch"):
                 call()
+
+
+# -- C1: declared checksums ----------------------------------------------------
+
+def _crc32_b64(data: bytes) -> str:
+    return base64.b64encode(zlib.crc32(data).to_bytes(4, "big")).decode()
+
+
+def _sha256_b64(data: bytes) -> str:
+    return base64.b64encode(hashlib.sha256(data).digest()).decode()
+
+
+CK_BODY = RNG.bytes(1000)
+CK_CASES = {
+    # case: (headers, client options, stored?)
+    "crc32 header": ({"x-amz-checksum-crc32": _crc32_b64(CK_BODY)}, {}),
+    "sha256 header": ({"x-amz-checksum-sha256": _sha256_b64(CK_BODY)}, {}),
+    "sha1 header": ({"x-amz-checksum-sha1": base64.b64encode(
+        hashlib.sha1(CK_BODY).digest()).decode()}, {}),
+    "crc32 header wrong": ({"x-amz-checksum-crc32": _crc32_b64(b"x")}, {}),
+    "two algorithms": ({"x-amz-checksum-crc32": _crc32_b64(CK_BODY),
+                        "x-amz-checksum-sha256": _sha256_b64(CK_BODY)}, {}),
+    "crc32c header": ({"x-amz-checksum-crc32c": "AAAAAA=="}, {}),
+    "signed trailer": ({}, {"chunked": True, "trailers": {
+        "x-amz-checksum-crc32": _crc32_b64(CK_BODY)}}),
+    "signed trailer wrong": ({}, {"chunked": True, "trailers": {
+        "x-amz-checksum-crc32": "AAAAAA=="}}),
+    "signed trailer tampered": ({}, {"chunked": True, "trailers": {
+        "x-amz-checksum-crc32": _crc32_b64(CK_BODY)},
+        "corrupt_trailer_sig": True}),
+}
+
+
+def _stored_checksums(drive: str, ref: bool, key: str) -> dict:
+    from minio_tpu_torch.storage.local import LocalStorage as PortStorage
+    disk = LocalStorage(drive) if ref else PortStorage(drive)
+    try:
+        meta = disk.read_version(BUCKET, key, "").metadata
+    except Exception:  # noqa: BLE001 - an absent version stores nothing
+        return {}
+    return {k: v for k, v in meta.items()
+            if k.startswith("x-internal-checksum-")}
+
+
+def _checksum_answers(addr: str, key: str, put) -> tuple:
+    """(PUT status, error code, x-amz-checksum-* of the PUT answer, GET
+    status with x-amz-checksum-mode: ENABLED, its x-amz-checksum-*, and
+    whether its body is the PUT's)."""
+    st, code, put_ck = put(addr)
+    st2, h2, got = S3Client(addr, timeout=300).request(
+        "GET", key, headers={"x-amz-checksum-mode": "ENABLED"})
+    get_ck = {k.lower(): v for k, v in h2.items()
+              if k.lower().startswith("x-amz-checksum-")}
+    return st, code, put_ck, st2, get_ck, st2 == 200 and got
+
+
+@pytest.mark.parametrize("case", sorted(CK_CASES) + ["zero-byte trailer",
+                                                     "crc32c trailer"])
+def test_checksum_put_matches_reference(servers, case):
+    """Each declared-checksum PUT of tests/test_checksums.py gets the same
+    answer from the port as from the JAX package: status, error code,
+    the echoed checksum, the checksum-mode GET, and the stored
+    x-internal-checksum-* keys of xl.meta on every drive."""
+    key = f"/{BUCKET}/ck-{case.replace(' ', '-')}"
+    body = b"" if case == "zero-byte trailer" else CK_BODY
+
+    def put(addr):
+        if case in CK_CASES:
+            headers, kw = CK_CASES[case]
+            st, h, err = S3Client(addr, timeout=300).request(
+                "PUT", key, body=body, headers=headers, **kw)
+            return st, _code(err) if st >= 300 else "", {
+                k.lower(): v for k, v in h.items()
+                if k.lower().startswith("x-amz-checksum-")}
+        algo = "crc32c" if case == "crc32c trailer" else "crc32"
+        st, code = _raw_chunked_put(
+            addr, key, body, sigv4.STREAMING_UNSIGNED_TRAILER,
+            {"x-amz-decoded-content-length": str(len(body)),
+             "x-amz-trailer": f"x-amz-checksum-{algo}"},
+            trailers={f"x-amz-checksum-{algo}": _crc32_b64(body)},
+            signed=False)
+        return st, code, {}
+    got, want = _both(servers, lambda a: _checksum_answers(a, key, put))
+    assert got == want
+    assert want[5] in (False, body)
+    port_drives = servers[1]
+    ref_root = Path(port_drives[0]).parents[1] / "ref"
+    for i, drive in enumerate(port_drives):
+        assert _stored_checksums(drive, False, key[len(BUCKET) + 2:]) == \
+            _stored_checksums(str(ref_root / f"d{i}"), True,
+                              key[len(BUCKET) + 2:]), f"drive {i}"
+
+
+def test_wrong_trailer_checksum_refused_before_commit(servers):
+    """C1: a 1000-byte signed-trailer PUT declaring a wrong CRC32 is 400
+    XAmzContentChecksumMismatch on the port as on the reference, and
+    nothing is committed."""
+    key = f"/{BUCKET}/c1-wrong-trailer"
+
+    def run(addr):
+        c = S3Client(addr, timeout=300)
+        st, _, err = c.request("PUT", key, body=CK_BODY, chunked=True,
+                               trailers={"x-amz-checksum-crc32": "AAAAAA=="})
+        return st, _code(err), c.request("GET", key)[0]
+    assert _both(servers, run) == ((400, "XAmzContentChecksumMismatch", 404),
+                                   (400, "XAmzContentChecksumMismatch", 404))
