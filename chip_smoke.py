@@ -52,6 +52,23 @@ and prints no result line):
    each route's device function alone, with no request threads, at every
    bucket that route used (host clock): the yardstick for the lane's
    service under load, weighted by the phase's own bucket counts.
+   Phases 3 and 4 run with the MRF heal queue closed on their sets.
+4b. Multipart and healing: a fresh server as in 3, MRF open. BASELINE
+   configs[4]: 16 clients each upload one 5 MiB part of one upload at
+   once (80 MiB), then complete it. The AWS CLI's defaults: a 256 MiB
+   object as 32 parts of 8 MiB, 10 in flight, completed; GET whole, 3
+   ranges across part boundaries, HEAD with the -32 ETag, beside a
+   256 MiB single-part PUT and GET; InvalidPart, EntityTooSmall and
+   NoSuchUpload after an abort. BASELINE configs[3], heal, on copies of
+   the drives taken first: one data-shard drive wiped, the single-part
+   object healed by the MRF queue a GET filled (deep, as the JAX
+   package's MRF heals) and the multipart one by the admin heal in
+   normal mode; then two data and two parity drives wiped of both and
+   healed by POST /minio/admin/v3/heal?deep=true, polled. After each
+   heal the healed drives' shard files and journal fields equal the
+   copies, and a GET with 4 other drives wiped (MRF stopped) returns the
+   bytes. Wall time and MiB/s of each operation, the phase's launches,
+   0 pool leases outstanding.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
@@ -86,6 +103,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 import zlib
 
 import numpy as np
@@ -339,12 +357,19 @@ class Client:
 
     def send(self, method: str, path: str, body: bytes = b"",
              extra: dict | None = None, payload_hash: str | None = None,
-             encode=None) -> tuple[int, bytes, dict]:
+             encode=None, query: dict | None = None
+             ) -> tuple[int, bytes, dict]:
         """(status, body, lowercased response headers). encode(signed
-        headers) -> the wire body, for bodies framed after signing."""
+        headers) -> the wire body, for bodies framed after signing;
+        query: {name: value} of the query string."""
+        q = {k: [v] for k, v in (query or {}).items()}
         uri, headers = self.sigv4.sign_headers(
             method, self.address, path, self.access, self.secret,
-            payload_hash or hashlib.sha256(body).hexdigest(), extra=extra)
+            payload_hash or hashlib.sha256(body).hexdigest(), query=q,
+            extra=extra)
+        if q:
+            uri += "?" + urllib.parse.urlencode(
+                [(k, v[0]) for k, v in q.items()])
         host, _, port = self.address.rpartition(":")
         conn = http.client.HTTPConnection(host, int(port), timeout=600)
         try:
@@ -444,14 +469,16 @@ def drive_root() -> str:
 
 class Server:
     """The port's S3 server on 12 fresh drives under `root`, serving from
-    a thread of this process until stop()."""
+    a thread of this process until stop(); with mrf=False its MRF heal
+    queue stays closed."""
 
-    def __init__(self, root: str, name: str):
+    def __init__(self, root: str, name: str, mrf: bool = False):
         from minio_tpu_torch import server
         self.drives = [os.path.join(root, name, f"d{i}") for i in range(12)]
         self.srv = server.boot(["--address", "127.0.0.1:0", "--device",
                                 "cuda", *self.drives])
         self.es = self.srv.objects
+        self.es._mrf_closed = not mrf
         check(self.es.default_parity == M, "12 drives must give EC 8+4")
         self.thread = threading.Thread(target=self.srv.serve_forever,
                                        daemon=True)
@@ -595,8 +622,9 @@ def check_pool_idle(what: str) -> None:
         time.sleep(0.05)
     st = pool.stats()
     log(f"{what}: pinned pool {st}")
-    check(st["outstanding"] == 0, f"{what}: {st['outstanding']} pool leases "
-          "outstanding after the phase")
+    check(st["outstanding"] == 0 and st["leaks"] == 0,
+          f"{what}: {st['outstanding']} pool leases outstanding, "
+          f"{st['leaks']} leaked after the phase")
 
 
 def streamed_and_checksummed(c: "Client", es, big: bytes, rng,
@@ -794,6 +822,275 @@ def phase_concurrent(torch, rng, root):
     finally:
         s.stop()
         check_pool_idle("concurrent")
+
+
+# Phase 4b: multipart uploads and healing.
+CONF4_PARTS = 16          # BASELINE.json configs[4]: 16 concurrent 5 MiB parts
+AWS_PART = 8 * MIB        # the AWS CLI's multipart_chunksize
+AWS_INFLIGHT = 10         # the AWS CLI's max_concurrent_requests
+
+
+def xml_tag(body: bytes, tag: str) -> str:
+    start = body.find(f"<{tag}>".encode())
+    end = body.find(f"</{tag}>".encode(), start)
+    return body[start + len(tag) + 2:end].decode() if start >= 0 else ""
+
+
+def mp_upload(c: "Client", path: str, parts: list, inflight: int) -> str:
+    """One multipart upload of `parts`, `inflight` part PUTs at a time;
+    returns the completed ETag after checking it."""
+    st, body, _ = c.send("POST", path, query={"uploads": ""})
+    check(st == 200, f"initiate {path}: {st} {body[:200]!r}")
+    uid = xml_tag(body, "UploadId")
+    etags = [""] * len(parts)
+
+    def put(_t, n):
+        st, err, h = c.send("PUT", path, parts[n], query={
+            "partNumber": str(n + 1), "uploadId": uid})
+        check(st == 200, f"part {n + 1} of {path}: {st} {err[:200]!r}")
+        etags[n] = h["etag"]
+    run_clients(put, [list(range(t, len(parts), inflight))
+                      for t in range(inflight)])
+    xml = "<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{n + 1}</PartNumber><ETag>{e}</ETag></Part>"
+        for n, e in enumerate(etags)) + "</CompleteMultipartUpload>"
+    st, body, _ = c.send("POST", path, xml.encode(), query={"uploadId": uid})
+    want = hashlib.md5(b"".join(hashlib.md5(p).digest()
+                                for p in parts)).hexdigest()
+    etag = xml_tag(body, "ETag")
+    check(st == 200 and etag == f'"{want}-{len(parts)}"',
+          f"complete {path}: {st} {body[:300]!r}")
+    return etag
+
+
+def mp_refusals(c: "Client", rng) -> None:
+    """InvalidPart, EntityTooSmall and NoSuchUpload after an abort."""
+    path = "/mph/refused"
+    small = rng.bytes(1000)
+    answers = []
+    for case in ("InvalidPart", "EntityTooSmall", "NoSuchUpload"):
+        st, body, _ = c.send("POST", path, query={"uploads": ""})
+        uid = xml_tag(body, "UploadId")
+        etags = [c.send("PUT", path, small, query={
+            "partNumber": str(n), "uploadId": uid})[2]["etag"]
+            for n in (1, 2)]
+        if case == "NoSuchUpload":
+            check(c.send("DELETE", path, query={"uploadId": uid})[0] == 204,
+                  "abort")
+            st, body, _ = c.send("PUT", path, small, query={
+                "partNumber": "3", "uploadId": uid})
+        else:
+            parts = [(2, '"' + "0" * 32 + '"')] if case == "InvalidPart" \
+                else list(zip((1, 2), etags))
+            st, body, _ = c.send("POST", path, (
+                "<CompleteMultipartUpload>" + "".join(
+                    f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag>"
+                    "</Part>" for n, e in parts)
+                + "</CompleteMultipartUpload>").encode(),
+                query={"uploadId": uid})
+            c.send("DELETE", path, query={"uploadId": uid})
+        want = 404 if case == "NoSuchUpload" else 400
+        check(st == want and xml_tag(body, "Code") == case,
+              f"{case}: {st} {body[:200]!r}")
+        answers.append(f"{case} {st}")
+    log("multipart: refused as S3 does: " + ", ".join(answers))
+
+
+def snapshot(drives: list, keys, dst: str) -> None:
+    for i, d in enumerate(drives):
+        for key in keys:
+            shutil.copytree(os.path.join(d, "mph", key),
+                            os.path.join(dst, f"d{i}", key))
+
+
+def same_as_copy(drives: list, copy: str, i: int, key: str) -> None:
+    """Drive i's shard files and journal fields of `key` equal the copy."""
+    from minio_tpu_torch.storage.meta import XLMeta
+    a, b = os.path.join(drives[i], "mph", key), os.path.join(copy, f"d{i}",
+                                                             key)
+
+    def files(d):
+        return {f"{e}/{f}": open(os.path.join(d, e, f), "rb").read()
+                for e in sorted(os.listdir(d)) if e != "xl.meta"
+                for f in sorted(os.listdir(os.path.join(d, e)))}
+
+    def journal(d):
+        xl = XLMeta.load(open(os.path.join(d, "xl.meta"), "rb").read())
+        return xl.versions, xl.inline
+    check(files(a) == files(b), f"healed drive {i} {key}: shard files differ")
+    check(journal(a) == journal(b), f"healed drive {i} {key}: journal differs")
+
+
+def wiped_get(s: "Server", key: str, body: bytes, shards) -> float:
+    """GET `key` with the drives of the given shards taken away (then put
+    back); checks the bytes and returns the wall time."""
+    from minio_tpu_torch.object.erasure_object import hash_order
+    dist = hash_order(f"mph/{key}", 12)
+    moved = []
+    try:
+        for sh in shards:
+            i = dist.index(sh + 1)
+            src = os.path.join(s.drives[i], "mph", key)
+            os.rename(src, src + ".away")
+            moved.append(src)
+        t0 = time.perf_counter()
+        st, got = s.client("GET", f"/mph/{key}")
+        wall = time.perf_counter() - t0
+        check(st == 200 and got == body,
+              f"GET {key} with shards {shards} away not identical")
+        return wall
+    finally:
+        for src in moved:
+            os.rename(src + ".away", src)
+
+
+def admin_heal(c: "Client", deep: bool) -> tuple[dict, float]:
+    """POST /minio/admin/v3/heal, then poll GET until the sweep ends."""
+    t0 = time.perf_counter()
+    st, body, _ = c.send("POST", "/minio/admin/v3/heal",
+                         query={"deep": "true"} if deep else None)
+    check(st == 200, f"admin heal: {st} {body[:200]!r}")
+    while True:
+        st, body, _ = c.send("GET", "/minio/admin/v3/heal")
+        status = json.loads(body)
+        if status["state"] != "running":
+            break
+        time.sleep(0.05)
+    wall = time.perf_counter() - t0
+    check(status["state"] == "done" and status["failures"] == 0,
+          f"admin heal: {status}")
+    return status, wall
+
+
+def phase_multipart_heal(torch, rng, root):
+    """Multipart uploads and healing over signed HTTP (phase 4b); returns
+    the phase's launches."""
+    from minio_tpu_torch.object.erasure_object import hash_order
+    s = Server(root, "mph", mrf=True)
+    es, c = s.es, s.client
+    rate = {}
+    size = 256 * MIB
+
+    def note(what: str, wall: float, mib: float) -> None:
+        rate[what] = (wall, mib / wall)
+        log(f"multipart/heal: {what}: {wall:.4f} s, {mib / wall:.1f} MiB/s "
+            "(host clock over signed HTTP on localhost)")
+    try:
+        check(c("PUT", "/mph")[0] == 200, "make bucket")
+        reset_launches()
+        conf4 = rng.bytes(CONF4_PARTS * 5 * MIB)
+        t0 = time.perf_counter()
+        mp_upload(c, "/mph/conf4", [conf4[o:o + 5 * MIB] for o in
+                                    range(0, len(conf4), 5 * MIB)],
+                  CONF4_PARTS)
+        note(f"configs[4] upload, {CONF4_PARTS} clients x 5 MiB parts",
+             time.perf_counter() - t0, len(conf4) / MIB)
+        check(c("GET", "/mph/conf4") == (200, conf4),
+              "configs[4] object did not read back identical")
+
+        objs = {"aws": rng.bytes(size), "single": rng.bytes(size)}
+        big = objs["aws"]
+        t0 = time.perf_counter()
+        etag = mp_upload(c, "/mph/aws", [big[o:o + AWS_PART] for o in
+                                         range(0, len(big), AWS_PART)],
+                         AWS_INFLIGHT)
+        note(f"256 MiB upload, 32 x 8 MiB parts, {AWS_INFLIGHT} in flight",
+             time.perf_counter() - t0, size / MIB)
+        t0 = time.perf_counter()
+        check(c("PUT", "/mph/single", objs["single"])[0] == 200,
+              "single-part PUT")
+        note("256 MiB single-part PUT", time.perf_counter() - t0,
+             size / MIB)
+        for key in ("aws", "single"):
+            t0 = time.perf_counter()
+            st, got = c("GET", f"/mph/{key}")
+            note(f"GET {key}", time.perf_counter() - t0, size / MIB)
+            check(st == 200 and got == objs[key], f"GET {key} not identical")
+        for lo, hi in ((AWS_PART - 100, AWS_PART + 99),
+                       (10 * AWS_PART - 7, 11 * AWS_PART + 5),
+                       (100 * MIB - 5, 117 * MIB)):
+            st, got, crange = c.ranged_get("/mph/aws", lo, hi)
+            check(st == 206 and got == big[lo:hi + 1]
+                  and crange == f"bytes {lo}-{hi}/{len(big)}",
+                  f"ranged GET of the multipart object {lo}-{hi}: {st}")
+        st, _, h = c.send("HEAD", "/mph/aws")
+        check(st == 200 and h.get("etag") == etag and etag.endswith('-32"')
+              and h.get("content-length") == str(len(big)),
+              f"HEAD of the multipart object: {st} {h}")
+        log(f"multipart: 3 ranged GETs across part boundaries answered 206 "
+            f"with the range; HEAD answered ETag {etag}")
+        mp_refusals(c, rng)
+
+        copy = os.path.join(root, "mph-copy")
+        snapshot(s.drives, objs, copy)
+        dists = {k: hash_order(f"mph/{k}", 12) for k in objs}
+
+        # configs[3], one data-shard drive: the MRF queue a degraded GET
+        # filled heals the single-part object; the admin heal in normal
+        # mode the multipart one.
+        lost = {k: dists[k].index(1) for k in objs}        # shard 0
+        shutil.rmtree(os.path.join(s.drives[lost["single"]], "mph",
+                                   "single"))
+        t0 = time.perf_counter()
+        st, got = c("GET", "/mph/single")
+        check(st == 200 and got == objs["single"], "degraded GET")
+        t1 = time.perf_counter()
+        check(es.mrf.drain(timeout=600), "the MRF queue did not drain")
+        note("one drive, MRF heal of the single-part object (deep), "
+             "drained after its GET", time.perf_counter() - t1, size / MIB)
+        mrf = es.mrf.stats()
+        check(mrf["healed"] >= 1 and not mrf["dropped"], f"MRF {mrf}")
+        es.mrf.stop()                  # degraded reads below heal nothing
+        shutil.rmtree(os.path.join(s.drives[lost["aws"]], "mph", "aws"))
+        status, wall = admin_heal(c, deep=False)
+        check(status["healed"] == 1, f"normal heal sweep: {status}")
+        note("one drive, admin heal sweep (normal) of 3 objects, "
+             "the multipart one rebuilt", wall, size / MIB)
+        for key in objs:
+            same_as_copy(s.drives, copy, lost[key], key)
+            others = [sh for sh in range(K) if sh != 0][:4]
+            wall = wiped_get(s, key, objs[key], others)
+            note(f"GET {key}, 4 other data drives away after the heal", wall,
+                 size / MIB)
+        log(f"heal, one data-shard drive: MRF {mrf}; admin sweep {status}; "
+            "healed drives equal their copies")
+
+        # configs[3], two data and two parity drives: admin heal, deep.
+        for key in objs:
+            for sh in (1, 6, 8, 11):
+                shutil.rmtree(os.path.join(s.drives[dists[key].index(sh + 1)],
+                                           "mph", key))
+        status, wall = admin_heal(c, deep=True)
+        check(status["healed"] == 2, f"deep heal sweep: {status}")
+        note("four drives, admin heal sweep (deep) of 3 objects, two "
+             "rebuilt", wall, 2 * size / MIB)
+        for key in objs:
+            for sh in (1, 6, 8, 11):
+                same_as_copy(s.drives, copy, dists[key].index(sh + 1), key)
+            wall = wiped_get(s, key, objs[key], (0, 2, 3, 4))
+            note(f"GET {key}, 4 other data drives away after the deep heal",
+                 wall, size / MIB)
+        wall = wiped_get(s, "aws", big, (0, 1, 2, 3))
+        note("GET of the multipart object, 4 data drives away", wall,
+             size / MIB)
+        log(f"heal, two data and two parity drives: admin sweep {status}; "
+            "healed drives equal their copies")
+
+        launches = read_launches()
+        log(f"multipart/heal launches {launches} set windows "
+            f"{es.device_windows} host windows {es.host_windows}")
+        check(launches["gf_apply"] and launches["highwayhash256"],
+              f"a kernel of the path never launched: {launches}")
+        check(not any(es.host_windows.values()),
+              f"windows went to the host: {es.host_windows}")
+        gap = rate["GET single"][1] / rate["GET aws"][1]
+        log(f"multipart GET {rate['GET aws'][1]:.1f} MiB/s against "
+            f"single-part {rate['GET single'][1]:.1f} MiB/s: the single-part "
+            f"GET is {gap:.2f}x as fast")
+        return launches
+    finally:
+        s.stop()
+        check_pool_idle("multipart/heal")
 
 
 def release(rows) -> None:
@@ -999,16 +1296,16 @@ def main() -> int:
     try:
         seq = phase_main_path(torch, rng, root)
         conc, conc_stats = phase_concurrent(torch, rng, root)
+        mph = phase_multipart_heal(torch, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     solo_dispatch_ms(torch, rng, conc_stats)
     b5 = phase_b5_entry_point(torch)
     times = phase_times(torch, dev, rng)
 
-    launches = {"gf_apply": seq["gf_apply"] + conc["gf_apply"],
-                "highwayhash256": seq["highwayhash256"]
-                + conc["highwayhash256"],
-                "rs_i8": b5["rs_i8"]}
+    launches = {k: seq[k] + conc[k] + mph[k]
+                for k in ("gf_apply", "highwayhash256")}
+    launches["rs_i8"] = b5["rs_i8"]
     meta = {
         "gf_apply": ("minio_tpu_torch/ops/csrc/gf_apply.cu",
                      "minio_tpu/ops/rs_device.py:321", 32),

@@ -33,7 +33,12 @@ erasureObjects, cmd/erasure-object.go) for one set of local drives:
     verifies the surviving shards on the device and rebuilds the data
     shards through the decode matrix on the device from a pinned stack
     of survivors (ops/rs_device.make_mesh_matrix; the ragged tail
-    through GpuBackend).
+    through GpuBackend), and queues the object on the MRF heal queue.
+  * A multipart object is one independent erasure encode per part
+    (`part.N` shard files, object/multipart.py): GET walks the parts,
+    and its windows snap to erasure blocks inside a part, never across
+    one. Healing (object/healing.py) rebuilds lost or corrupt shards of
+    every part on the card, window by window.
 
 Full blocks of every window go through the cross-request stripe batcher
 (ops/batcher.StripeBatcher), one per route and config: the PUT framer,
@@ -74,6 +79,7 @@ from minio_tpu_torch.object.types import (BucketExists, BucketNotFound,
                                           InvalidRange, ObjectInfo,
                                           ObjectNotFound, ReadQuorumError,
                                           WriteQuorumError)
+from minio_tpu_torch.storage.local import VolInfo
 from minio_tpu_torch.ops import gf256, hh_device, rs_device
 from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
@@ -218,20 +224,32 @@ def _host_apply_rows(rows: np.ndarray, stacked: np.ndarray) -> np.ndarray:
         out.reshape(rows.shape[0], b, s).transpose(1, 0, 2))
 
 
+def rebuild_rows(k: int, m: int, use: tuple, targets) -> np.ndarray:
+    """The GF(2^8) rows [len(targets), k] that map the k surviving shards
+    `use` to the shards `targets`, data and parity alike: each target's
+    coding-matrix row times the decode matrix of `use` (a data shard's
+    row is its decode-matrix row). One launch rebuilds every target; the
+    bytes equal the JAX package's two steps (data shards from the
+    survivors, then parity from the data)."""
+    return np.ascontiguousarray(gf256.gf_matmul(
+        gf256.coding_matrix(k, m)[list(targets)],
+        gf256.decode_matrix(k, m, use)))
+
+
 def _reconstruct_batcher_for(k: int, m: int, use: tuple, missing: tuple,
                              device: str) -> StripeBatcher:
-    """Batched reconstruct for one (EC config, surviving-shard set):
-    degraded-read windows stack their survivors [B, k, S] and the
-    decode-matrix rows of the missing data shards apply in one dispatch
-    (ops/rs_device.make_mesh_matrix). Concurrent degraded GETs coalesce
-    when their objects share a survivor set."""
-    dec = gf256.decode_matrix(k, m, use)
-    rows = np.ascontiguousarray(dec[list(missing), :])
+    """Batched reconstruct for one (EC config, surviving-shard set,
+    rebuilt-shard set): degraded-read and heal windows stack their
+    survivors [B, k, S] and the rows of the shards to rebuild apply in
+    one dispatch (ops/rs_device.make_mesh_matrix). Concurrent degraded
+    GETs coalesce when their objects share a survivor set."""
+    rows = rebuild_rows(k, m, use, missing)
     return StripeBatcher(
         rs_device.make_mesh_matrix(rows, device=device),
         functools.partial(_host_apply_rows, rows),
         min_device_blocks=MIN_DEVICE_BLOCKS, pool=global_pool(device),
-        name=f"rec:{k}+{m}:" + ",".join(map(str, use)),
+        name=f"rec:{k}+{m}:" + ",".join(map(str, use)) + "->"
+        + ",".join(map(str, missing)),
         route="reconstruct",
         split_fn=lambda out, off, c, _member: out[off:off + c],
         concat_fn=lambda a, b: np.concatenate([a, b]))
@@ -317,11 +335,22 @@ class ErasureSet:
         # Stripe batchers, keyed (route, k, m, use, missing, device).
         self._batchers: dict[tuple, StripeBatcher] = {}
         self._batchers_mu = threading.Lock()
+        # The MRF heal queue starts on first use (the `mrf` property);
+        # with _mrf_closed set first, enqueues go to a stopped queue.
+        self._mrf = None
+        self._mrf_lock = threading.Lock()
+        self._mrf_closed = False
 
     def close(self) -> None:
-        """Stop the drive fan-out pool and the batchers, then join the
-        kernel lane, whose worker calls into CUDA and must not outlive
-        the process's useful life."""
+        """Stop the MRF worker, the drive fan-out pool and the batchers,
+        then join the kernel lane, whose worker calls into CUDA and must
+        not outlive the process's useful life. Under _mrf_lock with the
+        closed sentinel: a racing lazy `mrf` access must not start a
+        fresh worker after close() looked."""
+        with self._mrf_lock:
+            self._mrf_closed = True
+            if self._mrf is not None:
+                self._mrf.stop()
         self._readahead.shutdown(wait=True)
         self.pool.shutdown(wait=True)
         with self._batchers_mu:
@@ -330,6 +359,69 @@ class ErasureSet:
         for sb in batchers:
             sb.close()
         shutdown_kernel_lane()
+
+    @property
+    def mrf(self):
+        """The lazy MRF heal queue (object/healing.MRFQueue; its worker
+        starts on first use). After close(), or with _mrf_closed set
+        before the first use, enqueues go to a stopped queue: accepted,
+        persisted, but not worked."""
+        if self._mrf is None:
+            with self._mrf_lock:
+                if self._mrf is None:
+                    from minio_tpu_torch.object.healing import MRFQueue
+                    q = MRFQueue(self)
+                    if self._mrf_closed:
+                        q.stop()
+                    self._mrf = q
+        return self._mrf
+
+    # -- healing and multipart (object/healing.py, object/multipart.py) --
+
+    def heal_object(self, bucket: str, object_: str, version_id: str = "",
+                    deep: bool = False):
+        from minio_tpu_torch.object import healing
+        return healing.heal_object(self, bucket, object_, version_id,
+                                   deep=deep)
+
+    def heal_bucket(self, bucket: str) -> dict:
+        from minio_tpu_torch.object import healing
+        return healing.heal_bucket(self, bucket)
+
+    def new_multipart_upload(self, bucket: str, object_: str,
+                             content_type: str = "",
+                             user_metadata: Optional[dict] = None) -> str:
+        from minio_tpu_torch.object import multipart
+        return multipart.new_multipart_upload(self, bucket, object_,
+                                              content_type, user_metadata)
+
+    def put_object_part(self, bucket: str, object_: str, upload_id: str,
+                        part_number: int, data):
+        from minio_tpu_torch.object import multipart
+        return multipart.put_object_part(self, bucket, object_, upload_id,
+                                         part_number, data)
+
+    def complete_multipart_upload(self, bucket: str, object_: str,
+                                  upload_id: str,
+                                  parts: list) -> ObjectInfo:
+        from minio_tpu_torch.object import multipart
+        return multipart.complete_multipart_upload(self, bucket, object_,
+                                                   upload_id, parts)
+
+    def abort_multipart_upload(self, bucket: str, object_: str,
+                               upload_id: str) -> None:
+        from minio_tpu_torch.object import multipart
+        multipart.abort_multipart_upload(self, bucket, object_, upload_id)
+
+    def list_parts(self, bucket: str, object_: str, upload_id: str,
+                   part_marker: int = 0, max_parts: int = 1000) -> list:
+        from minio_tpu_torch.object import multipart
+        return multipart.list_parts(self, bucket, object_, upload_id,
+                                    part_marker, max_parts)
+
+    def list_multipart_uploads(self, bucket: str, prefix: str = "") -> list:
+        from minio_tpu_torch.object import multipart
+        return multipart.list_multipart_uploads(self, bucket, prefix)
 
     def _count(self, route: str, path: str) -> None:
         with self._stat_mu:
@@ -395,6 +487,18 @@ class ErasureSet:
             if any(isinstance(e, VolumeExists) for e in errors):
                 raise BucketExists(bucket)
             raise WriteQuorumError(bucket)
+
+    def list_buckets(self) -> list[VolInfo]:
+        """Every bucket on any drive, each with its earliest creation
+        time, sorted by name."""
+        results, _ = self._fanout([lambda d=d: d.list_vols()
+                                   for d in self.disks])
+        seen: dict[str, int] = {}
+        for vols in results:
+            for v in vols or ():
+                if v.name not in seen or v.created < seen[v.name]:
+                    seen[v.name] = v.created
+        return [VolInfo(name=b, created=c) for b, c in sorted(seen.items())]
 
     def bucket_exists(self, bucket: str) -> bool:
         results, _ = self._fanout([lambda d=d: d.stat_vol(bucket)
@@ -513,6 +617,11 @@ class ErasureSet:
                              bucket, object_, make_fi(
                                  distribution[i] - 1, "", etag,
                                  frames[distribution[i] - 1])))
+            if any(errors):
+                # Committed on fewer than n drives: heal the rest in the
+                # background (reference MRF hook,
+                # cmd/erasure-object.go:1556-1594).
+                self.mrf.enqueue(bucket, object_)
         else:
             data_dir = new_uuid()
             staging = f"{STAGING_PREFIX}/p{os.getpid()}-{new_uuid()}"
@@ -526,6 +635,8 @@ class ErasureSet:
                                  SYS_VOL, staging, make_fi(
                                      distribution[i] - 1, data_dir, etag),
                                  bucket, object_))
+                if any(errors):
+                    self.mrf.enqueue(bucket, object_)
             finally:
                 # Committed drives already moved their data dir out;
                 # whatever staging is left is debris (errors ignored).
@@ -535,7 +646,10 @@ class ErasureSet:
         return ObjectInfo(bucket=bucket, name=object_, mod_time=mod_time,
                           size=size, etag=etag, content_type=content_type,
                           user_metadata=dict(user_metadata or {}),
-                          internal_metadata=dict(internal_metadata or {}))
+                          internal_metadata=dict(internal_metadata or {}),
+                          parts=[ObjectPartInfo(number=1, size=size,
+                                                actual_size=size,
+                                                etag=etag)])
 
     def _commit(self, bucket: str, object_: str, errors: list,
                 write_quorum: int, commit_one) -> None:
@@ -721,21 +835,20 @@ class ErasureSet:
     # metadata quorum
     # ------------------------------------------------------------------
 
-    def _quorum_fileinfo(self, bucket: str, object_: str,
-                         read_data: bool) -> tuple[FileInfo, list]:
-        fis, errors = self._fanout([
-            lambda d=d: d.read_version(bucket, object_, "",
+    def _read_version_all(self, bucket: str, object_: str,
+                          version_id: str = "",
+                          read_data: bool = False) -> tuple[list, list]:
+        """(per-drive FileInfo or None, per-drive error or None)."""
+        return self._fanout([
+            lambda d=d: d.read_version(bucket, object_, version_id,
                                        read_data=read_data)
             for d in self.disks])
-        n = len(self.disks)
-        if sum(isinstance(e, FileNotFoundErr) for e in errors) > n // 2:
-            self._check_bucket(bucket)
-            raise ObjectNotFound(bucket, object_)
-        any_fi = next((f for f in fis if f is not None), None)
-        if any_fi is None:
-            raise ReadQuorumError(bucket, object_, "no readable metadata")
-        k = any_fi.erasure.data_blocks
-        quorum = max(k, n // 2) if k else n // 2 + 1
+
+    @staticmethod
+    def _pick_quorum(fis: list, quorum: int) -> Optional[FileInfo]:
+        """The latest version agreed by >= quorum drives, or None
+        (reference findFileInfoInQuorum, keyed on mod time and data
+        layout)."""
         groups: dict[tuple, list[int]] = {}
         for i, fi in enumerate(fis):
             if fi is not None:
@@ -744,13 +857,35 @@ class ErasureSet:
                                   []).append(i)
         best = max((key for key, idx in groups.items()
                     if len(idx) >= quorum), default=None)
-        if best is None:
+        return None if best is None else fis[groups[best][0]]
+
+    @staticmethod
+    def _read_quorum(fis: list, n: int) -> int:
+        """Read quorum of the version the drives report: k, at least half
+        the set; a majority for a version with no erasure layout."""
+        any_fi = next((f for f in fis if f is not None), None)
+        k = any_fi.erasure.data_blocks if any_fi is not None else 0
+        return max(k, n // 2) if k else n // 2 + 1
+
+    def _quorum_fileinfo(self, bucket: str, object_: str,
+                         read_data: bool) -> tuple[FileInfo, list, list]:
+        """(the quorum version, per-drive FileInfos, per-drive errors)."""
+        fis, errors = self._read_version_all(bucket, object_,
+                                             read_data=read_data)
+        n = len(self.disks)
+        if sum(isinstance(e, FileNotFoundErr) for e in errors) > n // 2:
+            self._check_bucket(bucket)
+            raise ObjectNotFound(bucket, object_)
+        if all(f is None for f in fis):
+            raise ReadQuorumError(bucket, object_, "no readable metadata")
+        quorum = self._read_quorum(fis, n)
+        fi = self._pick_quorum(fis, quorum)
+        if fi is None:
             raise ReadQuorumError(bucket, object_,
                                   f"no version agreed by {quorum} drives")
-        fi = fis[groups[best][0]]
         if fi.deleted:
             raise ObjectNotFound(bucket, object_)
-        return fi, fis
+        return fi, fis, errors
 
     @staticmethod
     def _to_info(bucket: str, object_: str, fi: FileInfo) -> ObjectInfo:
@@ -762,10 +897,10 @@ class ErasureSet:
         return ObjectInfo(bucket=bucket, name=object_, mod_time=fi.mod_time,
                           size=fi.size, etag=etag, content_type=ctype,
                           version_id=fi.version_id, user_metadata=meta,
-                          internal_metadata=internal)
+                          internal_metadata=internal, parts=list(fi.parts))
 
     def get_object_info(self, bucket: str, object_: str) -> ObjectInfo:
-        fi, _ = self._quorum_fileinfo(bucket, object_, read_data=False)
+        fi, _, _ = self._quorum_fileinfo(bucket, object_, read_data=False)
         return self._to_info(bucket, object_, fi)
 
     # ------------------------------------------------------------------
@@ -783,10 +918,13 @@ class ErasureSet:
                           ) -> tuple[ObjectInfo, Iterator[memoryview]]:
         """(info, iterator over bytes [offset, offset + length) of the
         object, one window each; length None reads to the end). Only the
-        erasure blocks that cover the range are read, in windows of
-        STREAM_WINDOW_BLOCKS from block offset // BLOCK_SIZE; the first
-        and last windows are sliced. A range past the object's end is
-        InvalidRange.
+        erasure blocks that cover the range are read. Offsets map onto
+        (part, offset in the part) as in the JAX package's
+        `_window_descs`: each part is its own erasure encode, so windows
+        of STREAM_WINDOW_BLOCKS start at the range's first block inside
+        each part and never cross a part; the first and last windows are
+        sliced. A range past the object's end is InvalidRange. A drive
+        that lacks the version queues the object on the MRF.
 
         Readahead (minio_tpu/object/erasure_object.py `_iter_payload`):
         while window i is with the consumer, window i+1 is read, verified
@@ -795,22 +933,24 @@ class ErasureSet:
         is a view of a pooled lease, valid until the consumer pulls the
         next chunk or closes the iterator; closing early collects the
         prefetch in flight and returns its lease."""
-        fi, fis = self._quorum_fileinfo(bucket, object_, read_data=True)
+        fi, fis, errors = self._quorum_fileinfo(bucket, object_,
+                                                read_data=True)
+        if any(errors):
+            # A drive misses this version's metadata: heal it in the
+            # background even though the read succeeds from the rest.
+            self.mrf.enqueue(bucket, object_, fi.version_id)
         if length is None:
             length = fi.size - offset
         if offset < 0 or length < 0 or offset + length > fi.size:
             raise InvalidRange(bucket, object_)
         end = offset + length
-        descs = [] if not length else [
-            (b0, min((end - 1) // BLOCK_SIZE, b0 + STREAM_WINDOW_BLOCKS - 1))
-            for b0 in range(offset // BLOCK_SIZE, (end - 1) // BLOCK_SIZE + 1,
-                            STREAM_WINDOW_BLOCKS)]
+        descs = self._window_descs(fi, offset, end)
 
         def read(desc):
-            return self._read_window(bucket, object_, fi, fis, *desc)
+            return self._read_window(bucket, object_, fi, fis, *desc[:4])
 
         def chunk(desc, win):
-            lo = desc[0] * BLOCK_SIZE
+            lo = desc[4] + desc[2] * BLOCK_SIZE
             return memoryview(win)[max(offset, lo) - lo:
                                    min(end, lo + win.size) - lo]
 
@@ -848,10 +988,35 @@ class ErasureSet:
                         pass
         return self._to_info(bucket, object_, fi), gen()
 
+    @staticmethod
+    def _window_descs(fi: FileInfo, offset: int, end: int) -> list[tuple]:
+        """(part number, part size, first block, last block, object
+        offset of the part) of each window covering [offset, end): block
+        windows of STREAM_WINDOW_BLOCKS inside each part, none crossing a
+        part (minio_tpu/object/erasure_object.py `_window_descs`)."""
+        parts = fi.parts or [ObjectPartInfo(number=1, size=fi.size,
+                                            actual_size=fi.size)]
+        descs: list[tuple] = []
+        cum = 0
+        for p in parts:
+            lo, hi = max(offset, cum), min(end, cum + p.size)
+            if lo < hi:
+                last = (hi - 1 - cum) // BLOCK_SIZE
+                descs += [(p.number, p.size, b0,
+                           min(last, b0 + STREAM_WINDOW_BLOCKS - 1), cum)
+                          for b0 in range((lo - cum) // BLOCK_SIZE, last + 1,
+                                          STREAM_WINDOW_BLOCKS)]
+            cum += p.size
+            if cum >= end:
+                break
+        return descs
+
     def _read_window(self, bucket: str, object_: str, fi: FileInfo,
-                     fis: list, start_b: int, end_b: int) -> tuple:
-        """(object bytes of erasure blocks [start_b, end_b], the pooled
-        lease they live in; the caller releases it).
+                     fis: list, part_number: int, part_size: int,
+                     start_b: int, end_b: int) -> tuple:
+        """(bytes of erasure blocks [start_b, end_b] of part
+        `part_number` (`part_size` bytes), the pooled lease they live in;
+        the caller releases it).
 
         Every shard's framed bytes are scatter-read straight into a
         pooled (pinned) region laid out [block, shard, frame], which the
@@ -859,22 +1024,21 @@ class ErasureSet:
         de-frames and interleaves into the output lease in one strided
         copy. With shards missing or failing their digest, the parity
         shards are read and verified too and the missing data shards
-        are rebuilt on the device from a pinned stack of survivors."""
+        are rebuilt on the device from a pinned stack of survivors, and
+        the object goes on the MRF queue."""
         k, m = fi.erasure.data_blocks, fi.erasure.parity_blocks
         n = k + m
         e = Erasure(k, m, fi.erasure.block_size, backend=self.backend)
         ss = e.shard_size()
         frame = DIGEST + ss
-        win_len = min(e.shard_file_size(fi.size), (end_b + 1) * ss) \
+        win_len = min(e.shard_file_size(part_size), (end_b + 1) * ss) \
             - start_b * ss
         nb = end_b - start_b + 1
         slast = win_len - (nb - 1) * ss
         full = nb if slast == ss else nb - 1
         tail = 0 if slast == ss else slast    # payload of a ragged frame
         tframe = DIGEST + tail if tail else 0
-        span = full * frame + tframe          # framed bytes per shard
         framed_lo = start_b * frame
-        pool = global_pool(self.device)
 
         holders: dict[int, int] = {}
         for di, dfi in enumerate(fis):
@@ -882,60 +1046,28 @@ class ErasureSet:
                     (dfi.mod_time, dfi.data_dir) == (fi.mod_time, fi.data_dir):
                 holders[dfi.erasure.index - 1] = di
 
-        def region(count: int):
-            """A lease holding `count` shards: full frames [full, count,
-            frame] and ragged frames [count, tframe]."""
-            lease = pool.lease(count * span)
-            flat = lease.ndarray((count * span,))
-            return (lease, flat[:full * count * frame]
-                    .reshape(full, count, frame),
-                    flat[full * count * frame:].reshape(count, tframe))
-
-        def fetch(shard_idx: int, fa, ta, j: int) -> bool:
-            di = holders[shard_idx]
-            if fis[di].inline_data is not None:
-                src = np.frombuffer(fis[di].inline_data, dtype=np.uint8)[
-                    framed_lo:framed_lo + span]
-                if src.size != span:
-                    return False
-                fa[:, j] = src[:full * frame].reshape(full, frame)
-                ta[j] = src[full * frame:]
-                return True
-            bufs = [fa[b, j] for b in range(full)] + ([ta[j]] if tail else [])
-            try:
-                return self.disks[di].read_file_into(
-                    bucket, f"{object_}/{fi.data_dir}/part.1", framed_lo,
-                    bufs) == span
-            except (OSError, FileNotFoundErr):
-                return False                 # unreadable shard == missing
-
-        def fetch_many(idxs, fa, ta) -> list[bool]:
-            fns: list = [None] * len(self.disks)
-            for j, s in enumerate(idxs):
-                if s in holders:
-                    fns[holders[s]] = functools.partial(fetch, s, fa, ta, j)
-            results, _ = self._fanout(fns)
-            return [s in holders and bool(results[holders[s]]) for s in idxs]
-
         leases: list = []
         out_lease = None
         try:
-            dl, dfa, dta = region(k)
+            dl, dfa, dta, got = self._read_shards(
+                bucket, object_, fi, fis, part_number,
+                [holders.get(s) for s in range(k)], framed_lo, full, tframe)
             leases.append(dl)
-            got = fetch_many(range(k), dfa, dta)
             good = [g and v for g, v in zip(got, self._verify_framed(
                 dfa, dta, k, m, batched=all(got)))]
             fulls = [dfa[:, i, DIGEST:] for i in range(k)]
             tails = [dta[i, DIGEST:] for i in range(k)]
             if all(good):
-                out_lease, out = self._deframe(fi, start_b, nb, k, ss,
-                                               fulls, tails, framed=dfa)
+                out_lease, out = self._deframe(fi, part_size, start_b, nb,
+                                               k, ss, fulls, tails,
+                                               framed=dfa)
                 return out, out_lease
-            pl, pfa, pta = region(m)
+            pl, pfa, pta, pgot = self._read_shards(
+                bucket, object_, fi, fis, part_number,
+                [holders.get(s) for s in range(k, n)], framed_lo, full, tframe)
             leases.append(pl)
             good += [g and v for g, v in zip(
-                fetch_many(range(k, n), pfa, pta),
-                self._verify_framed(pfa, pta, k, m))]
+                pgot, self._verify_framed(pfa, pta, k, m))]
             fulls += [pfa[:, j, DIGEST:] for j in range(m)]
             tails += [pta[j, DIGEST:] for j in range(m)]
             available = sum(good)
@@ -944,8 +1076,11 @@ class ErasureSet:
                                       f"{available}/{n} shards readable")
             leases += self._decode_missing(fulls, tails, good, k, m, full,
                                            tail, ss)
-            out_lease, out = self._deframe(fi, start_b, nb, k, ss, fulls,
-                                           tails)
+            out_lease, out = self._deframe(fi, part_size, start_b, nb, k,
+                                           ss, fulls, tails)
+            # Bytes served from reconstruction: heal in the background
+            # (reference cmd/erasure-object.go:399-417).
+            self.mrf.enqueue(bucket, object_, fi.version_id)
             return out, out_lease
         except BaseException:
             if out_lease is not None:
@@ -955,18 +1090,67 @@ class ErasureSet:
             for h in leases:
                 h.release()
 
+    def _read_shards(self, bucket: str, object_: str, fi: FileInfo,
+                     fis: list, part_number: int, drives: list,
+                     framed_lo: int, full: int, tframe: int) -> tuple:
+        """Scatter-read framed blocks of shard files into one pooled
+        (pinned) region, one preadv a shard: drives[j] is the drive
+        holding the region's shard j (None: no holder), read from framed
+        offset framed_lo of its `part.{part_number}` (or of its inline
+        data). Returns (lease, full frames [full, c, frame], ragged
+        frames [c, tframe], whether each shard read whole); an unreadable
+        or short shard counts as missing. The caller releases the
+        lease."""
+        c = len(drives)
+        frame = DIGEST + -(-fi.erasure.block_size // fi.erasure.data_blocks)
+        span = full * frame + tframe          # framed bytes per shard
+        lease = global_pool(self.device).lease(c * span)
+        flat = lease.ndarray((c * span,))
+        fa = flat[:full * c * frame].reshape(full, c, frame)
+        ta = flat[full * c * frame:].reshape(c, tframe)
+
+        def fetch(j: int, di: int) -> bool:
+            if fis[di].inline_data is not None:
+                src = np.frombuffer(fis[di].inline_data, dtype=np.uint8)[
+                    framed_lo:framed_lo + span]
+                if src.size != span:
+                    return False
+                fa[:, j] = src[:full * frame].reshape(full, frame)
+                ta[j] = src[full * frame:]
+                return True
+            bufs = [fa[b, j] for b in range(full)] + ([ta[j]] if tframe
+                                                      else [])
+            try:
+                return self.disks[di].read_file_into(
+                    bucket, f"{object_}/{fi.data_dir}/part.{part_number}",
+                    framed_lo, bufs) == span
+            except (OSError, FileNotFoundErr):
+                return False                 # unreadable shard == missing
+
+        fns: list = [None] * len(self.disks)
+        for j, di in enumerate(drives):
+            if di is not None:
+                fns[di] = functools.partial(fetch, j, di)
+        try:
+            results, _ = self._fanout(fns)
+        except BaseException:
+            lease.release()
+            raise
+        return lease, fa, ta, [di is not None and bool(results[di])
+                               for di in drives]
+
     def _verify_framed(self, fa: np.ndarray, ta: np.ndarray, k: int, m: int,
                        batched: bool = False) -> list[bool]:
         """Per shard of a framed region (full frames [full, c, frame],
         ragged frames [c, tframe]), whether every block matches its
-        digest. With `batched` (the k data shards, all read) the full
-        frames go through the get batcher; other regions hash on the
-        device directly."""
+        digest. With `batched` (the k data shards of a GET, all read; a
+        heal's survivors) the full frames go through the get batcher of
+        c shards; other regions hash on the device directly."""
         full, count, frame = fa.shape
         ok = np.ones(count, dtype=bool)
         if full:
             if batched:
-                sb = self._batcher("get", k, m)
+                sb = self._batcher("get", count, k + m - count)
                 verdict, _ = sb.frame(fa)
                 self._count("get", sb.last_route())
             else:
@@ -981,8 +1165,9 @@ class ErasureSet:
             ok &= (digs == ta[:, :DIGEST]).all(axis=1)
         return ok.tolist()
 
-    def _deframe(self, fi: FileInfo, start_b: int, nb: int, k: int, ss: int,
-                 fulls: list, tails: list, framed=None) -> tuple:
+    def _deframe(self, fi: FileInfo, part_size: int, start_b: int, nb: int,
+                 k: int, ss: int, fulls: list, tails: list,
+                 framed=None) -> tuple:
         """(lease, the window's object bytes in it): data shard i's block
         payloads fulls[i] [full, ss] and ragged payload tails[i]
         interleave block-major, each block trimmed to its size (k*ss may
@@ -990,7 +1175,7 @@ class ErasureSet:
         the block size take one strided copy, straight from the framed
         region [full, k, frame] when it holds every data shard."""
         bs = fi.erasure.block_size
-        total = min(fi.size, (start_b + nb) * bs) - start_b * bs
+        total = min(part_size, (start_b + nb) * bs) - start_b * bs
         full = fulls[0].shape[0]
         lease = global_pool(self.device).lease(total)
         out = lease.ndarray((total,))
@@ -1024,7 +1209,7 @@ class ErasureSet:
         if not missing:
             return []
         use = tuple(i for i, g in enumerate(good) if g)[:k]
-        rows = np.ascontiguousarray(gf256.decode_matrix(k, m, use)[missing])
+        rows = rebuild_rows(k, m, use, missing)
         leases = []
         if full:
             lease = global_pool(self.device).lease(full * k * ss)

@@ -40,6 +40,26 @@ class WriteQuorumError(ObjectError):
     """errErasureWriteQuorum: too few successful writes."""
 
 
+class InvalidArgument(ObjectError):
+    pass
+
+
+class UploadNotFound(ObjectError):
+    """No multipart upload of that id (S3 NoSuchUpload)."""
+
+
+class InvalidPart(ObjectError):
+    """A completed part is absent or its ETag differs."""
+
+
+class InvalidPartOrder(ObjectError):
+    """The completed parts are not in ascending order."""
+
+
+class EntityTooSmall(ObjectError):
+    """A part other than the last is under the minimum part size."""
+
+
 @dataclasses.dataclass
 class ObjectInfo:
     bucket: str = ""
@@ -53,3 +73,5 @@ class ObjectInfo:
     # x-internal-* entries (stored checksums), as the JAX package keeps
     # them apart from the user's metadata.
     internal_metadata: dict = dataclasses.field(default_factory=dict)
+    # storage/meta.ObjectPartInfo of each part (one for a plain PUT).
+    parts: list = dataclasses.field(default_factory=list)

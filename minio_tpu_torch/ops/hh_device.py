@@ -305,8 +305,10 @@ def hash_bytes_plain(blocks: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tens
     for p0 in range(0, n_packets, _PLAIN_CHUNK):
         p1 = min(n_packets, p0 + _PLAIN_CHUNK)
         # Little-endian u32 words of packets [p0, p1), widened to int64.
-        w = blocks[:, p0 * 32:p1 * 32].contiguous().view(torch.int32) \
-            .long() & _M32                               # [S, 8 * (p1 - p0)]
+        # Flattened first: a one-row slice counts as contiguous whatever
+        # its row stride, which the dtype view would refuse.
+        w = blocks[:, p0 * 32:p1 * 32].contiguous().reshape(-1) \
+            .view(torch.int32).long().view(s, -1) & _M32  # [S, 8 * (p1 - p0)]
         lanes = w.view(s, p1 - p0, 4, 2).permute(1, 3, 0, 2) \
             .contiguous()                                # [P, lo/hi, S, 4]
         for p in range(p1 - p0):

@@ -22,19 +22,32 @@ HEAD with `x-amz-checksum-mode: ENABLED`; CRC32C and CRC64NVME answer
 chunked` body with no declared size is buffered, as in the JAX package.
 GET bodies stream one erasure window at a time with one window read
 ahead; a `Range: bytes=` GET or HEAD answers 206 with the erasure blocks
-of that range only. The rest of the S3 surface is minio_tpu/s3/server.py's
-and comes in later slices.
+of that range only.
+
+Multipart uploads (object/multipart.py), as minio_tpu/s3/server.py
+serves them: `POST ?uploads` initiates, `PUT ?partNumber&uploadId`
+uploads a part (streamed and checked as an object PUT is), `POST
+?uploadId` completes from the XML part list, `DELETE ?uploadId` aborts,
+`GET ?uploadId` lists the parts and `GET /<bucket>?uploads` the uploads.
+The admin heal, `POST /minio/admin/v3/heal[?deep=true]`, starts a sweep of
+the set (object/scanner.heal_set) in the background and `GET` on the same
+path polls it; both are SigV4-signed by the root credential. The rest of
+the S3 surface is minio_tpu/s3/server.py's and comes in later slices.
 """
 
 from __future__ import annotations
 
+import datetime
 import email.utils
 import hashlib
+import json
 import re
 import sys
+import threading
 import traceback
 import urllib.parse
 import uuid
+import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from xml.sax.saxutils import escape
 
@@ -67,6 +80,11 @@ ERRORS = {
     "SlowDownWrite": (503, "Resource requested is unwritable, please reduce your request rate"),
     "NotImplemented": (501, "A header you provided implies functionality that is not implemented."),
     "InternalError": (500, "We encountered an internal error, please try again."),
+    "MalformedXML": (400, "The XML you provided was not well-formed or did not validate against our published schema."),
+    "NoSuchUpload": (404, "The specified multipart upload does not exist."),
+    "InvalidPart": (400, "One or more of the specified parts could not be found."),
+    "InvalidPartOrder": (400, "The list of parts was not in ascending order."),
+    "EntityTooSmall": (400, "Your proposed upload is smaller than the minimum allowed object size."),
 }
 
 _OBJECT_ERRORS = {
@@ -76,7 +94,15 @@ _OBJECT_ERRORS = {
     ot.InvalidRange: "InvalidRange",
     ot.ReadQuorumError: "SlowDownRead",
     ot.WriteQuorumError: "SlowDownWrite",
+    ot.InvalidArgument: "InvalidArgument",
+    ot.UploadNotFound: "NoSuchUpload",
+    ot.InvalidPart: "InvalidPart",
+    ot.InvalidPartOrder: "InvalidPartOrder",
+    ot.EntityTooSmall: "EntityTooSmall",
 }
+
+XMLNS = "http://s3.amazonaws.com/doc/2006-03-01/"
+ADMIN_PREFIX = "/minio/admin/v3/"
 
 _BUCKET_RE = re.compile(r"^[a-z0-9][a-z0-9.-]{1,61}[a-z0-9]$")
 
@@ -90,6 +116,23 @@ class S3Error(Exception):
 
 def _http_date(ns: int) -> str:
     return email.utils.formatdate(ns / 1e9, usegmt=True)
+
+
+def _iso8601(ns: int) -> str:
+    return datetime.datetime.fromtimestamp(
+        ns / 1e9, tz=datetime.timezone.utc).strftime(
+            "%Y-%m-%dT%H:%M:%S.%f")[:-3] + "Z"
+
+
+def _xml(root: ET.Element) -> bytes:
+    return b'<?xml version="1.0" encoding="UTF-8"?>\n' + ET.tostring(root)
+
+
+def _el(parent, tag: str, text=None):
+    e = ET.SubElement(parent, tag)
+    if text is not None:
+        e.text = str(text)
+    return e
 
 
 def _range_spec(rng: str):
@@ -131,6 +174,10 @@ class S3Server:
             s3 = server
         self.httpd = _HTTPServer(address, Handler)
         self.httpd.daemon_threads = True
+        # The admin heal sweep: one at a time, its state for GET heal.
+        self.heal_status: dict = {"state": "idle"}
+        self._heal_lock = threading.Lock()
+        self._heal_thread: threading.Thread | None = None
 
     @property
     def address(self) -> str:
@@ -141,10 +188,34 @@ class S3Server:
         self.httpd.serve_forever()
 
     def shutdown(self) -> None:
-        """Stop serving (from another thread) and release the drives."""
+        """Stop serving (from another thread), wait for a heal sweep in
+        flight, and release the drives."""
         self.httpd.shutdown()
         self.httpd.server_close()
+        if self._heal_thread is not None:
+            self._heal_thread.join()
         self.objects.close()
+
+    def start_heal(self, deep: bool) -> dict:
+        """Start a heal sweep of the set in the background unless one is
+        running (minio_tpu/s3/server.py `_admin_heal`); its status."""
+        from minio_tpu_torch.object.scanner import heal_set
+
+        def run():
+            try:
+                self.heal_status = {"state": "done", "deep": deep,
+                                    **heal_set(self.objects, deep=deep)}
+            except Exception as e:  # noqa: BLE001 - surfaced in the status
+                self.heal_status = {"state": "failed", "deep": deep,
+                                    "error": str(e)[:300]}
+
+        with self._heal_lock:
+            if self._heal_thread is None or not self._heal_thread.is_alive():
+                self.heal_status = {"state": "running", "deep": deep}
+                self._heal_thread = threading.Thread(target=run, daemon=True,
+                                                     name="admin-heal")
+                self._heal_thread.start()
+        return dict(self.heal_status)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -175,8 +246,10 @@ class _Handler(BaseHTTPRequestHandler):
     def _dispatch(self, method: str) -> None:
         raw_path, _, qs = self.path.partition("?")
         self._resource = urllib.parse.unquote(raw_path)
+        self._query = urllib.parse.parse_qs(qs, keep_blank_values=True)
         bucket, _, key = self._resource.lstrip("/").partition("/")
-        data_put = method == "PUT" and bool(key)
+        admin = self._resource.startswith(ADMIN_PREFIX)
+        data_put = method == "PUT" and bool(key) and not admin
         done = False
         try:
             headers = {k.lower(): v for k, v in self.headers.items()}
@@ -188,13 +261,16 @@ class _Handler(BaseHTTPRequestHandler):
                 in sigv4.STREAMING_HASHES
             auth = sigv4.verify_request(
                 method, raw_path,
-                urllib.parse.parse_qs(qs, keep_blank_values=True), headers,
-                self.s3.credentials.get,
+                self._query, headers, self.s3.credentials.get,
                 body_hash=hashlib.sha256(body).hexdigest()
-                if method == "PUT" and not data_put and not streaming
-                else None)
+                if method in ("PUT", "POST") and not data_put
+                and not streaming else None)
             if method == "PUT" and streaming and not data_put:
                 body = self._decode_aws_chunked(body, auth, headers)
+            if admin:
+                self._admin(method, self._resource[len(ADMIN_PREFIX):])
+                done = True
+                return
             if not bucket:
                 raise S3Error("NotImplemented", "ListBuckets")
             if not _BUCKET_RE.match(bucket):
@@ -316,7 +392,10 @@ class _Handler(BaseHTTPRequestHandler):
         return out
 
     def _read_body(self, method: str, headers: dict) -> bytes:
-        if method != "PUT":
+        if method == "POST" and "content-length" not in headers \
+                and "chunked" not in headers.get("transfer-encoding", ""):
+            return b""
+        if method not in ("PUT", "POST"):
             return b""
         if "content-length" not in headers:
             if "chunked" in headers.get("transfer-encoding", "").lower():
@@ -422,9 +501,120 @@ class _Handler(BaseHTTPRequestHandler):
             raise ot.BucketNotFound(bucket)
         self._send(200, {})
 
+    def _get_bucket(self, bucket, _key, _body, _headers):
+        if "uploads" not in self._query:
+            raise S3Error("NotImplemented", "GET on this resource")
+        prefix = self._query.get("prefix", [""])[0]
+        root = ET.Element("ListMultipartUploadsResult", xmlns=XMLNS)
+        _el(root, "Bucket", bucket)
+        _el(root, "Prefix", prefix)
+        _el(root, "IsTruncated", "false")
+        for rec in self.s3.objects.list_multipart_uploads(bucket, prefix):
+            ue = _el(root, "Upload")
+            _el(ue, "Key", rec.get("object", ""))
+            _el(ue, "UploadId", rec.get("upload_id", ""))
+            _el(ue, "Initiated", _iso8601(rec.get("initiated", 0)))
+            _el(ue, "StorageClass", "STANDARD")
+        self._send_xml(root)
+
+    def _send_xml(self, root: ET.Element, headers: dict | None = None):
+        self._send(200, {"Content-Type": "application/xml",
+                         **(headers or {})}, _xml(root))
+
+    # -- admin ------------------------------------------------------------
+
+    def _admin(self, method: str, op: str) -> None:
+        """The admin API's heal (minio_tpu/s3/server.py `_admin_op`): POST
+        starts a sweep, GET polls it."""
+        if op != "heal" or method not in ("POST", "GET"):
+            raise S3Error("NotImplemented", f"admin {method} {op}")
+        if method == "POST":
+            status = self.s3.start_heal(
+                self._query.get("deep", [""])[0] in ("true", "1"))
+        else:
+            status = dict(self.s3.heal_status)
+        self._send(200, {"Content-Type": "application/json"},
+                   json.dumps(status).encode())
+
+    # -- multipart --------------------------------------------------------
+
+    def _post_object(self, bucket, key, body, headers):
+        if "uploads" in self._query:
+            meta = {k[len("x-amz-meta-"):]: v for k, v in headers.items()
+                    if k.startswith("x-amz-meta-")}
+            uid = self.s3.objects.new_multipart_upload(
+                bucket, key, headers.get("content-type", ""), meta)
+            root = ET.Element("InitiateMultipartUploadResult", xmlns=XMLNS)
+            _el(root, "Bucket", bucket)
+            _el(root, "Key", key)
+            _el(root, "UploadId", uid)
+            return self._send_xml(root)
+        if "uploadId" not in self._query:
+            raise S3Error("NotImplemented", "POST on this resource")
+        try:
+            tree = ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        ns = f"{{{XMLNS}}}"
+        parts = []
+        for pe in tree.findall(f"{ns}Part") or tree.findall("Part"):
+            num = pe.findtext(f"{ns}PartNumber") or pe.findtext("PartNumber")
+            etag = pe.findtext(f"{ns}ETag") or pe.findtext("ETag") or ""
+            try:
+                parts.append((int(num), etag))
+            except (TypeError, ValueError):
+                raise S3Error("MalformedXML") from None
+        info = self.s3.objects.complete_multipart_upload(
+            bucket, key, self._query["uploadId"][0], parts)
+        root = ET.Element("CompleteMultipartUploadResult", xmlns=XMLNS)
+        _el(root, "Location", f"/{bucket}/{key}")
+        _el(root, "Bucket", bucket)
+        _el(root, "Key", key)
+        _el(root, "ETag", f'"{info.etag}"')
+        self._send_xml(root)
+
+    def _put_part(self, bucket, key, payload):
+        try:
+            part_num = int(self._query["partNumber"][0])
+        except (ValueError, KeyError):
+            raise S3Error("InvalidArgument") from None
+        part = self.s3.objects.put_object_part(
+            bucket, key, self._query.get("uploadId", [""])[0], part_num,
+            payload)
+        self._send(200, {"ETag": f'"{part.etag}"',
+                         **payload.checksum_headers})
+
+    def _list_parts(self, bucket, key):
+        uid = self._query["uploadId"][0]
+        try:
+            marker = int(self._query.get("part-number-marker", ["0"])[0]
+                         or 0)
+            max_parts = int(self._query.get("max-parts", ["1000"])[0]
+                            or 1000)
+        except ValueError:
+            raise S3Error("InvalidArgument") from None
+        parts = self.s3.objects.list_parts(bucket, key, uid, marker,
+                                           max_parts)
+        root = ET.Element("ListPartsResult", xmlns=XMLNS)
+        _el(root, "Bucket", bucket)
+        _el(root, "Key", key)
+        _el(root, "UploadId", uid)
+        _el(root, "PartNumberMarker", marker)
+        _el(root, "MaxParts", max_parts)
+        _el(root, "IsTruncated", "false")
+        for p in parts:
+            pe = _el(root, "Part")
+            _el(pe, "PartNumber", p["number"])
+            _el(pe, "ETag", f'"{p["etag"]}"')
+            _el(pe, "Size", p["size"])
+            _el(pe, "LastModified", _iso8601(p["mod_time"]))
+        self._send_xml(root)
+
     # -- objects ----------------------------------------------------------
 
     def _put_object(self, bucket, key, payload, headers):
+        if "partNumber" in self._query:
+            return self._put_part(bucket, key, payload)
         meta = {k[len("x-amz-meta-"):]: v for k, v in headers.items()
                 if k.startswith("x-amz-meta-")}
         info = self.s3.objects.put_object(
@@ -469,6 +659,8 @@ class _Handler(BaseHTTPRequestHandler):
                    length=length)
 
     def _get_object(self, bucket, key, _body, headers):
+        if "uploadId" in self._query:
+            return self._list_parts(bucket, key)
         spec = _range_spec(headers.get("range", ""))
         start, length = 0, None
         if spec is not None:
@@ -498,5 +690,9 @@ class _Handler(BaseHTTPRequestHandler):
             chunks.close()        # returns the leases of a cut response
 
     def _delete_object(self, bucket, key, _body, _headers):
-        self.s3.objects.delete_object(bucket, key)
+        if "uploadId" in self._query:
+            self.s3.objects.abort_multipart_upload(
+                bucket, key, self._query["uploadId"][0])
+        else:
+            self.s3.objects.delete_object(bucket, key)
         self._send(204, {})

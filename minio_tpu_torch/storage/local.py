@@ -1,11 +1,14 @@
 """Local drive backend: the per-drive POSIX storage the slice uses.
 
-The subset of minio_tpu/storage/local.py that PutObject, GetObject and
-DeleteObject need, with the same on-disk layout:
+The subset of minio_tpu/storage/local.py that PutObject, GetObject,
+DeleteObject, multipart uploads and healing need, with the same on-disk
+layout:
 
     <root>/<volume>/<object>/xl.meta            version journal (meta.py)
-    <root>/<volume>/<object>/<dataDir>/part.1   bitrot-framed shard file
+    <root>/<volume>/<object>/<dataDir>/part.N   bitrot-framed shard file
     <root>/.mtpu.sys/staging/...                staging for commits
+    <root>/.mtpu.sys/multipart/...              uploads in progress
+    <root>/.mtpu.sys/mrf/pending.json           the MRF heal queue
     <root>/.mtpu.sys/tmp/<uuid>                 atomic-write temporaries
 
 Shard files are written into staging and committed with rename_data:
@@ -22,8 +25,10 @@ import shutil
 import threading
 import uuid as uuid_mod
 from dataclasses import dataclass
+from typing import Iterator, Optional
 
-from minio_tpu_torch.storage.meta import FileInfo, FileNotFoundErr, XLMeta
+from minio_tpu_torch.storage.meta import (FileInfo, FileNotFoundErr,
+                                          MetaError, XLMeta)
 
 SYS_VOL = ".mtpu.sys"
 META_FILE = "xl.meta"
@@ -112,6 +117,20 @@ class LocalStorage:
             raise VolumeExists(volume)
         os.makedirs(d)
 
+    def make_vol_if_missing(self, volume: str) -> None:
+        os.makedirs(self._vol_dir(volume), exist_ok=True)
+
+    def list_vols(self) -> list[VolInfo]:
+        out = []
+        for name in sorted(os.listdir(self.root)):
+            if name == SYS_VOL or not _is_valid_volname(name):
+                continue
+            full = os.path.join(self.root, name)
+            if os.path.isdir(full):
+                out.append(VolInfo(name=name,
+                                   created=int(os.stat(full).st_ctime_ns)))
+        return out
+
     def stat_vol(self, volume: str) -> VolInfo:
         d = self._vol_dir(volume)
         if not os.path.isdir(d):
@@ -119,6 +138,93 @@ class LocalStorage:
         return VolInfo(name=volume, created=int(os.stat(d).st_ctime_ns))
 
     # -- files --------------------------------------------------------------
+
+    def write_all(self, volume: str, path: str, data: bytes) -> None:
+        self._atomic_write(self._obj_dir(volume, path), data)
+
+    def read_all(self, volume: str, path: str) -> bytes:
+        try:
+            with open(self._obj_dir(volume, path), "rb") as f:
+                return f.read()
+        except (FileNotFoundError, IsADirectoryError):
+            raise FileNotFoundErr(f"{volume}/{path}") from None
+
+    def stat_info_file(self, volume: str, path: str) -> os.stat_result:
+        try:
+            return os.stat(self._obj_dir(volume, path))
+        except FileNotFoundError:
+            raise FileNotFoundErr(f"{volume}/{path}") from None
+
+    def rename_file(self, src_volume: str, src_path: str,
+                    dst_volume: str, dst_path: str) -> None:
+        """Atomic same-drive move (multipart assembly)."""
+        src = self._obj_dir(src_volume, src_path)
+        dst = self._obj_dir(dst_volume, dst_path)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        try:
+            os.replace(src, dst)
+        except FileNotFoundError:
+            raise FileNotFoundErr(f"{src_volume}/{src_path}") from None
+
+    def list_dir(self, volume: str, dir_path: str) -> list[str]:
+        """Entries of one directory level, sorted: files as they are,
+        directories with a trailing '/'."""
+        base = self._obj_dir(volume, dir_path) if dir_path \
+            else self._vol_dir(volume)
+        try:
+            names = sorted(os.listdir(base))
+        except (FileNotFoundError, NotADirectoryError):
+            raise FileNotFoundErr(f"{volume}/{dir_path}") from None
+        return [n + "/" if os.path.isdir(os.path.join(base, n)) else n
+                for n in names]
+
+    def walk_dir(self, volume: str) -> Iterator[tuple[str, bytes]]:
+        """Yield (object path, raw xl.meta) for every object of the
+        volume in S3 key order (minio_tpu/storage/local.py `walk_dir`;
+        reference WalkDir, cmd/metacache-walk.go:73). A directory that
+        holds xl.meta is an object; the children its journal names as
+        data dirs are its shard storage, any other child is a key of
+        its own. A directory `d` sorts as the key "d" (before siblings
+        such as "d-x") and as the prefix "d/" (after them)."""
+        vol = self._vol_dir(volume)
+        if not os.path.isdir(vol):
+            raise VolumeNotFound(volume)
+
+        def journal(rel: str) -> Optional[bytes]:
+            try:
+                with open(os.path.join(vol, rel, META_FILE), "rb") as f:
+                    return f.read()
+            except (FileNotFoundError, NotADirectoryError):
+                return None
+
+        def data_dirs(blob: Optional[bytes]) -> frozenset:
+            try:
+                return frozenset(v.get("ddir") for v in
+                                 XLMeta.load(blob).versions if v.get("ddir"))
+            except (MetaError, TypeError):
+                return frozenset()
+
+        def walk(rel: str, skip: frozenset) -> Iterator[tuple[str, bytes]]:
+            full = os.path.join(vol, rel) if rel else vol
+            try:
+                names = os.listdir(full)
+            except (FileNotFoundError, NotADirectoryError):
+                return
+            events = []
+            for n in names:
+                if n != META_FILE and n not in skip and \
+                        os.path.isdir(os.path.join(full, n)):
+                    events += [(n, n, False), (n + "/", n, True)]
+            for _, n, descend in sorted(events):
+                child = f"{rel}/{n}" if rel else n
+                blob = journal(child)
+                if not descend:
+                    if blob is not None:
+                        yield child, blob
+                else:
+                    yield from walk(child, data_dirs(blob)
+                                    if blob is not None else frozenset())
+        yield from walk("", frozenset())
 
     def create_file(self, volume: str, path: str, chunks, append: bool = False,
                     sync: bool = True) -> None:

@@ -67,20 +67,29 @@ class ErasureInfo:
 
 @dataclasses.dataclass
 class ObjectPartInfo:
+    """One part of a version: every field of the JAX package's part map,
+    so a carried journal keeps them all. `nonce` is an encrypted part's
+    base nonce (base64), "" for a plain part (and always, until the port
+    has SSE)."""
     number: int
     size: int
     actual_size: int
     mod_time: int = 0
     etag: str = ""
+    nonce: str = ""
 
     def to_map(self) -> dict:
-        return {"n": self.number, "s": self.size, "as": self.actual_size,
-                "mt": self.mod_time, "etag": self.etag}
+        m = {"n": self.number, "s": self.size, "as": self.actual_size,
+             "mt": self.mod_time, "etag": self.etag}
+        if self.nonce:
+            m["nc"] = self.nonce
+        return m
 
     @classmethod
     def from_map(cls, m: dict) -> "ObjectPartInfo":
         return cls(number=m["n"], size=m["s"], actual_size=m.get("as", m["s"]),
-                   mod_time=m.get("mt", 0), etag=m.get("etag", ""))
+                   mod_time=m.get("mt", 0), etag=m.get("etag", ""),
+                   nonce=m.get("nc", ""))
 
 
 @dataclasses.dataclass

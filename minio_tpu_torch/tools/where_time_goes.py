@@ -14,9 +14,14 @@ host clock and each --reps times (median and spread printed):
   * a GET that drains get_object_stream chunk by chunk, healthy and
     with 4 data-shard drives wiped (decode on the card), and get_object
     (the chunks copied into one bytes object) checked against the body,
+  * the same body as a multipart upload of 8 MiB parts (the AWS CLI's
+    part size), one part after another, and a drained GET of it,
+  * heal_object (normal mode) of the object with one data-shard drive
+    wiped and with two data and two parity drives wiped,
 
-then runs one signed PUT and one GET (healthy, then degraded) under
-torch.profiler and reports, per operation, the device time by kernel and
+then runs one signed PUT and one GET (healthy, then degraded), the
+multipart GET and the one-drive heal under torch.profiler and reports,
+per operation, the device time by kernel and
 by copy, each copy row marked with the host memory it read or wrote
 (pinned or pageable), and the card's busy share of the wall time. The
 last line is one JSON object with every number, the card's name and its
@@ -47,9 +52,13 @@ MIB = 1 << 20
 BUCKET = "prof"
 
 
-def _timed(fn, reps: int) -> dict:
+def _timed(fn, reps: int, setup=None) -> dict:
+    """Host-clock seconds of fn() over `reps` runs, each after an untimed
+    setup()."""
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -58,10 +67,12 @@ def _timed(fn, reps: int) -> dict:
             "max_s": max(times), "runs": len(times)}
 
 
-def _device_profile(fn) -> dict:
+def _device_profile(fn, setup=None) -> dict:
     """Device time of one fn() call by kernel name and copy kind."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    if setup is not None:
+        setup()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -125,6 +136,8 @@ def main(argv=None) -> int:
     try:
         drives = [os.path.join(root, f"d{i}") for i in range(12)]
         es = ErasureSet([LocalStorage(d) for d in drives], device="cuda")
+        # Degraded reads must stay degraded: no background heals.
+        es._mrf_closed = True
         try:
             es.make_bucket(BUCKET)
             es.put_object(BUCKET, "warm", body[:40 * MIB])   # build + warm
@@ -162,18 +175,62 @@ def main(argv=None) -> int:
                 raise RuntimeError("degraded GET returned other bytes")
             result["get_degraded"] = _timed(get, args.reps)
             result["profile_get_degraded"] = _device_profile(get)
+            if es.heal_object(BUCKET, "obj").healed != 4:
+                raise RuntimeError("the wiped drives did not heal")
+
+            # After the rows above, so that they run as on the parent.
+            part = 8 * MIB
+
+            def mp_put():
+                uid = es.new_multipart_upload(BUCKET, "mp")
+                done = [es.put_object_part(BUCKET, "mp", uid, n + 1,
+                                           _payload(body[o:o + part], None))
+                        for n, o in enumerate(range(0, len(body), part))]
+                es.complete_multipart_upload(BUCKET, "mp", uid, [
+                    (p.number, p.etag) for p in done])
+
+            def mp_get():
+                _, chunks = es.get_object_stream(BUCKET, "mp")
+                for _ in chunks:
+                    pass
+            result["mp_put"] = _timed(mp_put, args.reps)
+            if es.get_object(BUCKET, "mp")[1] != body:
+                raise RuntimeError("multipart GET returned other bytes")
+            result["mp_get"] = _timed(mp_get, args.reps)
+            result["profile_mp_get"] = _device_profile(mp_get)
+
+            def wipe(shards):
+                def go():
+                    for s in shards:
+                        shutil.rmtree(os.path.join(
+                            drives[dist.index(s + 1)], BUCKET, "obj"))
+                return go
+
+            def heal(wiped: int):
+                r = es.heal_object(BUCKET, "obj")
+                if r.healed != wiped:
+                    raise RuntimeError(f"heal healed {r.healed} of {wiped}")
+            result["heal_1"] = _timed(lambda: heal(1), args.reps,
+                                      setup=wipe((0,)))
+            result["heal_4"] = _timed(lambda: heal(4), args.reps,
+                                      setup=wipe((0, 5, 8, 11)))
+            result["profile_heal_1"] = _device_profile(lambda: heal(1),
+                                                       setup=wipe((0,)))
+            if es.get_object(BUCKET, "obj")[1] != body:
+                raise RuntimeError("GET after heal returned other bytes")
         finally:
             es.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     for op in ("sha256", "md5", "put_unsigned", "put", "get", "get_bytes",
-               "get_degraded"):
+               "get_degraded", "mp_put", "mp_get", "heal_1", "heal_4"):
         r = result[op]
         print(f"{op}: median {r['median_s']:.4f} s "
               f"({args.size_mib / r['median_s']:.1f} MiB/s), "
               f"min {r['min_s']:.4f} max {r['max_s']:.4f} over {r['runs']}")
-    for op in ("profile_put", "profile_get", "profile_get_degraded"):
+    for op in ("profile_put", "profile_get", "profile_get_degraded",
+               "profile_mp_get", "profile_heal_1"):
         r = result[op]
         print(f"{op}: wall {r['wall_s']:.4f} s, device busy "
               f"{r['device_busy_s']:.4f} s ({100 * r['device_busy_share']:.2f}%)")

@@ -88,6 +88,7 @@ def sets(tmp_path_factory):
     ref._mrf_closed = True
     port = ErasureSet([LocalStorage(str(root / f"p{i}")) for i in range(N)],
                       device="cpu")
+    port._mrf_closed = True
     rng = np.random.default_rng(77)
     objs = {k: rng.bytes(s) for k, s in zip(KEYS, SIZES)}
     for s in (ref, port):

@@ -70,6 +70,17 @@ def test_every_tail_case_matches_host(length):
     assert np.array_equal(got, ref_highwayhash.highwayhash256_many(key, blocks))
 
 
+@pytest.mark.parametrize("length", [98, 3200, 4097])
+def test_one_row_of_any_stride(length):
+    """A single row sliced out of a wider one (one rebuilt shard's ragged
+    block in a heal) hashes as the host does, whatever its row stride."""
+    rows = np.random.default_rng(length).integers(
+        0, 256, size=(1, length + 5), dtype=np.uint8)
+    got = hh_device.hash_rows(torch.from_numpy(rows)[:, :length]).numpy()
+    assert np.array_equal(got, highwayhash256_many(MAGIC_KEY,
+                                                   rows[:, :length]))
+
+
 def test_hash_rows_skips_frame_header():
     """hash_rows(skip=32) hashes the payload of `digest || block` rows."""
     rows = np.random.default_rng(3).integers(0, 256, size=(4, 32 + 300),

@@ -37,6 +37,7 @@ def sets(tmp_path_factory):
     ref._mrf_closed = True        # no background heals under the tests
     port = ErasureSet([LocalStorage(str(root / f"p{i}")) for i in range(N)],
                       device="cpu")
+    port._mrf_closed = True
     assert ref.default_parity == port.default_parity == 4
     rng = np.random.default_rng(2024)
     objs = {name: rng.bytes(size) for name, size in SIZES.items()}
@@ -188,6 +189,7 @@ def carried(sets, tmp_path_factory):
             (out_dir / "xl.meta").write_bytes(journal.dump())
         disks.append(LocalStorage(str(dst / f"x{i}")))
     es = ErasureSet(disks, device="cpu")
+    es._mrf_closed = True
     yield es, objs
     es.close()
 

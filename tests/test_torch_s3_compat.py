@@ -1,8 +1,8 @@
 """The port's ranged GET/HEAD and aws-chunked PUT against the JAX package's.
 
-Two servers on 12 drives each (EC 8+4): the port's, booted `--device cpu`
-in a subprocess as in tests/test_torch_server.py, and the JAX package's
-S3Server in this process. The same signed requests (tests/s3client.py)
+Two servers on 12 drives each (EC 8+4), both serving from threads of
+this process: the port's, booted through its command line's `boot()` with
+`--device cpu`, and the JAX package's S3Server. The same signed requests (tests/s3client.py)
 go to both, and every status, `Content-Range`, `Content-Length`, error
 code and body must be equal:
 
@@ -15,6 +15,15 @@ code and body must be equal:
     HTTP `Transfer-Encoding: chunked` PUTs read back byte for byte with
     the ETag of a plain PUT; flipped chunk and trailer signatures, wrong
     and missing `x-amz-decoded-content-length`.
+  * Multipart: initiate, a plain part, an aws-chunked signed part and a
+    part with a declared CRC32 (right and wrong), the part and upload
+    listings, complete, GET, HEAD and a range across parts of the
+    object; InvalidPart, InvalidPartOrder, EntityTooSmall, NoSuchUpload
+    and MalformedXML.
+
+The port's set has its MRF heal queue closed, as the reference's is in
+tests/test_torch_object.py: the tests take drives away and put them back
+by hand, and a background heal would race them.
 """
 
 import base64
@@ -24,8 +33,6 @@ import http.client
 import io
 import os
 import re
-import subprocess
-import sys
 import threading
 import zlib
 from pathlib import Path
@@ -37,13 +44,13 @@ from minio_tpu.object.erasure_object import ErasureSet
 from minio_tpu.s3 import sigv4 as ref_sigv4
 from minio_tpu.s3.server import S3Server
 from minio_tpu.storage.local import LocalStorage
+from minio_tpu_torch import server
 from minio_tpu_torch.object.erasure_object import (BLOCK_SIZE,
                                                    STREAM_WINDOW_BLOCKS,
                                                    hash_order)
 from minio_tpu_torch.s3 import sigv4
 from tests.s3client import S3Client
 
-REPO = Path(__file__).resolve().parents[1]
 BUCKET = "compat"
 WINDOW = STREAM_WINDOW_BLOCKS * BLOCK_SIZE
 RNG = np.random.default_rng(6)
@@ -59,37 +66,26 @@ def servers(tmp_path_factory):
     BUCKET holding OBJECTS."""
     root = tmp_path_factory.mktemp("s3compat")
     drives = [str(root / "port" / f"d{i}") for i in range(12)]
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "minio_tpu_torch.server", "--device", "cpu",
-         "--address", "127.0.0.1:0", *drives],
-        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
+    port = server.boot(["--device", "cpu", "--address", "127.0.0.1:0",
+                        *drives])
+    port.objects._mrf_closed = True
+    thread = threading.Thread(target=port.serve_forever, daemon=True)
+    thread.start()
     ref = S3Server(ErasureSet([LocalStorage(str(root / "ref" / f"d{i}"))
                                for i in range(12)]), address="127.0.0.1:0")
     ref.start()
-    lines = []
     try:
-        for line in proc.stdout:
-            lines.append(line)
-            if line.startswith("serving S3 on http://"):
-                address = line.split("http://", 1)[1].split()[0]
-                break
-        else:
-            pytest.fail("server exited during boot:\n" + "".join(lines))
-        threading.Thread(target=lambda: [None for _ in proc.stdout],
-                         daemon=True).start()
-        for addr in (address, ref.address):
+        for addr in (port.address, ref.address):
             c = S3Client(addr, timeout=300)
             assert c.request("PUT", f"/{BUCKET}")[0] == 200
             for key, body in OBJECTS.items():
                 assert c.request("PUT", f"/{BUCKET}/{key}", body=body)[0] \
                     == 200
-        yield address, drives, ref.address
+        yield port.address, drives, ref.address
     finally:
         ref.stop()
-        proc.terminate()
-        proc.wait(timeout=30)
+        port.shutdown()
+        thread.join(timeout=30)
 
 
 def _code(body: bytes) -> str:
@@ -520,3 +516,130 @@ def test_wrong_trailer_checksum_refused_before_commit(servers):
         return st, _code(err), c.request("GET", key)[0]
     assert _both(servers, run) == ((400, "XAmzContentChecksumMismatch", 404),
                                    (400, "XAmzContentChecksumMismatch", 404))
+
+
+# -- multipart -----------------------------------------------------------------
+
+MIB = 1 << 20
+MP_PARTS = (RNG.bytes(5 * MIB), RNG.bytes(5 * MIB), RNG.bytes(1000))
+
+
+def _tags(body: bytes, tag: str) -> list[str]:
+    return [m.decode() for m in re.findall(
+        rb"<" + tag.encode() + rb">([^<]*)</" + tag.encode() + rb">", body)]
+
+
+def _initiate(c, key):
+    st, _, body = c.request("POST", f"/{BUCKET}/{key}",
+                            query={"uploads": ""})
+    assert st == 200, body
+    return _tags(body, "UploadId")[0], (st, _tags(body, "Bucket"),
+                                        _tags(body, "Key"))
+
+
+def _put_part(c, key, uid, num, body, **kw):
+    st, h, err = c.request("PUT", f"/{BUCKET}/{key}", body=body,
+                           query={"partNumber": str(num), "uploadId": uid},
+                           **kw)
+    h = {k.lower(): v for k, v in h.items()}
+    return st, h.get("etag"), _code(err) if st >= 300 else "", {
+        k: v for k, v in h.items() if k.startswith("x-amz-checksum-")}
+
+
+def _complete_xml(parts) -> bytes:
+    return ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
+        for n, e in parts) + "</CompleteMultipartUpload>").encode()
+
+
+def test_multipart_api_matches_reference(servers):
+    """One upload through every multipart route: the statuses, ETags,
+    echoed checksums and XML fields equal the JAX server's, and the
+    object reads back whole and across a part boundary."""
+    key = "mp-api"
+    crc = _crc32_b64(MP_PARTS[2])
+
+    def run(addr):
+        c = S3Client(addr, timeout=300)
+        uid, init = _initiate(c, key)
+        answers = [init]
+        answers.append(_put_part(c, key, uid, 1, MP_PARTS[0]))
+        answers.append(_put_part(c, key, uid, 2, MP_PARTS[1], chunked=True))
+        answers.append(_put_part(c, key, uid, 3, MP_PARTS[2],
+                                 headers={"x-amz-checksum-crc32": crc}))
+        answers.append(_put_part(c, key, uid, 3, MP_PARTS[2], headers={
+            "x-amz-checksum-crc32": _crc32_b64(b"x")}))
+        st, _, body = c.request("GET", f"/{BUCKET}/{key}",
+                                query={"uploadId": uid})
+        answers.append((st, _tags(body, "PartNumber"), _tags(body, "ETag"),
+                        _tags(body, "Size"), _tags(body, "UploadId") ==
+                        [uid]))
+        st, _, body = c.request("GET", f"/{BUCKET}", query={"uploads": ""})
+        answers.append((st, _tags(body, "Key"), uid in _tags(body,
+                                                            "UploadId")))
+        etags = [a[1] for a in answers[1:4]]
+        st, _, body = c.request("POST", f"/{BUCKET}/{key}",
+                                query={"uploadId": uid},
+                                body=_complete_xml(zip((1, 2, 3), etags)))
+        answers.append((st, _tags(body, "Bucket"), _tags(body, "Key"),
+                        _tags(body, "ETag"), _tags(body, "Location")))
+        st, h, got = c.request("GET", f"/{BUCKET}/{key}")
+        answers.append((st, h.get("ETag"), got == b"".join(MP_PARTS)))
+        st, h, _ = c.request("HEAD", f"/{BUCKET}/{key}")
+        answers.append((st, h.get("ETag"), h.get("Content-Length")))
+        lo, hi = 5 * MIB - 10, 10 * MIB + 20
+        st, h, got = c.request("GET", f"/{BUCKET}/{key}",
+                               headers={"Range": f"bytes={lo}-{hi}"})
+        answers.append((st, h.get("Content-Range"),
+                        got == b"".join(MP_PARTS)[lo:hi + 1]))
+        st, _, body = c.request("GET", f"/{BUCKET}/{key}",
+                                query={"uploadId": uid})
+        answers.append((st, _code(body)))
+        return answers
+    got, want = _both(servers, run)
+    assert got == want
+    assert want[-5][3][0].strip('"').endswith("-3")
+    assert want[3][3] == {"x-amz-checksum-crc32": crc}
+    assert want[4][:3] == (400, None, "XAmzContentChecksumMismatch")
+
+
+MP_REFUSALS = ("InvalidPart", "InvalidPartOrder", "EntityTooSmall",
+               "NoSuchUpload part", "NoSuchUpload list", "NoSuchUpload abort",
+               "MalformedXML")
+
+
+@pytest.mark.parametrize("case", MP_REFUSALS)
+def test_multipart_refusals_match_reference(servers, case):
+    key = f"mp-refuse-{case.replace(' ', '-')}"
+
+    def run(addr):
+        c = S3Client(addr, timeout=300)
+        uid, _ = _initiate(c, key)
+        e1 = _put_part(c, key, uid, 1, MP_PARTS[2])[1]
+        e2 = _put_part(c, key, uid, 2, MP_PARTS[2])[1]
+        path, q = f"/{BUCKET}/{key}", {"uploadId": uid}
+        if case == "InvalidPart":
+            ans = c.request("POST", path, query=q,
+                            body=_complete_xml([(2, '"' + "0" * 32 + '"')]))
+        elif case == "InvalidPartOrder":
+            ans = c.request("POST", path, query=q,
+                            body=_complete_xml([(2, e2), (1, e1)]))
+        elif case == "EntityTooSmall":
+            ans = c.request("POST", path, query=q,
+                            body=_complete_xml([(1, e1), (2, e2)]))
+        elif case == "MalformedXML":
+            ans = c.request("POST", path, query=q, body=b"<Complete")
+        else:
+            st, _, _ = c.request("DELETE", path, query=q)
+            assert st == 204
+            if case == "NoSuchUpload part":
+                ans = c.request("PUT", path, body=b"x", query={
+                    "partNumber": "3", "uploadId": uid})
+            elif case == "NoSuchUpload list":
+                ans = c.request("GET", path, query=q)
+            else:
+                ans = c.request("DELETE", path, query=q)
+        return ans[0], _code(ans[2])
+    got, want = _both(servers, run)
+    assert got == want
+    assert want[1] == case.split()[0]

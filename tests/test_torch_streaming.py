@@ -64,8 +64,10 @@ def _staging_debris(root, prefix="p") -> list:
 
 
 def _port_set(root, prefix="p") -> eo.ErasureSet:
-    return eo.ErasureSet([LocalStorage(str(root / f"{prefix}{i}"))
-                          for i in range(N)], device="cpu")
+    es = eo.ErasureSet([LocalStorage(str(root / f"{prefix}{i}"))
+                        for i in range(N)], device="cpu")
+    es._mrf_closed = True         # no background heals under the tests
+    return es
 
 
 @pytest.fixture(scope="module")
@@ -174,6 +176,7 @@ def test_writer_dying_after_window_one(tmp_path, failing, windows):
         str(tmp_path / f"p{i}"), *([after] if i < failing else []))
         for i in range(N)]
     es = eo.ErasureSet(disks, device="cpu")
+    es._mrf_closed = True
     body = np.random.default_rng(failing).bytes(
         windows * WINDOW + 11 if windows > 1 else WINDOW - 7)
     try:
@@ -233,6 +236,7 @@ def test_put_reads_at_most_depth_plus_two_windows_ahead(tmp_path):
     disks = [_SlowDisk(str(tmp_path / "p0"))] + \
         [LocalStorage(str(tmp_path / f"p{i}")) for i in range(1, N)]
     es = eo.ErasureSet(disks, device="cpu")
+    es._mrf_closed = True
     body = np.random.default_rng(5).bytes(6 * WINDOW)
     reader = _CountingReader(body)
     reader.slow_done = lambda: disks[0].windows
