@@ -69,13 +69,38 @@ and prints no result line):
    copies, and a GET with 4 other drives wiped (MRF stopped) returns the
    bytes. Wall time and MiB/s of each operation, the phase's launches,
    0 pool leases outstanding.
+4c. The bucket namespace, on phase 4b's server with a fresh MRF queue
+   (stopped while drives are taken away by hand). A bucket with
+   versioning Enabled: three 256 MiB PUTs to one key give three version
+   ids; each GET by versionId is exact, the oldest again with 4 data
+   drives away (reconstruct); a DELETE writes a marker (GET 404 with
+   x-amz-delete-marker, HEAD of its id 405), whose DELETE brings the
+   newest back; the oldest version's DELETE removes its data dir from
+   all 12 drives; two PUTs after Suspended replace the null version and
+   leave the Enabled-era ones. CopyObject of phase 4b's 256 MiB
+   single-part and multipart objects into the bucket, exact, a deep
+   heal_object of each copy finding every shard good; an UploadPartCopy
+   upload of the first 64 MiB, 40 MiB across two 32 MiB windows and the
+   last 5 MiB + 777 B of the single-part object beside an uploaded 5 MiB
+   part, exact. 16 clients PUT 10,000 keys of 1 KiB
+   (dir00..99/obj000..099) into an unversioned bucket; ListObjectsV2 in
+   pages of 1000 (continuation tokens), with delimiter / (100 prefixes),
+   with prefix dir42/, V1 with a marker inside dir57/, and
+   ListObjectVersions of the versioned bucket in pages of 2 equal what
+   was written; the deep listing again with one drive away, and after 3
+   drives missed a DeleteObjects of 1000 keys it lists none of them.
+   DeleteBucket refuses both buckets (409) until every version, marker
+   and key is deleted; then no file of theirs is left on any drive.
+   MiB/s of the versioned PUTs, GETs by version id and copies, keys/s
+   of the PUTs, the deep listing and DeleteObjects, the phase's
+   launches, 0 pool leases outstanding after 4b and 4c.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
-   In phases 3, 4 and 5 every kernel's launch count is set to 0 just
-   before the phase and read just after; each kernel of the phase's path
-   must have launched.
+   In phases 3, 4, 4b, 4c and 5 every kernel's launch count is set to 0
+   just before the phase and read just after; each kernel of the phase's
+   path must have launched.
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
    its bound; gf_apply at 8, 32 and 256 blocks (parity rows) and at 32
@@ -472,11 +497,12 @@ class Server:
     a thread of this process until stop(); with mrf=False its MRF heal
     queue stays closed."""
 
-    def __init__(self, root: str, name: str, mrf: bool = False):
+    def __init__(self, root: str, name: str, mrf: bool = False,
+                 device: str = "cuda"):
         from minio_tpu_torch import server
         self.drives = [os.path.join(root, name, f"d{i}") for i in range(12)]
         self.srv = server.boot(["--address", "127.0.0.1:0", "--device",
-                                "cuda", *self.drives])
+                                device, *self.drives])
         self.es = self.srv.objects
         self.es._mrf_closed = not mrf
         check(self.es.default_parity == M, "12 drives must give EC 8+4")
@@ -612,11 +638,11 @@ def phase_main_path(torch, rng, root):
         check_pool_idle("main path")
 
 
-def check_pool_idle(what: str) -> None:
+def check_pool_idle(what: str, device: str = "cuda") -> None:
     """Every pooled lease of the phase went back to the card's pool (a
     response's last lease returns just after its last byte is sent)."""
     from minio_tpu_torch.io.bufpool import global_pool
-    pool = global_pool("cuda")
+    pool = global_pool(device)
     t0 = time.perf_counter()
     while pool.stats()["outstanding"] and time.perf_counter() - t0 < 10:
         time.sleep(0.05)
@@ -962,11 +988,12 @@ def admin_heal(c: "Client", deep: bool) -> tuple[dict, float]:
     return status, wall
 
 
-def phase_multipart_heal(torch, rng, root):
-    """Multipart uploads and healing over signed HTTP (phase 4b); returns
-    the phase's launches."""
+def phase_multipart_heal(torch, rng, s: "Server", root: str):
+    """Multipart uploads and healing over signed HTTP (phase 4b) on the
+    server `s`; returns the phase's launches and its two 256 MiB objects
+    ({"aws": multipart, "single": single-part}), left in bucket mph for
+    phase 4c."""
     from minio_tpu_torch.object.erasure_object import hash_order
-    s = Server(root, "mph", mrf=True)
     es, c = s.es, s.client
     rate = {}
     size = 256 * MIB
@@ -1087,10 +1114,363 @@ def phase_multipart_heal(torch, rng, root):
         log(f"multipart GET {rate['GET aws'][1]:.1f} MiB/s against "
             f"single-part {rate['GET single'][1]:.1f} MiB/s: the single-part "
             f"GET is {gap:.2f}x as fast")
-        return launches
+        return launches, objs
     finally:
-        s.stop()
         check_pool_idle("multipart/heal")
+
+
+# Phase 4c: the bucket namespace.
+NS_BIG = 256 * MIB          # each versioned PUT, as phase 4b's objects
+NS_DIRS, NS_PER_DIR = 100, 100     # 10,000 keys of 1 KiB for the listing
+NS_CLIENTS = 16
+# UploadPartCopy's ranges of the 256 MiB source, (offset, length): its
+# first 64 MiB, 40 MiB across the boundary of its 32 MiB windows 3 and 4,
+# and its last 5 MiB + 777 B; an uploaded 5 MiB part goes between.
+NS_PART_COPIES = [(0, 64 * MIB), (96 * MIB - 20 * MIB, 40 * MIB),
+                  (NS_BIG - 5 * MIB - 777, 5 * MIB + 777)]
+VERSIONING = ("<VersioningConfiguration><Status>{}</Status>"
+              "</VersioningConfiguration>")
+
+
+def xml_entries(body: bytes, tag: str) -> list[dict]:
+    """The children of each <tag> element of an S3 XML answer, as
+    {child tag: text}, in document order."""
+    import xml.etree.ElementTree as ET
+    return [{c.tag.split("}")[-1]: c.text or "" for c in e}
+            for e in ET.fromstring(body).iter() if e.tag.split("}")[-1] == tag]
+
+
+class mrf_paused:
+    """Drives taken away by hand: the set's MRF worker stops first (a heal
+    must not race the drives' return) and a fresh queue opens after."""
+
+    def __init__(self, es):
+        self.es = es
+
+    def __enter__(self):
+        self.es.mrf.stop()
+
+    def __exit__(self, *exc):
+        with self.es._mrf_lock:
+            self.es._mrf = None
+
+
+class drives_away:
+    """Move `<drive>/<path>` aside on the given drives, and back."""
+
+    def __init__(self, s: "Server", drives, path: str):
+        self.srcs = [os.path.join(s.drives[i], path) for i in drives]
+
+    def __enter__(self):
+        for src in self.srcs:
+            os.rename(src, src + ".away")
+
+    def __exit__(self, *exc):
+        for src in self.srcs:
+            os.rename(src + ".away", src)
+
+
+def list_all(c: "Client", bucket: str, query: dict) -> tuple[list, list, int]:
+    """ListObjectsV2 through every continuation token: (keys, common
+    prefixes, pages)."""
+    keys, prefixes, pages, q = [], [], 0, {"list-type": "2", **query}
+    while True:
+        st, body, _ = c.send("GET", f"/{bucket}", query=q)
+        check(st == 200, f"ListObjectsV2 {q}: {st} {body[:200]!r}")
+        pages += 1
+        keys += [e["Key"] for e in xml_entries(body, "Contents")]
+        prefixes += [e["Prefix"] for e in xml_entries(body, "CommonPrefixes")]
+        if xml_tag(body, "IsTruncated") != "true":
+            return keys, prefixes, pages
+        q["continuation-token"] = xml_tag(body, "NextContinuationToken")
+
+
+def list_versions(c: "Client", bucket: str, page: int) -> list[tuple]:
+    """ListObjectVersions through both markers, `page` entries a page:
+    [(key, version id, delete marker, is latest)]."""
+    out, q = [], {"versions": "", "max-keys": str(page)}
+    while True:
+        st, body, _ = c.send("GET", f"/{bucket}", query=q)
+        check(st == 200, f"ListObjectVersions {q}: {st} {body[:200]!r}")
+        import xml.etree.ElementTree as ET
+        for e in ET.fromstring(body):
+            tag = e.tag.split("}")[-1]
+            if tag in ("Version", "DeleteMarker"):
+                f = {x.tag.split("}")[-1]: x.text for x in e}
+                out.append((f["Key"], f["VersionId"], tag == "DeleteMarker",
+                            f["IsLatest"] == "true"))
+        if xml_tag(body, "IsTruncated") != "true":
+            return out
+        q = {"versions": "", "max-keys": str(page),
+             "key-marker": xml_tag(body, "NextKeyMarker"),
+             "version-id-marker": xml_tag(body, "NextVersionIdMarker")}
+
+
+def delete_objects(c: "Client", bucket: str, items, quiet: bool = True):
+    """POST ?delete of (key, version id or "") items, 1000 a request; the
+    per-key errors must be none."""
+    items = list(items)
+    for i in range(0, len(items), 1000):
+        xml = ("<Delete>" + ("<Quiet>true</Quiet>" if quiet else "") + "".join(
+            f"<Object><Key>{k}</Key>"
+            + (f"<VersionId>{v}</VersionId>" if v else "") + "</Object>"
+            for k, v in items[i:i + 1000]) + "</Delete>").encode()
+        st, body, _ = c.send("POST", f"/{bucket}", xml,
+                             query={"delete": ""}, extra={
+                                 "content-md5": base64.b64encode(
+                                     hashlib.md5(xml).digest()).decode()})
+        check(st == 200 and b"<Error>" not in body,
+              f"DeleteObjects: {st} {body[:300]!r}")
+
+
+def phase_namespace(rng, s: "Server", src: dict) -> dict:
+    """The bucket namespace over signed HTTP (phase 4c) on phase 4b's
+    server, its MRF reopened; returns the phase's launches."""
+    es, c = s.es, s.client
+    vb, lb = "vers", "keys"
+    rate = {}
+
+    def note(what: str, wall: float, amount: float, unit: str) -> None:
+        rate[what] = amount / wall
+        log(f"namespace: {what}: {wall:.4f} s, {amount / wall:.1f} {unit} "
+            "(host clock over signed HTTP on localhost)")
+
+    def vid_of(h: dict) -> str:
+        vid = h.get("x-amz-version-id", "")
+        check(vid and vid != "null", f"no version id in {h}")
+        return vid
+
+    with es._mrf_lock:
+        es._mrf = None                 # phase 4b stopped it: a fresh queue
+    reset_launches()
+    windows0 = dict(es.host_windows)
+    check(c("PUT", f"/{vb}")[0] == 200, "make versioned bucket")
+    check(c.send("PUT", f"/{vb}", VERSIONING.format("Enabled").encode(),
+                 query={"versioning": ""})[0] == 200, "enable versioning")
+    st, body, _ = c.send("GET", f"/{vb}", query={"versioning": ""})
+    check(xml_tag(body, "Status") == "Enabled", f"versioning: {body!r}")
+
+    # -- versions -------------------------------------------------------
+    bodies = [rng.bytes(NS_BIG) for _ in range(3)]
+    vids = []
+    t0 = time.perf_counter()
+    for b in bodies:
+        st, _, h = c.send("PUT", f"/{vb}/obj", b)
+        check(st == 200, f"versioned PUT: {st}")
+        vids.append(vid_of(h))
+    big = f"{NS_BIG // MIB} MiB"
+    note(f"3 versioned PUTs of {big}", time.perf_counter() - t0,
+         3 * NS_BIG / MIB, "MiB/s")
+    check(len(set(vids)) == 3, f"version ids not distinct: {vids}")
+    t0 = time.perf_counter()
+    for v, b in zip(vids, bodies):
+        st, got, h = c.send("GET", f"/{vb}/obj", query={"versionId": v})
+        check(st == 200 and got == b and h.get("x-amz-version-id") == v,
+              f"GET by versionId {v}: {st}")
+    note(f"3 GETs by versionId of {big}", time.perf_counter() - t0,
+         3 * NS_BIG / MIB, "MiB/s")
+    before = es.device_windows["reconstruct"]
+    with mrf_paused(es), drives_away(s, data_holders(vb, "obj", 4),
+                                     f"{vb}/obj"):
+        t0 = time.perf_counter()
+        st, got, _ = c.send("GET", f"/{vb}/obj", query={"versionId": vids[0]})
+        note("GET of the oldest version, 4 data drives away",
+             time.perf_counter() - t0, NS_BIG / MIB, "MiB/s")
+        check(st == 200 and got == bodies[0], "degraded GET by versionId")
+    check(es.device_windows["reconstruct"] > before,
+          "the degraded GET by versionId did not reconstruct on the card")
+    st, _, h = c.send("DELETE", f"/{vb}/obj")
+    check(st == 204 and h.get("x-amz-delete-marker") == "true",
+          f"DELETE without a version: {st} {h}")
+    marker = vid_of(h)
+    st, _, h = c.send("GET", f"/{vb}/obj")
+    check(st == 404 and h.get("x-amz-delete-marker") == "true",
+          f"GET under a delete marker: {st} {h}")
+    st, _, h = c.send("HEAD", f"/{vb}/obj", query={"versionId": marker})
+    check(st == 405, f"HEAD of the marker's version: {st}")
+    check(c.send("DELETE", f"/{vb}/obj", query={"versionId": marker})[0]
+          == 204, "DELETE of the marker")
+    check(c("GET", f"/{vb}/obj") == (200, bodies[2]),
+          "the newest version is not back after its marker went")
+    old_ddir = {es.disks[i].read_version(vb, "obj", vids[0]).data_dir
+                for i in range(12)}
+    check(len(old_ddir) == 1 and "" not in old_ddir, f"data dirs {old_ddir}")
+    check(c.send("DELETE", f"/{vb}/obj", query={"versionId": vids[0]})[0]
+          == 204, "DELETE of the oldest version")
+    check(not any(os.path.exists(os.path.join(d, vb, "obj", *old_ddir))
+                  for d in s.drives),
+          "the oldest version's data dir is left on a drive")
+    check(c.send("PUT", f"/{vb}", VERSIONING.format("Suspended").encode(),
+                 query={"versioning": ""})[0] == 200, "suspend versioning")
+    nulls = [rng.bytes(3 * MIB + 5), rng.bytes(5 * MIB + 7)]
+    for b in nulls:
+        st, _, h = c.send("PUT", f"/{vb}/obj", b)
+        check(st == 200 and "x-amz-version-id" not in h,
+              f"suspended PUT: {st} {h}")
+    got = [(v, dm, lat) for k, v, dm, lat in list_versions(c, vb, 1000)
+           if k == "obj"]
+    check(got == [("null", False, True), (vids[2], False, False),
+                  (vids[1], False, False)],
+          f"versions after the suspended PUTs: {got}")
+    check(c("GET", f"/{vb}/obj") == (200, nulls[1]),
+          "the second suspended PUT does not read back")
+    log("namespace: 3 versions read by id (one with 4 data drives away); a "
+        "delete marker (404 GET, 405 HEAD of its id) removed; the oldest "
+        "version's data dir gone from all 12 drives; suspended PUTs replaced "
+        "the null version, the Enabled-era versions stayed")
+
+    # -- copies ---------------------------------------------------------
+    check(c.send("PUT", f"/{vb}", VERSIONING.format("Enabled").encode(),
+                 query={"versioning": ""})[0] == 200, "enable versioning")
+    copies = {}
+    for dst, key in (("copy-single", "single"), ("copy-mp", "aws")):
+        t0 = time.perf_counter()
+        st, body, h = c.send("PUT", f"/{vb}/{dst}", extra={
+            "x-amz-copy-source": f"/mph/{key}"})
+        note(f"CopyObject of the {big} {key} object",
+             time.perf_counter() - t0, len(src[key]) / MIB, "MiB/s")
+        check(st == 200 and xml_tag(body, "ETag"), f"copy {key}: {st} "
+              f"{body[:200]!r}")
+        copies[dst] = vid_of(h)
+        check(c("GET", f"/{vb}/{dst}") == (200, src[key]),
+              f"the copy of {key} does not read back identical")
+        res = es.heal_object(vb, dst, copies[dst], deep=True)
+        check(res.healed == 0 and res.before == ["ok"] * 12,
+              f"deep heal of the copy of {key}: {res}")
+    body = src["single"]
+    st, xml, _ = c.send("POST", f"/{vb}/upc", query={"uploads": ""})
+    uid = xml_tag(xml, "UploadId")
+    etags, want = [], b""
+    plan = [("copy", NS_PART_COPIES[0]), ("copy", NS_PART_COPIES[1]),
+            ("put", rng.bytes(5 * MIB)), ("copy", NS_PART_COPIES[2])]
+    t0 = time.perf_counter()
+    for n, (kind, arg) in enumerate(plan, 1):
+        q = {"partNumber": str(n), "uploadId": uid}
+        if kind == "put":
+            part = arg
+            st, xml, h = c.send("PUT", f"/{vb}/upc", part, query=q)
+            etags.append(h.get("etag"))
+        else:
+            off, length = arg
+            part = body[off:off + length]
+            st, xml, h = c.send("PUT", f"/{vb}/upc", query=q, extra={
+                "x-amz-copy-source": "/mph/single",
+                "x-amz-copy-source-range": f"bytes={off}-{off + length - 1}"})
+            etags.append(xml_tag(xml, "ETag"))
+        want += part
+        check(st == 200 and etags[-1] == f'"{hashlib.md5(part).hexdigest()}"',
+              f"part {n} ({kind}): {st} {xml[:200]!r}")
+    xml = ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{n}</PartNumber><ETag>{e}</ETag></Part>"
+        for n, e in enumerate(etags, 1)) + "</CompleteMultipartUpload>")
+    st, resp, h = c.send("POST", f"/{vb}/upc", xml.encode(),
+                         query={"uploadId": uid})
+    check(st == 200, f"complete the UploadPartCopy upload: {st} {resp!r}")
+    copies["upc"] = vid_of(h)
+    note("UploadPartCopy upload (3 ranges + 1 part), completed",
+         time.perf_counter() - t0, len(want) / MIB, "MiB/s")
+    check(c("GET", f"/{vb}/upc") == (200, want),
+          "the UploadPartCopy object does not read back identical")
+    log(f"namespace: both {big} copies read back identical and a deep heal "
+        "of each found every shard good; the UploadPartCopy object "
+        f"({len(want)} B) read back identical")
+
+    # -- listing --------------------------------------------------------
+    check(c("PUT", f"/{lb}")[0] == 200, "make listing bucket")
+    keys = [f"dir{d:02d}/obj{o:03d}" for d in range(NS_DIRS)
+            for o in range(NS_PER_DIR)]
+    small = np.frombuffer(rng.bytes(len(keys) * 1024), np.uint8) \
+        .reshape(len(keys), 1024)
+
+    def put(_t, i):
+        st, _ = c("PUT", f"/{lb}/{keys[i]}", small[i].tobytes())
+        check(st == 200, f"PUT {keys[i]}: {st}")
+    wall = run_clients(put, [list(range(t, len(keys), NS_CLIENTS))
+                             for t in range(NS_CLIENTS)])
+    note(f"{len(keys)} PUTs of 1 KiB, {NS_CLIENTS} clients", wall,
+         len(keys), "keys/s")
+    t0 = time.perf_counter()
+    got, _, pages = list_all(c, lb, {"max-keys": "1000"})
+    note(f"deep ListObjectsV2 of {len(keys)} keys, pages of 1000",
+         time.perf_counter() - t0, len(keys), "keys/s")
+    check(got == keys and pages == -(-len(keys) // 1000),
+          f"deep listing: {len(got)} keys in {pages} pages")
+    got, prefixes, _ = list_all(c, lb, {"delimiter": "/"})
+    check(got == [] and prefixes == [f"dir{d:02d}/" for d in range(NS_DIRS)],
+          f"delimiter listing: {len(got)} keys, {len(prefixes)} prefixes")
+    d42 = f"dir{42 % NS_DIRS:02d}/"
+    got, _, _ = list_all(c, lb, {"prefix": d42})
+    check(got == [k for k in keys if k.startswith(d42)],
+          f"prefix {d42}: {len(got)} keys")
+    d57 = 57 % NS_DIRS
+    st, body, _ = c.send("GET", f"/{lb}", query={
+        "marker": f"dir{d57:02d}/obj{NS_PER_DIR // 2:03d}", "delimiter": "/",
+        "max-keys": "5"})
+    want_p = [f"dir{d:02d}/" for d in range(d57, min(d57 + 5, NS_DIRS))]
+    more = d57 + 5 < NS_DIRS
+    check(st == 200 and [e["Prefix"] for e in xml_entries(
+        body, "CommonPrefixes")] == want_p and
+        xml_tag(body, "NextMarker") == (want_p[-1] if more else ""),
+        f"V1 with a marker inside dir{d57:02d}/: {st} {body[:300]!r}")
+    got = list_versions(c, vb, 2)
+    want_v = sorted([("copy-mp", copies["copy-mp"], False, True),
+                     ("copy-single", copies["copy-single"], False, True),
+                     ("obj", "null", False, True),
+                     ("obj", vids[2], False, False),
+                     ("obj", vids[1], False, False),
+                     ("upc", copies["upc"], False, True)],
+                    key=lambda e: e[0])
+    check(got == want_v, f"ListObjectVersions in pages of 2: {got}")
+    log(f"namespace: ListObjectsV2 of {len(keys)} keys in pages of 1000, "
+        f"{NS_DIRS} common prefixes, prefix {d42}, V1 with a marker inside a "
+        "collapsed prefix, and ListObjectVersions in pages of 2 all equal "
+        "what was written")
+
+    with mrf_paused(es):
+        with drives_away(s, [5], lb):
+            got, _, _ = list_all(c, lb, {"max-keys": "1000"})
+        check(got == keys, f"deep listing with one drive away: {len(got)}")
+        gone = keys[:len(keys) // 10]
+        with drives_away(s, [0, 4, 9], lb):
+            t0 = time.perf_counter()
+            delete_objects(c, lb, [(k, "") for k in gone])
+            note(f"DeleteObjects of {len(gone)} keys, 3 drives missing it",
+                 time.perf_counter() - t0, len(gone), "keys/s")
+        for _ in range(2):          # the walked drives rotate page by page
+            got, _, _ = list_all(c, lb, {"max-keys": "1000"})
+            check(got == keys[len(gone):],
+                  f"a deleted key listed: {len(got)} keys")
+    log("namespace: the deep listing with one drive away, and after 3 "
+        "drives missed a DeleteObjects, listed no deleted key")
+
+    # -- clean-up ---------------------------------------------------------
+    for b in (vb, lb):
+        st, body, _ = c.send("DELETE", f"/{b}")
+        check(st == 409 and xml_tag(body, "Code") == "BucketNotEmpty",
+              f"DeleteBucket of non-empty {b}: {st}")
+    delete_objects(c, vb, [(k, v) for k, v, _, _ in list_versions(c, vb,
+                                                                   1000)])
+    # The deleted keys again too: 3 drives still hold their stale copies.
+    delete_objects(c, lb, [(k, "") for k in keys])
+    for b in (vb, lb):
+        check(c.send("DELETE", f"/{b}")[0] == 204, f"DeleteBucket {b}")
+    left = [os.path.join(r, f) for d in s.drives for b in (vb, lb)
+            for r, _, fs in os.walk(os.path.join(d, b)) for f in fs]
+    left += [os.path.join(r, f) for d in s.drives
+             for sub in (f"multipart/{vb}", f"buckets/{vb}", f"buckets/{lb}")
+             for r, _, fs in os.walk(os.path.join(d, ".mtpu.sys", sub))
+             for f in fs]
+    check(not left, f"files left after the clean-up: {left[:5]}")
+    check(c("GET", f"/{vb}")[0] == 404, "the versioned bucket is still there")
+
+    launches = read_launches()
+    log(f"namespace launches {launches}; host windows "
+        f"{ {k: es.host_windows[k] - windows0[k] for k in windows0} }")
+    check(launches["gf_apply"] and launches["highwayhash256"],
+          f"a kernel of the path never launched: {launches}")
+    check(es.host_windows == windows0,
+          f"windows went to the host: {es.host_windows}")
+    return launches
 
 
 def release(rows) -> None:
@@ -1296,14 +1676,20 @@ def main() -> int:
     try:
         seq = phase_main_path(torch, rng, root)
         conc, conc_stats = phase_concurrent(torch, rng, root)
-        mph = phase_multipart_heal(torch, rng, root)
+        s = Server(root, "mph", mrf=True)
+        try:
+            mph, mph_objs = phase_multipart_heal(torch, rng, s, root)
+            ns = phase_namespace(rng, s, mph_objs)
+        finally:
+            s.stop()
+        check_pool_idle("multipart/heal/namespace")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     solo_dispatch_ms(torch, rng, conc_stats)
     b5 = phase_b5_entry_point(torch)
     times = phase_times(torch, dev, rng)
 
-    launches = {k: seq[k] + conc[k] + mph[k]
+    launches = {k: seq[k] + conc[k] + mph[k] + ns[k]
                 for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {

@@ -39,6 +39,14 @@ erasureObjects, cmd/erasure-object.go) for one set of local drives:
     and its windows snap to erasure blocks inside a part, never across
     one. Healing (object/healing.py) rebuilds lost or corrupt shards of
     every part on the card, window by window.
+  * The bucket namespace: each bucket's metadata record (its versioning
+    state, the JAX package's `bucket-meta.json`); versioned PUTs (a
+    fresh version id, or the null version when versioning is off or
+    suspended), reads of a named version, delete markers and null
+    markers, version removal at a majority write quorum with the MRF
+    queued for the drives that missed it; listing pages merged from a
+    majority of the drives' sorted walks, with a quorum read wherever
+    their copies of a key disagree.
 
 Full blocks of every window go through the cross-request stripe batcher
 (ops/batcher.StripeBatcher), one per route and config: the PUT framer,
@@ -61,11 +69,15 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import heapq
+import json
 import os
 import queue
 import threading
+import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from itertools import groupby
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -75,18 +87,24 @@ from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.erasure.codec import _HOST, Erasure
 from minio_tpu_torch.io.bufpool import global_pool, leases_of
 from minio_tpu_torch.io.engine import kernel_lane, shutdown_kernel_lane
-from minio_tpu_torch.object.types import (BucketExists, BucketNotFound,
-                                          InvalidRange, ObjectInfo,
-                                          ObjectNotFound, ReadQuorumError,
-                                          WriteQuorumError)
-from minio_tpu_torch.storage.local import VolInfo
+from minio_tpu_torch.object.types import (BucketExists, BucketInfo,
+                                          BucketNotEmpty, BucketNotFound,
+                                          DeletedObject, DeleteOptions,
+                                          GetOptions, InvalidRange,
+                                          ListObjectsInfo, MethodNotAllowed,
+                                          ObjectError, ObjectInfo,
+                                          ObjectNotFound,
+                                          PutOptions, ReadQuorumError,
+                                          VersionNotFound, WriteQuorumError)
 from minio_tpu_torch.ops import gf256, hh_device, rs_device
 from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
-from minio_tpu_torch.storage.local import SYS_VOL, VolumeExists
+from minio_tpu_torch.storage.local import (SYS_VOL, VolumeExists,
+                                           VolumeNotEmpty, VolumeNotFound)
 from minio_tpu_torch.storage.meta import (ErasureInfo, FileInfo,
-                                          FileNotFoundErr, ObjectPartInfo,
-                                          VersionNotFoundErr, new_uuid, now_ns)
+                                          FileNotFoundErr, MetaError,
+                                          ObjectPartInfo, VersionNotFoundErr,
+                                          XLMeta, new_uuid, now_ns)
 from minio_tpu_torch.utils.highwayhash import MAGIC_KEY, highwayhash256_many
 from minio_tpu_torch.utils.streams import Payload
 
@@ -255,6 +273,13 @@ def _reconstruct_batcher_for(k: int, m: int, use: tuple, missing: tuple,
         concat_fn=lambda a, b: np.concatenate([a, b]))
 
 
+def _quiet(fn) -> None:
+    try:
+        fn()
+    except Exception:  # noqa: BLE001 - best-effort cleanup
+        pass
+
+
 def default_parity(set_size: int) -> int:
     """Default EC parity by set size (reference storage-class defaults:
     internal/config/storageclass/storage-class.go:355-367):
@@ -340,6 +365,13 @@ class ErasureSet:
         self._mrf = None
         self._mrf_lock = threading.Lock()
         self._mrf_closed = False
+        # Bucket metadata records: bucket -> (monotonic time read, record);
+        # buckets seen to exist: bucket -> monotonic time the sight expires.
+        self._bmeta_cache: dict[str, tuple] = {}
+        self._bexists_until: dict[str, float] = {}
+        self._bmeta_mu = threading.Lock()
+        # Which drives the next listing walk starts at (_walk_resolved).
+        self._walk_rotor = 0
 
     def close(self) -> None:
         """Stop the MRF worker, the drive fan-out pool and the batchers,
@@ -389,11 +421,9 @@ class ErasureSet:
         return healing.heal_bucket(self, bucket)
 
     def new_multipart_upload(self, bucket: str, object_: str,
-                             content_type: str = "",
-                             user_metadata: Optional[dict] = None) -> str:
+                             opts: Optional[PutOptions] = None) -> str:
         from minio_tpu_torch.object import multipart
-        return multipart.new_multipart_upload(self, bucket, object_,
-                                              content_type, user_metadata)
+        return multipart.new_multipart_upload(self, bucket, object_, opts)
 
     def put_object_part(self, bucket: str, object_: str, upload_id: str,
                         part_number: int, data):
@@ -488,7 +518,7 @@ class ErasureSet:
                 raise BucketExists(bucket)
             raise WriteQuorumError(bucket)
 
-    def list_buckets(self) -> list[VolInfo]:
+    def list_buckets(self) -> list[BucketInfo]:
         """Every bucket on any drive, each with its earliest creation
         time, sorted by name."""
         results, _ = self._fanout([lambda d=d: d.list_vols()
@@ -498,7 +528,104 @@ class ErasureSet:
             for v in vols or ():
                 if v.name not in seen or v.created < seen[v.name]:
                     seen[v.name] = v.created
-        return [VolInfo(name=b, created=c) for b, c in sorted(seen.items())]
+        return [BucketInfo(name=b, created=c) for b, c in sorted(seen.items())]
+
+    def delete_bucket(self, bucket: str) -> None:
+        """Remove the bucket's volume from every drive (BucketNotEmpty
+        while any drive holds an object of it) and its metadata record,
+        so a bucket made again under the name starts unversioned."""
+        _, errors = self._fanout([lambda d=d: d.delete_vol(bucket)
+                                  for d in self.disks])
+        if any(isinstance(e, VolumeNotEmpty) for e in errors):
+            raise BucketNotEmpty(bucket)
+        if all(isinstance(e, VolumeNotFound) for e in errors):
+            raise BucketNotFound(bucket)
+        ok = sum(e is None or isinstance(e, VolumeNotFound) for e in errors)
+        if ok < len(self.disks) // 2 + 1:
+            raise WriteQuorumError(bucket)
+        self.invalidate_bucket_meta(bucket)
+        self._fanout([lambda d=d: _quiet(lambda: d.delete(
+            SYS_VOL, f"buckets/{bucket}", recursive=True))
+            for d in self.disks])
+
+    # -- bucket metadata: the versioning state, one JSON record a bucket
+    #    on SYS_VOL, the JAX package's file and keys --------------------
+
+    # Seconds a bucket's record stays cached. The set is this process's
+    # own, and every write here invalidates it.
+    _BUCKET_META_TTL = 60.0
+    # Seconds a bucket seen to exist is taken to exist (the JAX
+    # package's TTL).
+    _BUCKET_EXISTS_TTL = 2.0
+
+    @staticmethod
+    def _bucket_meta_path(bucket: str) -> str:
+        return f"buckets/{bucket}/bucket-meta.json"
+
+    def get_bucket_meta(self, bucket: str) -> dict:
+        """The bucket's metadata record as most drives hold it, cached
+        for _BUCKET_META_TTL seconds ({} when there is none)."""
+        now = time.monotonic()
+        with self._bmeta_mu:
+            hit = self._bmeta_cache.get(bucket)
+        if hit is not None and now - hit[0] < self._BUCKET_META_TTL:
+            return dict(hit[1])
+        meta = self._get_bucket_meta_uncached(bucket)
+        with self._bmeta_mu:
+            self._bmeta_cache[bucket] = (now, meta)
+        return dict(meta)
+
+    def _get_bucket_meta_uncached(self, bucket: str) -> dict:
+        path = self._bucket_meta_path(bucket)
+        results, _ = self._fanout([lambda d=d: d.read_all(SYS_VOL, path)
+                                   for d in self.disks])
+        votes: dict[bytes, int] = {}
+        for r in results:
+            if r is not None:
+                votes[r] = votes.get(r, 0) + 1
+        if not votes:
+            return {}
+        try:
+            return json.loads(max(votes, key=lambda b: votes[b]))
+        except ValueError:
+            return {}
+
+    def set_bucket_meta(self, bucket: str, meta: dict) -> None:
+        blob = json.dumps(meta, sort_keys=True).encode()
+        path = self._bucket_meta_path(bucket)
+        _, errors = self._fanout([lambda d=d: d.write_all(SYS_VOL, path, blob)
+                                  for d in self.disks])
+        self.invalidate_bucket_meta(bucket)
+        if sum(e is None for e in errors) < len(self.disks) // 2 + 1:
+            raise WriteQuorumError(bucket)
+
+    def invalidate_bucket_meta(self, bucket: str) -> None:
+        """Drop the cached record and existence of one bucket."""
+        with self._bmeta_mu:
+            self._bmeta_cache.pop(bucket, None)
+            self._bexists_until.pop(bucket, None)
+
+    def bucket_versioning(self, bucket: str) -> bool:
+        return bool(self.get_bucket_meta(bucket).get("versioning"))
+
+    def versioning_state(self, bucket: str) -> str:
+        """"" (never enabled), "Enabled" or "Suspended"
+        (minio_tpu/s3/server.py `_versioning_state`)."""
+        meta = self.get_bucket_meta(bucket)
+        if meta.get("versioning"):
+            return "Enabled"
+        if meta.get("versioning-suspended"):
+            return "Suspended"
+        return ""
+
+    def set_bucket_versioning(self, bucket: str, status) -> None:
+        """status: True or "Enabled", "Suspended", or False (off). A
+        suspended bucket writes the null version, replacing the null
+        version before it; the versions of the Enabled era stay."""
+        meta = self.get_bucket_meta(bucket)
+        meta["versioning"] = status is True or status == "Enabled"
+        meta["versioning-suspended"] = status == "Suspended"
+        self.set_bucket_meta(bucket, meta)
 
     def bucket_exists(self, bucket: str) -> bool:
         results, _ = self._fanout([lambda d=d: d.stat_vol(bucket)
@@ -506,8 +633,19 @@ class ErasureSet:
         return any(r is not None for r in results)
 
     def _check_bucket(self, bucket: str) -> None:
+        """Bucket existence, positive-cached for _BUCKET_EXISTS_TTL
+        seconds (minio_tpu/object/erasure_object.py `_check_bucket`): a
+        stat of every drive on each request costs more than a small
+        object's encode. delete_bucket drops the entry."""
+        now = time.monotonic()
+        with self._bmeta_mu:
+            until = self._bexists_until.get(bucket)
+        if until is not None and now < until:
+            return
         if not self.bucket_exists(bucket):
             raise BucketNotFound(bucket)
+        with self._bmeta_mu:
+            self._bexists_until[bucket] = now + self._BUCKET_EXISTS_TTL
 
     # ------------------------------------------------------------------
     # PutObject
@@ -564,14 +702,14 @@ class ErasureSet:
         return rows, leases
 
     def put_object(self, bucket: str, object_: str, data,
-                   content_type: str = "",
-                   user_metadata: Optional[dict] = None,
-                   internal_metadata: Optional[dict] = None) -> ObjectInfo:
+                   opts: Optional[PutOptions] = None) -> ObjectInfo:
         """data: bytes-like or a utils.streams.Payload, read window by
-        window and never held whole. internal_metadata: x-internal-*
-        entries stored with the version; it is read after the payload's
-        finish hook ran, so the hook may fill it. A finish hook that
-        raises fails the PUT before anything is committed."""
+        window and never held whole. The version written is
+        opts.version_id, else a fresh one when opts.versioned, else the
+        null version. opts.internal_metadata is read after the payload's
+        finish hook ran, so the hook may fill it; a hook that raises
+        fails the PUT before anything is committed."""
+        opts = opts or PutOptions()
         payload = Payload.wrap(data)
         self._check_bucket(bucket)
         n = len(self.disks)
@@ -581,17 +719,17 @@ class ErasureSet:
         distribution = hash_order(f"{bucket}/{object_}", n)
         e = Erasure(k, m, BLOCK_SIZE, backend=self.backend)
         size = payload.size
+        version_id = opts.version_id or (new_uuid() if opts.versioned else "")
         errors: list = [None] * n
 
         def make_fi(shard_idx: int, data_dir: str, etag: str,
                     inline_data=None) -> FileInfo:
             return FileInfo(
-                volume=bucket, name=object_, data_dir=data_dir,
-                mod_time=mod_time, size=size,
-                metadata={"etag": etag, **({"content-type": content_type}
-                                           if content_type else {}),
-                          **(user_metadata or {}),
-                          **(internal_metadata or {})},
+                volume=bucket, name=object_, version_id=version_id,
+                data_dir=data_dir, mod_time=mod_time, size=size,
+                metadata={"etag": etag, **({"content-type": opts.content_type}
+                                           if opts.content_type else {}),
+                          **opts.user_metadata, **opts.internal_metadata},
                 parts=[ObjectPartInfo(number=1, size=size,
                                       actual_size=size, etag=etag)],
                 erasure=ErasureInfo(
@@ -599,7 +737,11 @@ class ErasureSet:
                     index=shard_idx + 1, distribution=tuple(distribution)),
                 inline_data=inline_data)
 
-        if e.shard_file_size(size) <= SMALL_FILE_THRESHOLD:
+        # The JAX package's inline rule: a versioned object goes inline
+        # only up to an eighth of the threshold.
+        shard_file = e.shard_file_size(size)
+        if shard_file <= SMALL_FILE_THRESHOLD and not opts.versioned \
+                or shard_file <= SMALL_FILE_THRESHOLD // 8:
             # Inline: the whole (small) body frames at once and goes into
             # xl.meta; read_all runs the finish hook first.
             body = np.frombuffer(payload.read_all(), dtype=np.uint8)
@@ -612,16 +754,11 @@ class ErasureSet:
                     h.release()
             etag = hashlib.md5(body).hexdigest()
             mod_time = now_ns()
-            self._commit(bucket, object_, errors, write_quorum,
+            self._commit(bucket, object_, version_id, errors, write_quorum,
                          lambda i: self.disks[i].write_metadata(
                              bucket, object_, make_fi(
                                  distribution[i] - 1, "", etag,
                                  frames[distribution[i] - 1])))
-            if any(errors):
-                # Committed on fewer than n drives: heal the rest in the
-                # background (reference MRF hook,
-                # cmd/erasure-object.go:1556-1594).
-                self.mrf.enqueue(bucket, object_)
         else:
             data_dir = new_uuid()
             staging = f"{STAGING_PREFIX}/p{os.getpid()}-{new_uuid()}"
@@ -630,32 +767,38 @@ class ErasureSet:
                     payload, e, distribution, f"{staging}/{data_dir}/part.1",
                     write_quorum, errors)
                 mod_time = now_ns()
-                self._commit(bucket, object_, errors, write_quorum,
+                self._commit(bucket, object_, version_id, errors,
+                             write_quorum,
                              lambda i: self.disks[i].rename_data(
                                  SYS_VOL, staging, make_fi(
                                      distribution[i] - 1, data_dir, etag),
                                  bucket, object_))
-                if any(errors):
-                    self.mrf.enqueue(bucket, object_)
             finally:
                 # Committed drives already moved their data dir out;
                 # whatever staging is left is debris (errors ignored).
                 self._fanout([lambda d=d: d.delete(SYS_VOL, staging,
                                                    recursive=True)
                               for d in self.disks])
+        if any(errors):
+            # Committed on fewer than n drives: heal the rest in the
+            # background (reference MRF hook,
+            # cmd/erasure-object.go:1556-1594).
+            self.mrf.enqueue(bucket, object_, version_id)
         return ObjectInfo(bucket=bucket, name=object_, mod_time=mod_time,
-                          size=size, etag=etag, content_type=content_type,
-                          user_metadata=dict(user_metadata or {}),
-                          internal_metadata=dict(internal_metadata or {}),
+                          size=size, etag=etag,
+                          content_type=opts.content_type,
+                          version_id=version_id,
+                          user_metadata=dict(opts.user_metadata),
+                          internal_metadata=dict(opts.internal_metadata),
                           parts=[ObjectPartInfo(number=1, size=size,
                                                 actual_size=size,
                                                 etag=etag)])
 
-    def _commit(self, bucket: str, object_: str, errors: list,
-                write_quorum: int, commit_one) -> None:
+    def _commit(self, bucket: str, object_: str, version_id: str,
+                errors: list, write_quorum: int, commit_one) -> None:
         """Run commit_one(i) on every drive still without an error, under
         the key's namespace lock; below write quorum, take the committed
-        versions back and raise WriteQuorumError."""
+        version back and raise WriteQuorumError."""
         n = len(self.disks)
         with self._ns.hold(f"{bucket}/{object_}"):
             _, cerrs = self._fanout([
@@ -665,7 +808,8 @@ class ErasureSet:
             errors[i] = errors[i] or err
         ok = sum(err is None for err in errors)
         if ok < write_quorum:
-            self._fanout([lambda d=d: d.delete_version(bucket, object_)
+            self._fanout([lambda d=d: d.delete_version(bucket, object_,
+                                                       version_id)
                           if err is None else None
                           for d, err in zip(self.disks, errors)])
             raise WriteQuorumError(bucket, object_,
@@ -867,15 +1011,21 @@ class ErasureSet:
         k = any_fi.erasure.data_blocks if any_fi is not None else 0
         return max(k, n // 2) if k else n // 2 + 1
 
-    def _quorum_fileinfo(self, bucket: str, object_: str,
-                         read_data: bool) -> tuple[FileInfo, list, list]:
-        """(the quorum version, per-drive FileInfos, per-drive errors)."""
-        fis, errors = self._read_version_all(bucket, object_,
+    def _quorum_fileinfo(self, bucket: str, object_: str, read_data: bool,
+                         version_id: str = "") -> tuple[FileInfo, list,
+                                                        list]:
+        """(the version agreed by read quorum, per-drive FileInfos,
+        per-drive errors): the latest version, or `version_id`. A delete
+        marker comes back as it is; `_read_fileinfo` maps it to the
+        errors of a read."""
+        fis, errors = self._read_version_all(bucket, object_, version_id,
                                              read_data=read_data)
         n = len(self.disks)
         if sum(isinstance(e, FileNotFoundErr) for e in errors) > n // 2:
             self._check_bucket(bucket)
             raise ObjectNotFound(bucket, object_)
+        if sum(isinstance(e, VersionNotFoundErr) for e in errors) > n // 2:
+            raise VersionNotFound(bucket, object_)
         if all(f is None for f in fis):
             raise ReadQuorumError(bucket, object_, "no readable metadata")
         quorum = self._read_quorum(fis, n)
@@ -883,8 +1033,23 @@ class ErasureSet:
         if fi is None:
             raise ReadQuorumError(bucket, object_,
                                   f"no version agreed by {quorum} drives")
+        return fi, fis, errors
+
+    def _read_fileinfo(self, bucket: str, object_: str, read_data: bool,
+                       version_id: str) -> tuple[FileInfo, list, list]:
+        """`_quorum_fileinfo` for a GET or HEAD, with the JAX package's
+        errors (minio_tpu/object/erasure_object.py `get_object_info`): a
+        latest version that is a delete marker is ObjectNotFound, a
+        marker named by its version id MethodNotAllowed, an unknown
+        version id VersionNotFound."""
+        fi, fis, errors = self._quorum_fileinfo(bucket, object_, read_data,
+                                                version_id)
         if fi.deleted:
-            raise ObjectNotFound(bucket, object_)
+            if version_id:
+                raise MethodNotAllowed(bucket, object_,
+                                       version_id=fi.version_id or "null")
+            raise ObjectNotFound(bucket, object_, delete_marker=True,
+                                 version_id=fi.version_id or "null")
         return fi, fis, errors
 
     @staticmethod
@@ -896,28 +1061,36 @@ class ErasureSet:
                     if k.startswith("x-internal-")}
         return ObjectInfo(bucket=bucket, name=object_, mod_time=fi.mod_time,
                           size=fi.size, etag=etag, content_type=ctype,
-                          version_id=fi.version_id, user_metadata=meta,
+                          version_id=fi.version_id, is_latest=fi.is_latest,
+                          delete_marker=fi.deleted, user_metadata=meta,
                           internal_metadata=internal, parts=list(fi.parts))
 
-    def get_object_info(self, bucket: str, object_: str) -> ObjectInfo:
-        fi, _, _ = self._quorum_fileinfo(bucket, object_, read_data=False)
+    def get_object_info(self, bucket: str, object_: str,
+                        opts: Optional[GetOptions] = None) -> ObjectInfo:
+        opts = opts or GetOptions()
+        fi, _, _ = self._read_fileinfo(bucket, object_, False,
+                                       opts.version_id)
         return self._to_info(bucket, object_, fi)
 
     # ------------------------------------------------------------------
     # GetObject
     # ------------------------------------------------------------------
 
-    def get_object(self, bucket: str, object_: str) -> tuple[ObjectInfo, bytes]:
-        info, chunks = self.get_object_stream(bucket, object_)
+    def get_object(self, bucket: str, object_: str,
+                   opts: Optional[GetOptions] = None
+                   ) -> tuple[ObjectInfo, bytes]:
+        info, chunks = self.get_object_stream(bucket, object_, opts=opts)
         # Each chunk is copied as it is pulled: its lease goes back to
         # the pool at the next pull.
         return info, b"".join([bytes(c) for c in chunks])
 
     def get_object_stream(self, bucket: str, object_: str, offset: int = 0,
-                          length: Optional[int] = None
+                          length: Optional[int] = None,
+                          opts: Optional[GetOptions] = None
                           ) -> tuple[ObjectInfo, Iterator[memoryview]]:
         """(info, iterator over bytes [offset, offset + length) of the
-        object, one window each; length None reads to the end). Only the
+        object's latest version or of opts.version_id, one window each;
+        length None reads to the end). Only the
         erasure blocks that cover the range are read. Offsets map onto
         (part, offset in the part) as in the JAX package's
         `_window_descs`: each part is its own erasure encode, so windows
@@ -933,8 +1106,9 @@ class ErasureSet:
         is a view of a pooled lease, valid until the consumer pulls the
         next chunk or closes the iterator; closing early collects the
         prefetch in flight and returns its lease."""
-        fi, fis, errors = self._quorum_fileinfo(bucket, object_,
-                                                read_data=True)
+        opts = opts or GetOptions()
+        fi, fis, errors = self._read_fileinfo(bucket, object_, True,
+                                              opts.version_id)
         if any(errors):
             # A drive misses this version's metadata: heal it in the
             # background even though the read succeeds from the rest.
@@ -1233,17 +1407,189 @@ class ErasureSet:
     # DeleteObject
     # ------------------------------------------------------------------
 
-    def delete_object(self, bucket: str, object_: str) -> None:
+    def delete_object(self, bucket: str, object_: str,
+                      opts: Optional[DeleteOptions] = None) -> DeletedObject:
+        """minio_tpu/object/erasure_object.py `_delete_object_locked`
+        (reference DeleteObject, cmd/erasure-object.go): with no version
+        named, a versioned bucket gets a delete marker and a suspended
+        one a null marker that replaces the null version; otherwise the
+        named (or null) version is removed. Write quorum is a majority
+        of the set, and a drive that no longer holds the version counts
+        as done; when some drive missed the removal the key goes on the
+        MRF, so no stale copy can bring the version back."""
+        opts = opts or DeleteOptions()
+        self._check_bucket(bucket)
         n = len(self.disks)
+        write_quorum = n // 2 + 1
         with self._ns.hold(f"{bucket}/{object_}"):
+            if (opts.versioned or opts.null_marker) and not opts.version_id:
+                marker_vid = "" if opts.null_marker else new_uuid()
+                fi = FileInfo(volume=bucket, name=object_,
+                              version_id=marker_vid, deleted=True,
+                              mod_time=now_ns())
+                _, errors = self._fanout([
+                    lambda d=d: d.write_metadata(bucket, object_, fi)
+                    for d in self.disks])
+                if sum(e is None for e in errors) < write_quorum:
+                    raise WriteQuorumError(bucket, object_)
+                return DeletedObject(
+                    object_name=object_, delete_marker=True,
+                    delete_marker_version_id=marker_vid or "null")
             _, errors = self._fanout([
-                lambda d=d: d.delete_version(bucket, object_)
+                lambda d=d: d.delete_version(bucket, object_,
+                                             opts.version_id)
                 for d in self.disks])
-        gone = (FileNotFoundErr, VersionNotFoundErr)
-        if all(isinstance(e, gone) for e in errors):
-            self._check_bucket(bucket)
-            return
-        ok = sum(e is None or isinstance(e, gone) for e in errors)
-        k = n - self.default_parity
-        if ok < k + (1 if k == self.default_parity else 0):
-            raise WriteQuorumError(bucket, object_, f"deleted on {ok}/{n}")
+        ok = sum(e is None for e in errors)
+        missing = sum(isinstance(e, (FileNotFoundErr, VersionNotFoundErr))
+                      for e in errors)
+        if ok + missing < write_quorum:
+            raise WriteQuorumError(bucket, object_,
+                                   f"deleted on {ok + missing}/{n}")
+        if ok + missing < n and ok > 0:
+            self.mrf.enqueue(bucket, object_, opts.version_id)
+        return DeletedObject(object_name=object_, version_id=opts.version_id)
+
+    # ------------------------------------------------------------------
+    # listing
+    # ------------------------------------------------------------------
+
+    def _walk_resolved(self, bucket: str, prefix: str, start: str = ""):
+        """Sorted (path, versions) stream of the keys at or after
+        max(start, prefix) (minio_tpu/object/erasure_object.py
+        `_walk_resolved`): each walked drive's sorted walk_dir, over a
+        majority of the drives (any write quorum meets the walked set,
+        so a committed object is listed even where some drives missed
+        it), k-way merged and grouped by key. The walked drives rotate
+        from one walk to the next. There is no metadata cache yet: each
+        call walks from its start."""
+        base_dir = prefix.rsplit("/", 1)[0] if "/" in prefix else ""
+        forward = max(start, prefix)
+
+        def disk_iter(d):
+            try:
+                yield from d.walk_dir(bucket, base_dir=base_dir,
+                                      forward_from=forward)
+            except Exception:  # noqa: BLE001 - a lost drive walks nothing
+                return
+
+        n = len(self.disks)
+        with self._stat_mu:
+            rotor = self._walk_rotor
+            self._walk_rotor = (rotor + 1) % n
+        walked = [self.disks[(rotor + i) % n] for i in range(n // 2 + 1)]
+        merged = heapq.merge(*[disk_iter(d) for d in walked],
+                             key=lambda kv: kv[0])
+        for path, grp in groupby(merged, key=lambda kv: kv[0]):
+            versions = self._resolve_walked(bucket, path,
+                                            [b for _, b in grp], len(walked))
+            if versions is not None:
+                yield path, versions
+
+    def _resolve_walked(self, bucket: str, path: str, blobs: list,
+                        total_walked: int) -> Optional[list]:
+        """One walked key's journal copies -> its version maps, latest
+        first (minio_tpu/object/erasure_object.py `_resolve_walked`).
+        When every walked drive has the key and the copies agree on the
+        latest version, one copy's journal is the answer. Otherwise (a
+        drive missed a delete or an overwrite, or the object never
+        reached every walked drive) a quorum read decides and only its
+        version is listed, so a lone stale copy cannot bring a deleted
+        object back and a quorum-thin write is still listed. None: the
+        key is not listed."""
+        parsed = []
+        for blob in blobs:
+            try:
+                xl = XLMeta.load(blob)
+                v0 = xl.versions[0]
+            except (MetaError, IndexError):   # an unreadable or empty copy
+                continue
+            parsed.append(((v0["mt"], v0["vid"], v0["kind"],
+                            v0.get("ddir", "") or ""), xl))
+        if len(parsed) == total_walked and len({p[0] for p in parsed}) == 1:
+            return list(parsed[0][1].versions)
+        try:
+            fi, _, _ = self._quorum_fileinfo(bucket, path, False)
+        except ObjectError:               # dangling or below quorum
+            return None
+        return [fi.to_version_map()]
+
+    @staticmethod
+    def _entry_fileinfos(bucket: str, path: str,
+                         versions: list) -> list[FileInfo]:
+        """A resolved key's version maps -> FileInfos, latest first."""
+        xl = XLMeta()
+        xl.versions = versions
+        return xl.list_versions(bucket, path)
+
+    def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
+                     delimiter: str = "", max_keys: int = 1000,
+                     include_versions: bool = False) -> ListObjectsInfo:
+        """One page of the sorted listing with S3's prefix, marker,
+        delimiter and max-keys semantics, as the JAX package's
+        `list_objects` pages it (minio_tpu/object/erasure_object.py;
+        reference cmd/metacache-set.go:700): keys after `marker`, those
+        holding `delimiter` after the prefix collapsed into common
+        prefixes (a marker strictly inside a collapsed prefix brings
+        that prefix back), keys whose latest version is a delete marker
+        left out unless `include_versions`, which lists every version
+        of each key. A page holds at most max_keys (<= 1000) keys and
+        prefixes; `next_marker` is the last one of a truncated page.
+        The page walks from max(marker, prefix) and stops at its last
+        entry."""
+        self._check_bucket(bucket)
+        max_keys = max(1, min(max_keys, 1000))
+        info = ListObjectsInfo()
+        seen_prefixes: set[str] = set()
+        last_added = ""
+        walk = self._walk_resolved(bucket, prefix, marker)
+        try:
+            for path, versions in walk:
+                if marker and path <= marker:
+                    continue
+                if not path.startswith(prefix):
+                    if path > prefix and not prefix.startswith(path):
+                        break         # sorted stream passed the prefix
+                    continue
+                if delimiter:
+                    rest = path[len(prefix):]
+                    di = rest.find(delimiter)
+                    if di >= 0:
+                        cp = prefix + rest[:di + len(delimiter)]
+                        if cp in seen_prefixes or (
+                                marker and cp <= marker
+                                and not (marker.startswith(cp)
+                                         and marker != cp)):
+                            continue
+                        if len(info.objects) + len(seen_prefixes) \
+                                >= max_keys:
+                            info.is_truncated = True
+                            info.next_marker = last_added
+                            break
+                        seen_prefixes.add(cp)
+                        last_added = cp
+                        continue
+                fis = self._entry_fileinfos(bucket, path, versions)
+                if not fis or (fis[0].deleted and not include_versions):
+                    continue
+                if len(info.objects) + len(seen_prefixes) >= max_keys:
+                    info.is_truncated = True
+                    info.next_marker = last_added
+                    break
+                info.objects += [self._to_info(bucket, path, v) for v in
+                                 (fis if include_versions else fis[:1])]
+                last_added = path
+        finally:
+            walk.close()
+        info.prefixes = sorted(seen_prefixes)
+        return info
+
+    def list_versions_all(self, bucket: str, object_: str) -> list[FileInfo]:
+        """Every version of one key, latest first, from the first drive
+        that holds any."""
+        results, _ = self._fanout([lambda d=d: d.list_versions(bucket,
+                                                               object_)
+                                   for d in self.disks])
+        for r in results:
+            if r:
+                return r
+        raise ObjectNotFound(bucket, object_)

@@ -21,8 +21,13 @@ data dir under the key's lock through the same staged rename_data commit
 a PUT uses. The final ETag is the MD5 of the concatenated part MD5s,
 then `-N`.
 
-Not ported yet: SSE (a part's `nonce` stays ""), UploadPartCopy (it
-waits for CopyObject) and versioning.
+An upload started in a versioned bucket records `versioned` and its
+completion writes a new version id; otherwise it writes the null
+version. UploadPartCopy is the S3 front end's: it streams a byte range of
+the source object (ErasureSet.get_object_stream) into put_object_part as
+a Payload, window by window.
+
+Not ported yet: SSE (a part's `nonce` stays "").
 """
 
 from __future__ import annotations
@@ -33,11 +38,11 @@ import os
 
 from minio_tpu_torch.erasure.codec import Erasure
 from minio_tpu_torch.object.erasure_object import (BLOCK_SIZE, STAGING_PREFIX,
-                                                   hash_order)
+                                                   _quiet, hash_order)
 from minio_tpu_torch.object.types import (EntityTooSmall, InvalidArgument,
                                           InvalidPart, InvalidPartOrder,
-                                          ObjectInfo, UploadNotFound,
-                                          WriteQuorumError)
+                                          ObjectInfo, PutOptions,
+                                          UploadNotFound, WriteQuorumError)
 from minio_tpu_torch.storage.local import SYS_VOL
 from minio_tpu_torch.storage.meta import (ErasureInfo, FileInfo,
                                           ObjectPartInfo, new_uuid, now_ns)
@@ -56,17 +61,11 @@ def _upload_dir(bucket: str, object_: str, upload_id: str) -> str:
     return f"{_upload_root(bucket, object_)}/{upload_id}"
 
 
-def _quiet(fn) -> None:
-    try:
-        fn()
-    except Exception:  # noqa: BLE001 - best-effort cleanup
-        pass
-
-
 def new_multipart_upload(es, bucket: str, object_: str,
-                         content_type: str = "",
-                         user_metadata: dict | None = None) -> str:
-    """Record a new upload on a majority of drives; returns its id."""
+                         opts: PutOptions | None = None) -> str:
+    """Record a new upload on a majority of drives; returns its id.
+    opts.versioned: the completed object gets a version id of its own."""
+    opts = opts or PutOptions()
     es._check_bucket(bucket)
     n = len(es.disks)
     m = es.default_parity
@@ -75,10 +74,10 @@ def new_multipart_upload(es, bucket: str, object_: str,
     record = {
         "bucket": bucket, "object": object_, "upload_id": upload_id,
         "k": k, "m": m, "distribution": hash_order(f"{bucket}/{object_}", n),
-        "user_metadata": {key: v for key, v in (user_metadata or {}).items()
+        "user_metadata": {key: v for key, v in opts.user_metadata.items()
                           if not key.startswith("x-internal-")},
-        "internal_metadata": {}, "content_type": content_type,
-        "versioned": False, "initiated": now_ns(),
+        "internal_metadata": {}, "content_type": opts.content_type,
+        "versioned": bool(opts.versioned), "initiated": now_ns(),
     }
     blob = json.dumps(record).encode()
     path = f"{_upload_dir(bucket, object_, upload_id)}/upload.json"
@@ -270,6 +269,7 @@ def complete_multipart_upload(es, bucket: str, object_: str, upload_id: str,
         total += meta["size"]
 
     etag = hashlib.md5(md5_concat).hexdigest() + f"-{len(parts)}"
+    version_id = new_uuid() if rec.get("versioned") else ""
     mod_time = now_ns()
     data_dir = new_uuid()
     metadata = dict(rec.get("user_metadata") or {})
@@ -285,7 +285,8 @@ def complete_multipart_upload(es, bucket: str, object_: str, upload_id: str,
             d.rename_file(SYS_VOL, f"{updir}/{files[num]}",
                           SYS_VOL, f"{staging}/{data_dir}/part.{num}")
         d.rename_data(SYS_VOL, staging, FileInfo(
-            volume=bucket, name=object_, data_dir=data_dir,
+            volume=bucket, name=object_, version_id=version_id,
+            data_dir=data_dir,
             mod_time=mod_time, size=total, metadata=metadata,
             parts=list(fi_parts),
             erasure=ErasureInfo(data_blocks=k, parity_blocks=m,
@@ -295,20 +296,20 @@ def complete_multipart_upload(es, bucket: str, object_: str, upload_id: str,
 
     errors: list = [None] * n
     try:
-        es._commit(bucket, object_, errors, k + (1 if k == m else 0),
-                   commit_one)
+        es._commit(bucket, object_, version_id, errors,
+                   k + (1 if k == m else 0), commit_one)
     finally:
         es._fanout([lambda d=d: _quiet(
             lambda: d.delete(SYS_VOL, staging, recursive=True))
             for d in es.disks])
     if any(errors):
-        es.mrf.enqueue(bucket, object_)
+        es.mrf.enqueue(bucket, object_, version_id)
     # The part files moved on the drives that committed; stale copies
     # elsewhere go with the upload dir.
     es._fanout([lambda d=d: _quiet(
         lambda: d.delete(SYS_VOL, updir, recursive=True)) for d in es.disks])
     return ObjectInfo(bucket=bucket, name=object_, mod_time=mod_time,
-                      size=total, etag=etag,
+                      size=total, etag=etag, version_id=version_id,
                       content_type=rec.get("content_type", ""),
                       user_metadata=dict(rec.get("user_metadata") or {}),
                       parts=fi_parts)

@@ -1,8 +1,8 @@
 """A minimal S3 front end over one ErasureSet.
 
 `http.server.ThreadingHTTPServer`, one thread per connection, HTTP/1.1
-keep-alive. It serves PUT/HEAD bucket and PUT/GET/HEAD/DELETE object,
-every request authenticated with header SigV4 (s3/sigv4.py; a wrong
+keep-alive. It serves PUT/HEAD/DELETE bucket and PUT/GET/HEAD/DELETE
+object, every request authenticated with header SigV4 (s3/sigv4.py; a wrong
 signature is 403 SignatureDoesNotMatch), errors rendered as S3 XML
 (reference cmd/api-errors.go).
 
@@ -31,12 +31,32 @@ uploads a part (streamed and checked as an object PUT is), `POST
 `GET ?uploadId` lists the parts and `GET /<bucket>?uploads` the uploads.
 The admin heal, `POST /minio/admin/v3/heal[?deep=true]`, starts a sweep of
 the set (object/scanner.heal_set) in the background and `GET` on the same
-path polls it; both are SigV4-signed by the root credential. The rest of
-the S3 surface is minio_tpu/s3/server.py's and comes in later slices.
+path polls it; both are SigV4-signed by the root credential.
+
+The bucket namespace, as minio_tpu/s3/server.py serves it: `GET /` lists
+the buckets; `GET /<bucket>` is ListObjects V1, or V2 with
+`?list-type=2` (continuation tokens); `GET ?versions` is
+ListObjectVersions (key and version-id markers); `GET`/`PUT ?versioning`
+read and set the versioning state (Enabled, Suspended); `DELETE
+/<bucket>` removes an empty bucket (409 BucketNotEmpty otherwise); `POST
+?delete` is DeleteObjects (up to 1000 keys, Quiet). `?versionId` names a
+version on GET, HEAD and DELETE; a versioned bucket's DELETE without one
+writes a delete marker. PUT, GET, HEAD, complete and copy answer
+`x-amz-version-id`, a DELETE that made a marker `x-amz-delete-marker`,
+and so does a GET or HEAD that met a marker (404 NoSuchKey, or 405
+MethodNotAllowed when the marker was named). CopyObject
+(`x-amz-copy-source`, metadata directive COPY or REPLACE) and
+UploadPartCopy (`x-amz-copy-source-range`) stream the source version
+into the destination window by window. Any other bucket subresource
+(policy, lifecycle, tagging, object lock, replication, ...) answers 501;
+tagging, lock, SSE and quota headers on object requests are ignored. The
+rest of the S3 surface is minio_tpu/s3/server.py's and comes in later
+slices.
 """
 
 from __future__ import annotations
 
+import base64
 import datetime
 import email.utils
 import hashlib
@@ -55,8 +75,9 @@ from minio_tpu_torch.object import types as ot
 from minio_tpu_torch.object.erasure_object import _resolve_range
 from minio_tpu_torch.s3 import checksum as ck
 from minio_tpu_torch.s3 import sigv4
-from minio_tpu_torch.utils.streams import (HashingReader, HttpChunkedReader,
-                                           LimitedReader, Payload)
+from minio_tpu_torch.utils.streams import (ChunkReader, HashingReader,
+                                           HttpChunkedReader, LimitedReader,
+                                           Payload)
 
 # code -> (http status, message)
 ERRORS = {
@@ -85,6 +106,9 @@ ERRORS = {
     "InvalidPart": (400, "One or more of the specified parts could not be found."),
     "InvalidPartOrder": (400, "The list of parts was not in ascending order."),
     "EntityTooSmall": (400, "Your proposed upload is smaller than the minimum allowed object size."),
+    "BucketNotEmpty": (409, "The bucket you tried to delete is not empty."),
+    "NoSuchVersion": (404, "The specified version does not exist."),
+    "MethodNotAllowed": (405, "The specified method is not allowed against this resource."),
 }
 
 _OBJECT_ERRORS = {
@@ -99,7 +123,19 @@ _OBJECT_ERRORS = {
     ot.InvalidPart: "InvalidPart",
     ot.InvalidPartOrder: "InvalidPartOrder",
     ot.EntityTooSmall: "EntityTooSmall",
+    ot.BucketNotEmpty: "BucketNotEmpty",
+    ot.VersionNotFound: "NoSuchVersion",
+    ot.MethodNotAllowed: "MethodNotAllowed",
 }
+
+# Query parameters of the bucket GETs served here (listings, versioning,
+# uploads). A bucket request with any other subresource (policy,
+# lifecycle, tagging, object-lock, replication, ...) answers 501.
+_BUCKET_GET_PARAMS = frozenset((
+    "prefix", "delimiter", "marker", "max-keys", "list-type",
+    "continuation-token", "start-after", "encoding-type", "fetch-owner",
+    "versions", "key-marker", "version-id-marker", "versioning",
+    "uploads"))
 
 XMLNS = "http://s3.amazonaws.com/doc/2006-03-01/"
 ADMIN_PREFIX = "/minio/admin/v3/"
@@ -133,6 +169,29 @@ def _el(parent, tag: str, text=None):
     if text is not None:
         e.text = str(text)
     return e
+
+
+def _b64e(s: str) -> str:
+    return base64.urlsafe_b64encode(s.encode()).decode()
+
+
+def _b64d(s: str) -> str:
+    try:
+        return base64.urlsafe_b64decode(s.encode()).decode()
+    except Exception:  # noqa: BLE001 - any malformed token
+        raise S3Error("InvalidArgument", "bad continuation token") from None
+
+
+def _copy_source(headers: dict) -> tuple[str, str, str]:
+    """(bucket, key, version id) of x-amz-copy-source
+    (`/bucket/key[?versionId=...]`, URL-encoded)."""
+    src = urllib.parse.unquote(headers["x-amz-copy-source"])
+    src, _, vid = src.partition("?versionId=")
+    src = src.lstrip("/")
+    if "/" not in src:
+        raise S3Error("InvalidArgument", "bad copy source")
+    bucket, key = src.split("/", 1)
+    return bucket, key, vid
 
 
 def _range_spec(rng: str):
@@ -272,7 +331,11 @@ class _Handler(BaseHTTPRequestHandler):
                 done = True
                 return
             if not bucket:
-                raise S3Error("NotImplemented", "ListBuckets")
+                if method != "GET":
+                    raise S3Error("NotImplemented", f"{method} /")
+                self._list_buckets()
+                done = True
+                return
             if not _BUCKET_RE.match(bucket):
                 raise S3Error("InvalidBucketName")
             handler = getattr(self, f"_{method.lower()}_"
@@ -291,7 +354,13 @@ class _Handler(BaseHTTPRequestHandler):
         except ot.ObjectError as e:
             code = next((c for t, c in _OBJECT_ERRORS.items()
                          if isinstance(e, t)), "InternalError")
-            self._error(S3Error(code), method)
+            headers = {}
+            if isinstance(e, ot.MethodNotAllowed) or \
+                    getattr(e, "delete_marker", False):
+                # A read that met a delete marker (AWS's headers).
+                headers = {"x-amz-delete-marker": "true",
+                           "x-amz-version-id": e.version_id}
+            self._error(S3Error(code), method, headers)
         except Exception:  # noqa: BLE001 - request boundary: log, answer 500
             traceback.print_exc(file=sys.stderr)
             self._error(S3Error("InternalError"), method)
@@ -473,12 +542,14 @@ class _Handler(BaseHTTPRequestHandler):
         if body:
             self.wfile.write(body)
 
-    def _error(self, err: S3Error, method: str) -> None:
+    def _error(self, err: S3Error, method: str,
+               headers: dict | None = None) -> None:
         xml = ('<?xml version="1.0" encoding="UTF-8"?>\n<Error>'
                f"<Code>{err.code}</Code><Message>{escape(str(err))}</Message>"
                f"<Resource>{escape(self._resource)}</Resource></Error>"
                ).encode()
-        self._send(err.status, {"Content-Type": "application/xml"},
+        self._send(err.status, {"Content-Type": "application/xml",
+                                **(headers or {})},
                    b"" if method == "HEAD" else xml,
                    length=len(xml))
 
@@ -487,12 +558,35 @@ class _Handler(BaseHTTPRequestHandler):
         h = {"ETag": f'"{info.etag}"', "Last-Modified": _http_date(info.mod_time),
              "Content-Type": info.content_type or "application/octet-stream",
              "Accept-Ranges": "bytes"}
+        if info.version_id:
+            h["x-amz-version-id"] = info.version_id
         h.update({f"x-amz-meta-{k}": v for k, v in info.user_metadata.items()})
         return h
 
+    def _version_opts(self) -> ot.GetOptions:
+        return ot.GetOptions(version_id=self._query.get("versionId",
+                                                        [""])[0])
+
     # -- buckets ----------------------------------------------------------
 
-    def _put_bucket(self, bucket, _key, _body, _headers):
+    def _list_buckets(self):
+        """GET / (minio_tpu/s3/server.py `_list_buckets`)."""
+        root = ET.Element("ListAllMyBucketsResult", xmlns=XMLNS)
+        owner = _el(root, "Owner")
+        _el(owner, "ID", "minio-tpu")
+        _el(owner, "DisplayName", "minio-tpu")
+        bl = _el(root, "Buckets")
+        for b in self.s3.objects.list_buckets():
+            be = _el(bl, "Bucket")
+            _el(be, "Name", b.name)
+            _el(be, "CreationDate", _iso8601(b.created))
+        self._send_xml(root)
+
+    def _put_bucket(self, bucket, _key, body, _headers):
+        if "versioning" in self._query:
+            return self._put_versioning(bucket, body)
+        if self._query:
+            raise S3Error("NotImplemented", "PUT on this bucket resource")
         self.s3.objects.make_bucket(bucket)
         self._send(200, {"Location": f"/{bucket}"})
 
@@ -501,10 +595,197 @@ class _Handler(BaseHTTPRequestHandler):
             raise ot.BucketNotFound(bucket)
         self._send(200, {})
 
+    def _delete_bucket(self, bucket, _key, _body, _headers):
+        if self._query:
+            raise S3Error("NotImplemented", "DELETE on this bucket resource")
+        self.s3.objects.delete_bucket(bucket)
+        self._send(204, {})
+
+    def _post_bucket(self, bucket, _key, body, _headers):
+        if "delete" not in self._query:
+            raise S3Error("NotImplemented", "POST on this bucket resource")
+        self._delete_objects(bucket, body)
+
     def _get_bucket(self, bucket, _key, _body, _headers):
-        if "uploads" not in self._query:
-            raise S3Error("NotImplemented", "GET on this resource")
-        prefix = self._query.get("prefix", [""])[0]
+        if set(self._query) - _BUCKET_GET_PARAMS:
+            raise S3Error("NotImplemented", "GET on this bucket resource")
+        if "uploads" in self._query:
+            return self._list_uploads(bucket)
+        if "versioning" in self._query:
+            return self._get_versioning(bucket)
+        if "versions" in self._query:
+            return self._list_versions(bucket)
+        self._list_objects(bucket)
+
+    def _q(self, name: str, default: str = "") -> str:
+        return self._query.get(name, [default])[0]
+
+    def _list_objects(self, bucket):
+        """ListObjects V1 and V2 (`?list-type=2`, continuation tokens),
+        as minio_tpu/s3/server.py `_list_objects` answers them."""
+        v2 = self._q("list-type") == "2"
+        prefix, delimiter = self._q("prefix"), self._q("delimiter")
+        max_keys = int(self._q("max-keys", "1000") or 1000)
+        if v2:
+            marker = self._q("start-after")
+            if self._q("continuation-token"):
+                marker = _b64d(self._q("continuation-token"))
+        else:
+            marker = self._q("marker")
+        info = self.s3.objects.list_objects(
+            bucket, prefix=prefix, marker=marker, delimiter=delimiter,
+            max_keys=max_keys)
+        root = ET.Element("ListBucketResult", xmlns=XMLNS)
+        _el(root, "Name", bucket)
+        _el(root, "Prefix", prefix)
+        if delimiter:
+            _el(root, "Delimiter", delimiter)
+        _el(root, "MaxKeys", max_keys)
+        _el(root, "IsTruncated", "true" if info.is_truncated else "false")
+        if v2:
+            _el(root, "KeyCount", len(info.objects) + len(info.prefixes))
+            if info.is_truncated:
+                _el(root, "NextContinuationToken", _b64e(info.next_marker))
+        else:
+            _el(root, "Marker", marker)
+            if info.is_truncated:
+                _el(root, "NextMarker", info.next_marker)
+        for o in info.objects:
+            c = _el(root, "Contents")
+            _el(c, "Key", o.name)
+            _el(c, "LastModified", _iso8601(o.mod_time))
+            _el(c, "ETag", f'"{o.etag}"')
+            _el(c, "Size", o.size)
+            _el(c, "StorageClass", o.storage_class)
+        for p in info.prefixes:
+            _el(_el(root, "CommonPrefixes"), "Prefix", p)
+        self._send_xml(root)
+
+    def _list_versions(self, bucket):
+        """GET ?versions, ListObjectVersions (minio_tpu/s3/server.py
+        `_list_versions`): a version-id-marker resumes within the marker
+        key, its older versions first, then the listing goes on past the
+        key."""
+        objects = self.s3.objects
+        prefix, delimiter = self._q("prefix"), self._q("delimiter")
+        key_marker = self._q("key-marker")
+        vid_marker = self._q("version-id-marker")
+        max_keys = int(self._q("max-keys", "1000") or 1000)
+        entries = []
+        if key_marker and vid_marker:
+            try:
+                versions = objects.list_versions_all(bucket, key_marker)
+            except ot.ObjectNotFound:            # the marker key is gone
+                versions = []
+            emit = False
+            for v in versions:                   # latest first
+                if emit:
+                    entries.append(objects._to_info(bucket, key_marker, v))
+                elif (v.version_id or "null") == vid_marker:
+                    emit = True
+        info = objects.list_objects(bucket, prefix=prefix, marker=key_marker,
+                                    delimiter=delimiter, max_keys=max_keys,
+                                    include_versions=True)
+        combined = entries + info.objects
+        truncated = info.is_truncated
+        if len(combined) > max_keys:
+            combined = combined[:max_keys]
+            truncated = True
+        root = ET.Element("ListVersionsResult", xmlns=XMLNS)
+        _el(root, "Name", bucket)
+        _el(root, "Prefix", prefix)
+        _el(root, "KeyMarker", key_marker)
+        if vid_marker:
+            _el(root, "VersionIdMarker", vid_marker)
+        _el(root, "MaxKeys", max_keys)
+        _el(root, "IsTruncated", "true" if truncated else "false")
+        if truncated and combined:
+            _el(root, "NextKeyMarker", combined[-1].name)
+            _el(root, "NextVersionIdMarker", combined[-1].version_id or "null")
+        for o in combined:
+            ve = _el(root, "DeleteMarker" if o.delete_marker else "Version")
+            _el(ve, "Key", o.name)
+            _el(ve, "VersionId", o.version_id or "null")
+            _el(ve, "IsLatest", "true" if o.is_latest else "false")
+            _el(ve, "LastModified", _iso8601(o.mod_time))
+            if not o.delete_marker:
+                _el(ve, "ETag", f'"{o.etag}"')
+                _el(ve, "Size", o.size)
+                _el(ve, "StorageClass", o.storage_class)
+        for p in info.prefixes:
+            _el(_el(root, "CommonPrefixes"), "Prefix", p)
+        self._send_xml(root)
+
+    def _get_versioning(self, bucket):
+        self.s3.objects._check_bucket(bucket)
+        root = ET.Element("VersioningConfiguration", xmlns=XMLNS)
+        state = self.s3.objects.versioning_state(bucket)
+        if state:
+            _el(root, "Status", state)
+        self._send_xml(root)
+
+    def _put_versioning(self, bucket, body):
+        self.s3.objects._check_bucket(bucket)
+        try:
+            tree = ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        status = tree.findtext(f"{{{XMLNS}}}Status") or tree.findtext("Status")
+        if status not in ("Enabled", "Suspended"):
+            raise S3Error("MalformedXML", "Status must be Enabled or Suspended")
+        self.s3.objects.set_bucket_versioning(bucket, status)
+        self._send(200, {})
+
+    @staticmethod
+    def _delete_options(version_id: str, state: str) -> ot.DeleteOptions:
+        return ot.DeleteOptions(version_id=version_id,
+                                versioned=state == "Enabled",
+                                null_marker=state == "Suspended"
+                                and not version_id)
+
+    def _delete_objects(self, bucket, body):
+        """POST ?delete, DeleteObjects: up to 1000 keys, each deleted as
+        a DELETE of it would be; Quiet answers the errors only."""
+        try:
+            tree = ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        ns = f"{{{XMLNS}}}"
+        objs = tree.findall(f"{ns}Object") or tree.findall("Object")
+        quiet = (tree.findtext(f"{ns}Quiet") or tree.findtext("Quiet")
+                 or "") == "true"
+        state = self.s3.objects.versioning_state(bucket)
+        root = ET.Element("DeleteResult", xmlns=XMLNS)
+        for obj in objs[:1000]:
+            key = obj.findtext(f"{ns}Key") or obj.findtext("Key") or ""
+            vid = obj.findtext(f"{ns}VersionId") or \
+                obj.findtext("VersionId") or ""
+            try:
+                deleted = self.s3.objects.delete_object(
+                    bucket, key, self._delete_options(vid, state))
+            except Exception as e:  # noqa: BLE001 - a result per key
+                code = next((c for t, c in _OBJECT_ERRORS.items()
+                             if isinstance(e, t)), "InternalError")
+                if code == "InternalError":
+                    traceback.print_exc(file=sys.stderr)
+                ee = _el(root, "Error")
+                _el(ee, "Key", key)
+                _el(ee, "Code", code)
+                _el(ee, "Message", ERRORS[code][1])
+                continue
+            if not quiet:
+                de = _el(root, "Deleted")
+                _el(de, "Key", key)
+                if vid:
+                    _el(de, "VersionId", vid)
+                if deleted.delete_marker:
+                    _el(de, "DeleteMarker", "true")
+                    _el(de, "DeleteMarkerVersionId",
+                        deleted.delete_marker_version_id)
+        self._send_xml(root)
+
+    def _list_uploads(self, bucket):
+        prefix = self._q("prefix")
         root = ET.Element("ListMultipartUploadsResult", xmlns=XMLNS)
         _el(root, "Bucket", bucket)
         _el(root, "Prefix", prefix)
@@ -543,7 +824,10 @@ class _Handler(BaseHTTPRequestHandler):
             meta = {k[len("x-amz-meta-"):]: v for k, v in headers.items()
                     if k.startswith("x-amz-meta-")}
             uid = self.s3.objects.new_multipart_upload(
-                bucket, key, headers.get("content-type", ""), meta)
+                bucket, key, ot.PutOptions(
+                    versioned=self.s3.objects.bucket_versioning(bucket),
+                    user_metadata=meta,
+                    content_type=headers.get("content-type", "")))
             root = ET.Element("InitiateMultipartUploadResult", xmlns=XMLNS)
             _el(root, "Bucket", bucket)
             _el(root, "Key", key)
@@ -571,18 +855,53 @@ class _Handler(BaseHTTPRequestHandler):
         _el(root, "Bucket", bucket)
         _el(root, "Key", key)
         _el(root, "ETag", f'"{info.etag}"')
-        self._send_xml(root)
+        self._send_xml(root, {"x-amz-version-id": info.version_id}
+                       if info.version_id else None)
 
-    def _put_part(self, bucket, key, payload):
+    def _put_part(self, bucket, key, payload, headers):
         try:
             part_num = int(self._query["partNumber"][0])
         except (ValueError, KeyError):
             raise S3Error("InvalidArgument") from None
-        part = self.s3.objects.put_object_part(
-            bucket, key, self._query.get("uploadId", [""])[0], part_num,
-            payload)
-        self._send(200, {"ETag": f'"{part.etag}"',
-                         **payload.checksum_headers})
+        uid = self._query.get("uploadId", [""])[0]
+        if "x-amz-copy-source" not in headers:
+            part = self.s3.objects.put_object_part(bucket, key, uid,
+                                                   part_num, payload)
+            return self._send(200, {"ETag": f'"{part.etag}"',
+                                    **payload.checksum_headers})
+        # UploadPartCopy: a byte range of the source object, streamed
+        # window by window into the part.
+        payload.read_all()                   # the (empty) body's checks
+        sbucket, skey, svid = _copy_source(headers)
+        spec = _range_spec(headers.get("x-amz-copy-source-range", ""))
+        sinfo = self.s3.objects.get_object_info(
+            sbucket, skey, ot.GetOptions(version_id=svid))
+        start, length = (0, sinfo.size) if spec is None else \
+            _resolve_range(spec, sinfo.size, sbucket, skey)
+        part = self._copy_into(
+            sbucket, skey, sinfo.version_id or "null", start, length,
+            lambda src: self.s3.objects.put_object_part(bucket, key, uid,
+                                                        part_num, src))
+        root = ET.Element("CopyPartResult", xmlns=XMLNS)
+        _el(root, "ETag", f'"{part.etag}"')
+        _el(root, "LastModified", _iso8601(part.mod_time))
+        self._send_xml(root)
+
+    def _copy_into(self, sbucket: str, skey: str, svid: str, start: int,
+                   length, write):
+        """write(Payload) over bytes [start, start + length) of version
+        `svid` of the source ("null" for the null version; length None:
+        to the end), streamed from
+        get_object_stream one window at a time; the source's leases
+        return whatever write() does. Returns write()'s result."""
+        sinfo, chunks = self.s3.objects.get_object_stream(
+            sbucket, skey, start, length, ot.GetOptions(version_id=svid))
+        reader = ChunkReader(chunks)
+        try:
+            return write(Payload(reader, sinfo.size - start
+                                 if length is None else length))
+        finally:
+            reader.close()
 
     def _list_parts(self, bucket, key):
         uid = self._query["uploadId"][0]
@@ -614,15 +933,48 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _put_object(self, bucket, key, payload, headers):
         if "partNumber" in self._query:
-            return self._put_part(bucket, key, payload)
+            return self._put_part(bucket, key, payload, headers)
+        if "x-amz-copy-source" in headers:
+            return self._copy_object(bucket, key, payload, headers)
         meta = {k[len("x-amz-meta-"):]: v for k, v in headers.items()
                 if k.startswith("x-amz-meta-")}
-        info = self.s3.objects.put_object(
-            bucket, key, payload,
-            content_type=headers.get("content-type", ""),
-            user_metadata=meta, internal_metadata=payload.internal_metadata)
+        info = self.s3.objects.put_object(bucket, key, payload, ot.PutOptions(
+            versioned=self.s3.objects.bucket_versioning(bucket),
+            user_metadata=meta, content_type=headers.get("content-type", ""),
+            internal_metadata=payload.internal_metadata))
         self._send(200, {"ETag": f'"{info.etag}"',
+                         **({"x-amz-version-id": info.version_id}
+                            if info.version_id else {}),
                          **payload.checksum_headers})
+
+    def _copy_object(self, bucket, key, payload, headers):
+        """CopyObject (minio_tpu/s3/server.py `_copy_object`): the source
+        version (x-amz-copy-source, `?versionId=`) streams into a new
+        version of the destination; x-amz-metadata-directive COPY keeps
+        the source's metadata and content type, REPLACE takes the
+        request's."""
+        payload.read_all()                   # the (empty) body's checks
+        sbucket, skey, svid = _copy_source(headers)
+        sinfo = self.s3.objects.get_object_info(
+            sbucket, skey, ot.GetOptions(version_id=svid))
+        if headers.get("x-amz-metadata-directive", "COPY").upper() \
+                == "REPLACE":
+            meta = {k[len("x-amz-meta-"):]: v for k, v in headers.items()
+                    if k.startswith("x-amz-meta-")}
+            ctype = headers.get("content-type", sinfo.content_type)
+        else:
+            meta, ctype = dict(sinfo.user_metadata), sinfo.content_type
+        opts = ot.PutOptions(
+            versioned=self.s3.objects.bucket_versioning(bucket),
+            user_metadata=meta, content_type=ctype)
+        info = self._copy_into(
+            sbucket, skey, sinfo.version_id or "null", 0, None,
+            lambda src: self.s3.objects.put_object(bucket, key, src, opts))
+        root = ET.Element("CopyObjectResult", xmlns=XMLNS)
+        _el(root, "ETag", f'"{info.etag}"')
+        _el(root, "LastModified", _iso8601(info.mod_time))
+        self._send_xml(root, {"x-amz-version-id": info.version_id}
+                       if info.version_id else None)
 
     @staticmethod
     def _resolve(spec, info, bucket, key) -> tuple:
@@ -653,7 +1005,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _head_object(self, bucket, key, _body, headers):
         spec = _range_spec(headers.get("range", ""))
-        info = self.s3.objects.get_object_info(bucket, key)
+        info = self.s3.objects.get_object_info(bucket, key,
+                                               self._version_opts())
         spec, start, length = self._resolve(spec, info, bucket, key)
         self._send(*self._answer(info, spec, start, length, headers),
                    length=length)
@@ -662,13 +1015,15 @@ class _Handler(BaseHTTPRequestHandler):
         if "uploadId" in self._query:
             return self._list_parts(bucket, key)
         spec = _range_spec(headers.get("range", ""))
+        opts = self._version_opts()
         start, length = 0, None
         if spec is not None:
-            spec, start, length = self._resolve(
-                spec, self.s3.objects.get_object_info(bucket, key), bucket,
-                key)
+            info = self.s3.objects.get_object_info(bucket, key, opts)
+            spec, start, length = self._resolve(spec, info, bucket, key)
+            # The range was resolved on this version: read the same one.
+            opts = ot.GetOptions(version_id=info.version_id or "null")
         info, chunks = self.s3.objects.get_object_stream(bucket, key, start,
-                                                         length)
+                                                         length, opts)
         if length is None:
             length = info.size
         try:
@@ -693,6 +1048,15 @@ class _Handler(BaseHTTPRequestHandler):
         if "uploadId" in self._query:
             self.s3.objects.abort_multipart_upload(
                 bucket, key, self._query["uploadId"][0])
-        else:
-            self.s3.objects.delete_object(bucket, key)
-        self._send(204, {})
+            return self._send(204, {})
+        vid = self._version_opts().version_id
+        deleted = self.s3.objects.delete_object(
+            bucket, key, self._delete_options(
+                vid, self.s3.objects.versioning_state(bucket)))
+        headers = {}
+        if deleted.delete_marker:
+            headers = {"x-amz-delete-marker": "true",
+                       "x-amz-version-id": deleted.delete_marker_version_id}
+        elif vid:
+            headers = {"x-amz-version-id": vid}
+        self._send(204, headers)

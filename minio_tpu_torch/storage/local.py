@@ -47,6 +47,10 @@ class VolumeExists(StorageError):
     pass
 
 
+class VolumeNotEmpty(StorageError):
+    pass
+
+
 class DiskAccessDenied(StorageError):
     pass
 
@@ -55,6 +59,14 @@ class DiskAccessDenied(StorageError):
 class VolInfo:
     name: str
     created: int = 0
+
+
+def _is_uuid(name: str) -> bool:
+    try:
+        uuid_mod.UUID(name)
+        return True
+    except ValueError:
+        return False
 
 
 def _is_valid_volname(vol: str) -> bool:
@@ -137,6 +149,22 @@ class LocalStorage:
             raise VolumeNotFound(volume)
         return VolInfo(name=volume, created=int(os.stat(d).st_ctime_ns))
 
+    def delete_vol(self, volume: str, force: bool = False) -> None:
+        """Remove an empty volume (VolumeNotEmpty otherwise); with
+        `force`, remove it and everything in it."""
+        d = self._vol_dir(volume)
+        if not os.path.isdir(d):
+            raise VolumeNotFound(volume)
+        if force:
+            shutil.rmtree(d)
+            return
+        try:
+            os.rmdir(d)
+        except OSError as e:
+            if e.errno in (errno.ENOTEMPTY, errno.EEXIST):
+                raise VolumeNotEmpty(volume) from e
+            raise
+
     # -- files --------------------------------------------------------------
 
     def write_all(self, volume: str, path: str, data: bytes) -> None:
@@ -178,53 +206,87 @@ class LocalStorage:
         return [n + "/" if os.path.isdir(os.path.join(base, n)) else n
                 for n in names]
 
-    def walk_dir(self, volume: str) -> Iterator[tuple[str, bytes]]:
-        """Yield (object path, raw xl.meta) for every object of the
-        volume in S3 key order (minio_tpu/storage/local.py `walk_dir`;
-        reference WalkDir, cmd/metacache-walk.go:73). A directory that
-        holds xl.meta is an object; the children its journal names as
-        data dirs are its shard storage, any other child is a key of
-        its own. A directory `d` sorts as the key "d" (before siblings
-        such as "d-x") and as the prefix "d/" (after them)."""
+    def walk_dir(self, volume: str, base_dir: str = "",
+                 recursive: bool = True,
+                 forward_from: str = "") -> Iterator[tuple[str, bytes]]:
+        """Yield (object path, raw xl.meta) for the objects under
+        `base_dir` in S3 key order, streaming (minio_tpu/storage/local.py
+        `walk_dir`; reference WalkDir, cmd/metacache-walk.go:73). A
+        directory that holds xl.meta is an object; the children its
+        journal names as data dirs are its shard storage, any other
+        child is a key of its own. A directory `d` sorts as the key "d"
+        (before siblings such as "d-x") and as the prefix "d/" (after
+        them). Subtrees wholly before `forward_from` are not entered, so
+        a walk that resumes at a marker costs about the keys after it.
+        recursive=False yields each subtree once as ("d/", b"")."""
         vol = self._vol_dir(volume)
         if not os.path.isdir(vol):
             raise VolumeNotFound(volume)
 
+        # The journal last read, for the descend event of the same dir:
+        # one slot (an object's subtree is walked right after it).
+        last = ["", b""]
+
         def journal(rel: str) -> Optional[bytes]:
+            if last[0] == rel:
+                return last[1]
             try:
                 with open(os.path.join(vol, rel, META_FILE), "rb") as f:
-                    return f.read()
+                    blob = f.read()
             except (FileNotFoundError, NotADirectoryError):
                 return None
+            last[0], last[1] = rel, blob
+            return blob
 
-        def data_dirs(blob: Optional[bytes]) -> frozenset:
+        def data_dirs(rel: str) -> frozenset:
+            """The data dirs rel's journal names: only those children
+            are shard storage; any other one is a key."""
             try:
                 return frozenset(v.get("ddir") for v in
-                                 XLMeta.load(blob).versions if v.get("ddir"))
-            except (MetaError, TypeError):
+                                 XLMeta.load(journal(rel) or b"").versions
+                                 if v.get("ddir"))
+            except MetaError:
                 return frozenset()
 
-        def walk(rel: str, skip: frozenset) -> Iterator[tuple[str, bytes]]:
+        def walk(rel: str, rel_is_obj: bool) -> Iterator[tuple[str, bytes]]:
             full = os.path.join(vol, rel) if rel else vol
             try:
                 names = os.listdir(full)
             except (FileNotFoundError, NotADirectoryError):
                 return
+            ddirs: Optional[frozenset] = None     # parsed when needed
             events = []
             for n in names:
-                if n != META_FILE and n not in skip and \
-                        os.path.isdir(os.path.join(full, n)):
+                if n == META_FILE:
+                    continue
+                if rel_is_obj and _is_uuid(n):
+                    if ddirs is None:
+                        ddirs = data_dirs(rel)
+                    if n in ddirs:
+                        continue
+                if os.path.isdir(os.path.join(full, n)):
                     events += [(n, n, False), (n + "/", n, True)]
             for _, n, descend in sorted(events):
                 child = f"{rel}/{n}" if rel else n
-                blob = journal(child)
                 if not descend:
-                    if blob is not None:
-                        yield child, blob
-                else:
-                    yield from walk(child, data_dirs(blob)
-                                    if blob is not None else frozenset())
-        yield from walk("", frozenset())
+                    if child >= forward_from or \
+                            forward_from.startswith(child):
+                        blob = journal(child)
+                        if blob is not None:
+                            yield child, blob
+                    continue
+                subtree = child + "/"
+                if subtree < forward_from and \
+                        not forward_from.startswith(subtree):
+                    continue
+                if not recursive:
+                    yield subtree, b""
+                    continue
+                yield from walk(child, os.path.exists(
+                    os.path.join(vol, child, META_FILE)))
+
+        yield from walk(base_dir, bool(base_dir) and os.path.exists(
+            os.path.join(vol, base_dir, META_FILE)))
 
     def create_file(self, volume: str, path: str, chunks, append: bool = False,
                     sync: bool = True) -> None:
@@ -309,6 +371,8 @@ class LocalStorage:
                 xl = self._read_meta(volume, path)
             except FileNotFoundErr:
                 xl = XLMeta()
+            if xl.version_unchanged(fi):
+                return
             old_ddir = xl.add_version(fi)
             self._atomic_write(self._meta_path(volume, path), xl.dump())
             self._reclaim_data_dir(volume, path, old_ddir)
@@ -318,10 +382,14 @@ class LocalStorage:
         xl = self._read_meta(volume, path)
         return xl.to_fileinfo(volume, path, version_id, read_data=read_data)
 
+    def list_versions(self, volume: str, path: str) -> list[FileInfo]:
+        return self._read_meta(volume, path).list_versions(volume, path)
+
     def delete_version(self, volume: str, path: str,
                        version_id: str = "") -> None:
-        """Remove one version and its unreferenced data dir; remove the
-        object dir when the journal empties."""
+        """Remove one version, and its data dir unless another version
+        still points at it; remove the object dir when the journal
+        empties."""
         with self._path_lock(volume, path):
             xl = self._read_meta(volume, path)
             data_dir = xl.delete_version(version_id)

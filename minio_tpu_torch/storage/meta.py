@@ -99,6 +99,7 @@ class FileInfo:
     volume: str = ""
     name: str = ""
     version_id: str = ""         # "" == null version
+    is_latest: bool = True
     deleted: bool = False        # delete marker
     data_dir: str = ""
     mod_time: int = 0            # ns since epoch
@@ -186,9 +187,22 @@ class XLMeta:
             self.inline[vid] = bytes(fi.inline_data)
         self._sort()
         if old_ddir and old_ddir != fi.data_dir and \
-                not any(v.get("ddir") == old_ddir for v in self.versions):
+                self.shared_data_dir_count(vid, old_ddir) == 0:
             return old_ddir
         return ""
+
+    def version_unchanged(self, fi: FileInfo) -> bool:
+        """True when add_version(fi) would change nothing: the resident
+        entry of fi's version id equals fi's version map and its inline
+        bytes (a heal or MRF rewrite of an agreeing copy then skips the
+        journal rewrite)."""
+        vid = fi.storage_version_id()
+        old = self._find(vid)
+        if old is None or old != fi.to_version_map():
+            return False
+        want = bytes(fi.inline_data) if fi.inline_data is not None \
+            else None
+        return self.inline.get(vid) == want
 
     def delete_version(self, version_id: str) -> str:
         """Remove a version; returns its data_dir ("" if none/inline)."""
@@ -199,12 +213,21 @@ class XLMeta:
         self.versions.remove(v)
         self.inline.pop(vid, None)
         ddir = v.get("ddir", "") if not v.get("inline") else ""
-        if ddir and any(o.get("ddir") == ddir for o in self.versions):
+        if ddir and self.shared_data_dir_count(vid, ddir):
             return ""
         return ddir
 
+    def shared_data_dir_count(self, vid: str, data_dir: str) -> int:
+        """How many other versions reference data_dir."""
+        return sum(1 for v in self.versions
+                   if v.get("ddir") == data_dir and v["vid"] != vid)
+
     def to_fileinfo(self, volume: str, name: str, version_id: str = "",
                     read_data: bool = False) -> FileInfo:
+        """Resolve a version (default: the latest) into a FileInfo. The
+        latest version of an object whose latest is a delete marker
+        comes back deleted=True; a named version that is absent raises
+        VersionNotFoundErr."""
         if not self.versions:
             raise FileNotFoundErr(f"{volume}/{name}")
         if version_id:
@@ -213,9 +236,14 @@ class XLMeta:
                 raise VersionNotFoundErr(version_id)
         else:
             v = self.versions[0]
+        return self._map_to_fileinfo(v, volume, name, read_data)
+
+    def _map_to_fileinfo(self, v: dict, volume: str, name: str,
+                         read_data: bool) -> FileInfo:
         vid = v["vid"]
         fi = FileInfo(volume=volume, name=name,
                       version_id="" if vid == NULL_VERSION_ID else vid,
+                      is_latest=self.versions[0] is v,
                       deleted=v["kind"] == KIND_DELETE_MARKER,
                       mod_time=v["mt"], metadata=dict(v.get("meta", {})))
         if fi.deleted:
@@ -227,6 +255,11 @@ class XLMeta:
         if v.get("inline"):
             fi.inline_data = self.inline.get(vid, b"") if read_data else b""
         return fi
+
+    def list_versions(self, volume: str, name: str) -> list[FileInfo]:
+        """Every version, latest first, without inline data."""
+        return [self._map_to_fileinfo(v, volume, name, read_data=False)
+                for v in self.versions]
 
 
 def _plain(x):

@@ -18,9 +18,18 @@ host clock and each --reps times (median and spread printed):
     part size), one part after another, and a drained GET of it,
   * heal_object (normal mode) of the object with one data-shard drive
     wiped and with two data and two parity drives wiped,
+  * the bucket namespace: a server-side copy of the object (its GET
+    stream fed to put_object, as CopyObject runs), a drained GET by
+    version id of the oldest of three versions of --size-mib in a
+    versioned bucket, healthy and with 4 data-shard drives wiped, and a
+    listing of 10,000 keys of 1 KiB (written once, from 16 threads,
+    after a tenth of them from one thread) in pages of 1000, deep and
+    with delimiter "/" (keys/s); 100 of the one-thread PUTs again under
+    torch.profiler and under cProfile (host time by function),
 
 then runs one signed PUT and one GET (healthy, then degraded), the
-multipart GET and the one-drive heal under torch.profiler and reports,
+multipart GET, the one-drive heal and the degraded GET of the oldest
+version under torch.profiler and reports,
 per operation, the device time by kernel and
 by copy, each copy row marked with the host memory it read or wrote
 (pinned or pageable), and the card's busy share of the wall time. The
@@ -31,10 +40,12 @@ power limit. It needs a CUDA card and fails without one.
 from __future__ import annotations
 
 import argparse
+import cProfile
 import hashlib
 import io
 import json
 import os
+import pstats
 import shutil
 import statistics
 import subprocess
@@ -44,12 +55,19 @@ import time
 import numpy as np
 import torch
 
+from concurrent.futures import ThreadPoolExecutor
+
 from minio_tpu_torch.object.erasure_object import ErasureSet, hash_order
+from minio_tpu_torch.object.types import GetOptions, PutOptions
 from minio_tpu_torch.storage.local import LocalStorage
-from minio_tpu_torch.utils.streams import HashingReader, LimitedReader, Payload
+from minio_tpu_torch.utils.streams import (ChunkReader, HashingReader,
+                                           LimitedReader, Payload)
 
 MIB = 1 << 20
 BUCKET = "prof"
+VBUCKET = "profv"
+LBUCKET = "profl"
+LIST_KEYS = [f"dir{d:02d}/obj{o:03d}" for d in range(100) for o in range(100)]
 
 
 def _timed(fn, reps: int, setup=None) -> dict:
@@ -99,6 +117,30 @@ def _device_profile(fn, setup=None) -> dict:
             "device_s_by_name": top, "copies": copies}
 
 
+def _fs_type(path: str) -> str:
+    """The file system type of the mount holding `path` (/proc/mounts)."""
+    best, fstype = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            mnt, kind = line.split()[1:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                best, fstype = mnt, kind
+    return fstype
+
+
+def _host_profile(fn) -> list:
+    """The host functions fn() spends the most own time in (cProfile,
+    which slows every Python call it counts): [(seconds, calls, name)]."""
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, nc, f"{path.rsplit('/', 1)[-1]}:{line}({name})")
+                   for (path, line, name), (_, nc, tt, _, _)
+                   in stats.items()), reverse=True)
+    return rows[:12]
+
+
 def _payload(body: bytes, want: str | None) -> Payload:
     """The body as the S3 front end hands it to put_object: a Payload
     over a length-limited reader; hashed as it streams and checked
@@ -132,7 +174,9 @@ def main(argv=None) -> int:
                             dir=shm if os.path.isdir(shm) and
                             shutil.disk_usage(shm).free > 8 << 30 else None)
     body = np.random.default_rng(args.seed).bytes(args.size_mib * MIB)
-    result = {"card": smi, "size_mib": args.size_mib}
+    result = {"card": smi, "size_mib": args.size_mib,
+              "drives": f"{root} ({_fs_type(root)})"}
+    print(f"drives under {result['drives']}", flush=True)
     try:
         drives = [os.path.join(root, f"d{i}") for i in range(12)]
         es = ErasureSet([LocalStorage(d) for d in drives], device="cuda")
@@ -218,19 +262,117 @@ def main(argv=None) -> int:
                                                        setup=wipe((0,)))
             if es.get_object(BUCKET, "obj")[1] != body:
                 raise RuntimeError("GET after heal returned other bytes")
+
+            # The bucket namespace, after the rows the parent has.
+            def copy():
+                info, chunks = es.get_object_stream(BUCKET, "obj")
+                reader = ChunkReader(chunks)
+                try:
+                    es.put_object(BUCKET, "copy", Payload(reader, info.size))
+                finally:
+                    reader.close()
+            result["copy_256"] = _timed(copy, args.reps)
+            if es.get_object(BUCKET, "copy")[1] != body:
+                raise RuntimeError("the copy returned other bytes")
+
+            es.make_bucket(VBUCKET)
+            es.set_bucket_versioning(VBUCKET, "Enabled")
+            oldest = es.put_object(VBUCKET, "obj", body,
+                                   PutOptions(versioned=True)).version_id
+            for shift in (1, 2):
+                es.put_object(VBUCKET, "obj", body[shift:] + body[:shift],
+                              PutOptions(versioned=True))
+
+            def get_old():
+                _, chunks = es.get_object_stream(
+                    VBUCKET, "obj", opts=GetOptions(version_id=oldest))
+                for _ in chunks:
+                    pass
+            if es.get_object(VBUCKET, "obj",
+                             GetOptions(version_id=oldest))[1] != body:
+                raise RuntimeError("GET by version id returned other bytes")
+            result["get_version_old"] = _timed(get_old, args.reps)
+            vdist = hash_order(f"{VBUCKET}/obj", 12)
+            for i in [i for i in range(12) if vdist[i] - 1 < 8][:4]:
+                shutil.rmtree(os.path.join(drives[i], VBUCKET, "obj"))
+            if es.get_object(VBUCKET, "obj",
+                             GetOptions(version_id=oldest))[1] != body:
+                raise RuntimeError("degraded GET by version id returned "
+                                   "other bytes")
+            result["get_version_old_degraded"] = _timed(get_old, args.reps)
+            result["profile_get_version_old_degraded"] = \
+                _device_profile(get_old)
+
+            es.make_bucket(LBUCKET)
+            small = np.random.default_rng(args.seed + 1).bytes(
+                len(LIST_KEYS) * 1024)
+            seq = LIST_KEYS[:len(LIST_KEYS) // 10]
+            t0 = time.perf_counter()
+            for i, key in enumerate(seq):
+                es.put_object(LBUCKET, key, small[i * 1024:(i + 1) * 1024])
+            result["put_1k_one_thread_s"] = time.perf_counter() - t0
+
+            def put_small(n: int):
+                def go():
+                    for j in range(n):
+                        i = j % len(seq)
+                        es.put_object(LBUCKET, seq[i],
+                                      small[i * 1024:(i + 1) * 1024])
+                return go
+            result["profile_put_1k"] = _device_profile(put_small(100))
+            result["host_put_1k"] = _host_profile(put_small(100))
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(16) as ex:
+                list(ex.map(lambda i: es.put_object(
+                    LBUCKET, LIST_KEYS[i], small[i * 1024:(i + 1) * 1024]),
+                    range(len(LIST_KEYS))))
+            result["list_10k_put_s"] = time.perf_counter() - t0
+
+            def listing(delimiter: str, want: int):
+                def go():
+                    marker, got = "", 0
+                    while True:
+                        info = es.list_objects(LBUCKET, marker=marker,
+                                               delimiter=delimiter)
+                        got += len(info.objects) + len(info.prefixes)
+                        if not info.is_truncated:
+                            break
+                        marker = info.next_marker
+                    if got != want:
+                        raise RuntimeError(f"listed {got} of {want}")
+                return go
+            result["list_10k"] = _timed(listing("", len(LIST_KEYS)),
+                                        args.reps)
+            result["list_10k_delimiter"] = _timed(listing(
+                "/", len({k.split("/")[0] for k in LIST_KEYS})), args.reps)
         finally:
             es.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     for op in ("sha256", "md5", "put_unsigned", "put", "get", "get_bytes",
-               "get_degraded", "mp_put", "mp_get", "heal_1", "heal_4"):
+               "get_degraded", "mp_put", "mp_get", "heal_1", "heal_4",
+               "copy_256", "get_version_old", "get_version_old_degraded",
+               "list_10k", "list_10k_delimiter"):
         r = result[op]
-        print(f"{op}: median {r['median_s']:.4f} s "
-              f"({args.size_mib / r['median_s']:.1f} MiB/s), "
+        rate = f"{len(LIST_KEYS) / r['median_s']:.1f} keys/s" \
+            if op.startswith("list") else \
+            f"{args.size_mib / r['median_s']:.1f} MiB/s"
+        print(f"{op}: median {r['median_s']:.4f} s ({rate}), "
               f"min {r['min_s']:.4f} max {r['max_s']:.4f} over {r['runs']}")
+    print(f"put_1k_one_thread: {result['put_1k_one_thread_s']:.4f} s "
+          f"({len(LIST_KEYS) // 10 / result['put_1k_one_thread_s']:.1f} "
+          "keys/s, one thread, once)")
+    print(f"list_10k_put: {result['list_10k_put_s']:.4f} s "
+          f"({len(LIST_KEYS) / result['list_10k_put_s']:.1f} keys/s, "
+          "16 threads, once)")
+    print("host_put_1k (100 one-thread PUTs of 1 KiB under cProfile), own "
+          "time by function:")
+    for tt, nc, name in result["host_put_1k"]:
+        print(f"    {tt * 1e3:10.3f} ms  {nc:7d} calls  {name[:80]}")
     for op in ("profile_put", "profile_get", "profile_get_degraded",
-               "profile_mp_get", "profile_heal_1"):
+               "profile_mp_get", "profile_heal_1",
+               "profile_get_version_old_degraded", "profile_put_1k"):
         r = result[op]
         print(f"{op}: wall {r['wall_s']:.4f} s, device busy "
               f"{r['device_busy_s']:.4f} s ({100 * r['device_busy_share']:.2f}%)")

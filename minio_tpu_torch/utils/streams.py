@@ -144,6 +144,37 @@ class _BytesReader:
         return len(chunk)
 
 
+class ChunkReader:
+    """A reader over an iterator of bytes-like chunks, each valid only
+    until the next is pulled (ErasureSet.get_object_stream's windows):
+    readinto copies out of the current chunk before pulling another, so a
+    copy's source streams into its destination's buffers with one copy.
+    close() closes the iterator, which returns its leases."""
+
+    def __init__(self, chunks):
+        self._chunks = chunks
+        self._cur = memoryview(b"")
+
+    def readinto(self, view) -> int:
+        while not len(self._cur):
+            nxt = next(self._chunks, None)
+            if nxt is None:
+                return 0
+            self._cur = memoryview(nxt).cast("B")
+        n = min(len(view), len(self._cur))
+        view[:n] = self._cur[:n]
+        self._cur = self._cur[n:]
+        return n
+
+    def read(self, n: int) -> bytes:
+        buf = bytearray(n)
+        return bytes(buf[:self.readinto(memoryview(buf))])
+
+    def close(self) -> None:
+        self._cur = memoryview(b"")
+        self._chunks.close()
+
+
 class HashingReader:
     """Feeds every byte that passes to a digest, so the content hash the
     client signed is checked the moment the body ends, with no second

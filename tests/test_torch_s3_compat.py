@@ -34,6 +34,7 @@ import io
 import os
 import re
 import threading
+import xml.etree.ElementTree as ET
 import zlib
 from pathlib import Path
 
@@ -643,3 +644,223 @@ def test_multipart_refusals_match_reference(servers, case):
     got, want = _both(servers, run)
     assert got == want
     assert want[1] == case.split()[0]
+
+
+# -- the bucket namespace --------------------------------------------------------
+
+_DATES = {"LastModified", "CreationDate", "Initiated"}
+_VIDS = {"VersionId", "NextVersionIdMarker", "VersionIdMarker",
+         "DeleteMarkerVersionId", "UploadId"}
+ENABLE = (b"<VersioningConfiguration><Status>Enabled</Status>"
+          b"</VersioningConfiguration>")
+SUSPEND = ENABLE.replace(b"Enabled", b"Suspended")
+
+
+class _Namespace:
+    """One server's answers, canonical: XML as (tag, text, children)
+    with dates blanked and version and upload ids named by their order
+    of appearance, errors as their code; the headers that matter."""
+
+    def __init__(self, addr):
+        self.c = S3Client(addr, timeout=300)
+        self.ids: dict = {}
+        self.answers: list = []
+
+    def vid(self, v: str) -> str:
+        if not v or v == "null":
+            return v
+        return self.ids.setdefault(v, f"v{len(self.ids)}")
+
+    def real(self, name: str) -> str:
+        """The server's own version id behind an order name."""
+        return next(v for v, n in self.ids.items() if n == name)
+
+    def _xml(self, e):
+        tag = e.tag.split("}")[-1]
+        text = (e.text or "").strip()
+        if tag in _DATES:
+            text = "<date>"
+        elif tag in _VIDS:
+            text = self.vid(text)
+        return tag, text, [self._xml(c) for c in e]
+
+    def __call__(self, method, path, **kw):
+        st, h, body = self.c.request(method, path, **kw)
+        h = {k.lower(): v for k, v in h.items()}
+        if st >= 300:
+            ans = (st, _code(body))
+        else:
+            doc = self._xml(ET.fromstring(body)) if body.startswith(b"<?xml") \
+                else hashlib.md5(body).hexdigest()
+            ans = (st, doc, h.get("etag"), h.get("x-amz-delete-marker"),
+                   self.vid(h.get("x-amz-version-id", "")))
+        self.answers.append((method, path, ans))
+        return ans
+
+
+def _run_both(servers, scenario):
+    port, _, ref = servers
+    got, want = _Namespace(port), _Namespace(ref)
+    for ns in (got, want):
+        scenario(ns)
+    assert len(got.answers) == len(want.answers)
+    for g, w in zip(got.answers, want.answers):
+        assert g == w
+    return want.answers
+
+
+def _page_versions(ns, bucket, max_keys):
+    """ListObjectVersions pages through both markers."""
+    q = {"versions": "", "max-keys": str(max_keys)}
+    while True:
+        st, doc, *_ = ns("GET", f"/{bucket}", query=q)
+        fields = {c[0]: c[1] for c in doc[2]}
+        if fields.get("IsTruncated") != "true":
+            return
+        q = {"versions": "", "max-keys": str(max_keys),
+             "key-marker": fields["NextKeyMarker"],
+             "version-id-marker": ns.real(fields["NextVersionIdMarker"])
+             if fields["NextVersionIdMarker"] != "null" else "null"}
+
+
+def test_versioning_routes_match_reference(servers):
+    """GET/PUT ?versioning, versioned PUT, GET and HEAD by versionId,
+    a delete marker (404 on GET, 405 on HEAD of its id), its removal,
+    NoSuchVersion, ListObjectVersions in pages of 2, Suspended PUTs, a
+    versioned multipart upload and DeleteBucket."""
+    bodies = [RNG.bytes(n) for n in (3000, 150_000, 2 * MIB + 3)]
+
+    def scenario(ns):
+        b = "nsvers"
+        ns("PUT", f"/{b}")
+        ns("GET", f"/{b}", query={"versioning": ""})
+        ns("PUT", f"/{b}", query={"versioning": ""}, body=b"<Versioning")
+        ns("PUT", f"/{b}", query={"versioning": ""},
+           body=ENABLE.replace(b"Enabled", b"On"))
+        ns("PUT", f"/{b}", query={"versioning": ""}, body=ENABLE)
+        ns("GET", f"/{b}", query={"versioning": ""})
+        for body in bodies:
+            ns("PUT", f"/{b}/k", body=body)
+        for v in ("v0", "v1", "v2"):
+            ns("GET", f"/{b}/k", query={"versionId": ns.real(v)})
+            ns("HEAD", f"/{b}/k", query={"versionId": ns.real(v)})
+        ns("GET", f"/{b}/k", query={"versionId":
+                                    "00000000-0000-4000-8000-000000000000"})
+        ns("DELETE", f"/{b}/k")
+        ns("GET", f"/{b}/k")
+        ns("HEAD", f"/{b}/k", query={"versionId": ns.real("v3")})
+        ns("DELETE", f"/{b}/gone")                 # a marker for no key
+        _page_versions(ns, b, 2)
+        ns("DELETE", f"/{b}/k", query={"versionId": ns.real("v3")})
+        ns("GET", f"/{b}/k")
+        ns("DELETE", f"/{b}/k", query={"versionId": ns.real("v0")})
+        _page_versions(ns, b, 1000)
+        st, doc, *_ = ns("POST", f"/{b}/mp", query={"uploads": ""})
+        uid = ns.real(next(c[1] for c in doc[2] if c[0] == "UploadId"))
+        etag = ns("PUT", f"/{b}/mp", body=bodies[0],
+                  query={"partNumber": "1", "uploadId": uid})[2]
+        ns("POST", f"/{b}/mp", query={"uploadId": uid},
+           body=_complete_xml([(1, etag)]))
+        ns("PUT", f"/{b}", query={"versioning": ""}, body=SUSPEND)
+        ns("GET", f"/{b}", query={"versioning": ""})
+        ns("PUT", f"/{b}/k", body=bodies[0])
+        ns("PUT", f"/{b}/k", body=bodies[1])
+        ns("DELETE", f"/{b}/mp")
+        _page_versions(ns, b, 1000)
+        ns("DELETE", f"/{b}")
+        ns("GET", "/")
+    answers = _run_both(servers, scenario)
+    errors = [a[2] for a in answers if a[2][0] >= 300]
+    assert errors == [(400, "MalformedXML"), (400, "MalformedXML"),
+                      (404, "NoSuchVersion"), (404, "NoSuchKey"),
+                      (405, ""), (409, "BucketNotEmpty")]   # HEAD: no body
+
+
+LIST_KEYS = ["a", "a/b", "a/b/c", "a-x", "b/1", "b/2", "b/3/x", "c d",
+             "photos/2024/jan.jpg", "photos/2025/feb.jpg", "zz"]
+
+
+@pytest.mark.parametrize("query", [
+    {}, {"max-keys": "3"}, {"delimiter": "/"},
+    {"delimiter": "/", "max-keys": "2"}, {"prefix": "b/"},
+    {"prefix": "photos/", "delimiter": "/"}, {"marker": "b/1"},
+    {"marker": "b/2", "delimiter": "/"}, {"list-type": "2", "max-keys": "4"},
+    {"list-type": "2", "delimiter": "/", "max-keys": "2"},
+    {"list-type": "2", "start-after": "a/b", "max-keys": "3"},
+    {"list-type": "2", "prefix": "a", "delimiter": "/"}],
+    ids=lambda q: "&".join(f"{k}={v}" for k, v in q.items()) or "plain")
+def test_list_objects_routes_match_reference(servers, query):
+    """ListObjects V1 and V2, paged to the end through NextMarker or
+    the continuation token."""
+    def scenario(ns):
+        b = "nslist"
+        if ns("PUT", f"/{b}")[0] == 200:
+            for k in LIST_KEYS:
+                ns("PUT", f"/{b}/{k}", body=k.encode())
+        q = dict(query)
+        while True:
+            st, doc, *_ = ns("GET", f"/{b}", query=q)
+            fields = {c[0]: c[1] for c in doc[2]}
+            if fields.get("IsTruncated") != "true":
+                return
+            if q.get("list-type") == "2":
+                q["continuation-token"] = fields["NextContinuationToken"]
+            else:
+                q["marker"] = fields["NextMarker"]
+    _run_both(servers, scenario)
+
+
+def test_bucket_routes_match_reference(servers):
+    """ListBuckets, DeleteObjects (verbose and Quiet, a missing key, a
+    named version), DeleteBucket (409 while not empty, 404 unknown, 204
+    empty) and the answers on a bucket that is gone."""
+    def scenario(ns):
+        b = "nsbkt"
+        ns("PUT", f"/{b}")
+        for k in ("x1", "x2", "x3", "x4"):
+            ns("PUT", f"/{b}/{k}", body=k.encode() * 10)
+        ns("GET", "/")
+        ns("DELETE", f"/{b}")
+        ns("DELETE", "/nsnosuchbucket")
+        ns("POST", f"/{b}", query={"delete": ""}, body=(
+            b"<Delete><Object><Key>x1</Key></Object>"
+            b"<Object><Key>missing</Key></Object>"
+            b"<Object><Key>x2</Key><VersionId>null</VersionId></Object>"
+            b"</Delete>"))
+        ns("POST", f"/{b}", query={"delete": ""}, body=(
+            b"<Delete><Quiet>true</Quiet><Object><Key>x3</Key></Object>"
+            b"<Object><Key>x4</Key></Object></Delete>"))
+        ns("POST", f"/{b}", query={"delete": ""}, body=b"<Delete")
+        ns("GET", f"/{b}", query={"list-type": "2"})
+        ns("DELETE", f"/{b}")
+        ns("GET", f"/{b}", query={"versioning": ""})
+        ns("GET", f"/{b}", query={"list-type": "2"})
+        ns("GET", f"/{b}", query={"versions": ""})
+        ns("GET", "/")
+    answers = _run_both(servers, scenario)
+    errors = [a[2] for a in answers if a[2][0] >= 300]
+    assert errors == [(409, "BucketNotEmpty"), (404, "NoSuchBucket"),
+                      (400, "MalformedXML"), (404, "NoSuchBucket"),
+                      (404, "NoSuchBucket"), (404, "NoSuchBucket")]
+
+
+def test_delete_marker_headers(servers):
+    """A read that meets a delete marker answers AWS's headers on the
+    port: x-amz-delete-marker and the marker's version id, on the 404 of
+    the key and on the 405 of the marker named by its id."""
+    port, _, _ = servers
+    c = S3Client(port, timeout=300)
+    assert c.request("PUT", "/nsmarker")[0] == 200
+    assert c.request("PUT", "/nsmarker", query={"versioning": ""},
+                     body=ENABLE)[0] == 200
+    assert c.request("PUT", "/nsmarker/k", body=b"x")[0] == 200
+    st, h, _ = c.request("DELETE", "/nsmarker/k")
+    h = {k.lower(): v for k, v in h.items()}
+    assert (st, h["x-amz-delete-marker"]) == (204, "true")
+    marker = h["x-amz-version-id"]
+    for method, query, status in (("GET", None, 404),
+                                  ("HEAD", {"versionId": marker}, 405)):
+        st, h, _ = c.request(method, "/nsmarker/k", query=query)
+        h = {k.lower(): v for k, v in h.items()}
+        assert (st, h.get("x-amz-delete-marker"),
+                h.get("x-amz-version-id")) == (status, "true", marker)
