@@ -83,23 +83,42 @@ and prints no result line):
    upload of the first 64 MiB, 40 MiB across two 32 MiB windows and the
    last 5 MiB + 777 B of the single-part object beside an uploaded 5 MiB
    part, exact. 16 clients PUT 10,000 keys of 1 KiB
-   (dir00..99/obj000..099) into an unversioned bucket; ListObjectsV2 in
-   pages of 1000 (continuation tokens), with delimiter / (100 prefixes),
-   with prefix dir42/, V1 with a marker inside dir57/, and
-   ListObjectVersions of the versioned bucket in pages of 2 equal what
-   was written; the deep listing again with one drive away, and after 3
-   drives missed a DeleteObjects of 1000 keys it lists none of them.
-   DeleteBucket refuses both buckets (409) until every version, marker
-   and key is deleted; then no file of theirs is left on any drive.
-   MiB/s of the versioned PUTs, GETs by version id and copies, keys/s
-   of the PUTs, the deep listing and DeleteObjects, the phase's
-   launches, 0 pool leases outstanding after 4b and 4c.
+   (dir00..99/obj000..099) into an unversioned bucket, their commits
+   coalescing in the group-commit lanes (at least one batch of 2 or
+   more members, no demotion, no deadline cull; batches, members a
+   batch, solo bypasses, demotions and fsyncs saved printed);
+   ListObjectsV2 in pages of 1000 (continuation tokens), then the same
+   listing again, which must be served from the walk stream (metacache
+   hits up, walks started unchanged), with delimiter / (100 prefixes,
+   the shallow walk), with prefix dir42/, V1 with a marker inside
+   dir57/, and ListObjectVersions of the versioned bucket in pages of 2
+   equal what was written; the metacache stats and the journal-summary
+   counters are printed. The deep listing again with one drive away,
+   and after 3 drives missed a DeleteObjects of 1000 keys it lists none
+   of them (each of these listings bumps the bucket first: drives moved
+   by hand are no mutation the set sees, and a fresh walk meets the
+   next rotation of walked drives). DeleteBucket refuses both buckets
+   (409) until every version, marker and key is deleted; then no file
+   of theirs is left on any drive. MiB/s of the versioned PUTs, GETs by
+   version id and copies, keys/s of the PUTs, the deep listing (first
+   and repeated) and DeleteObjects, the phase's launches, 0 pool leases
+   outstanding after 4b and 4c.
+4d. A crash with group-commit WALs live: `python -m
+   minio_tpu_torch.server --device cuda` in a subprocess on 12 fresh
+   drives with MTPU_GROUP_COMMIT_CKPT_S=3600, so that no checkpoint
+   retires a frame; 16 clients PUT 1 KiB keys and DELETE every 4th
+   after its PUT; SIGKILL after 1,000 acknowledged PUTs; the server
+   booted again on the same drives in this process. Its boot recovery
+   must replay WAL frames on every drive; every acknowledged key reads
+   back its bytes and is listed, no key whose DELETE was acknowledged
+   is read or listed, and no pool lease is outstanding.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
-   In phases 3, 4, 4b, 4c and 5 every kernel's launch count is set to 0
-   just before the phase and read just after; each kernel of the phase's
+   In phases 3, 4, 4b, 4c, 4d (the restarted server) and 5 every
+   kernel's launch count is set to 0 just before the phase and read
+   just after; each kernel of the phase's
    path must have launched.
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
@@ -1385,19 +1404,53 @@ def phase_namespace(rng, s: "Server", src: dict) -> dict:
     def put(_t, i):
         st, _ = c("PUT", f"/{lb}/{keys[i]}", small[i].tobytes())
         check(st == 200, f"PUT {keys[i]}: {st}")
+    gc0 = es.group_commit.stats()
     wall = run_clients(put, [list(range(t, len(keys), NS_CLIENTS))
                              for t in range(NS_CLIENTS)])
     note(f"{len(keys)} PUTs of 1 KiB, {NS_CLIENTS} clients", wall,
          len(keys), "keys/s")
+    gc1 = es.group_commit.stats()
+    gcd = {k: gc1[k] - gc0[k] for k in (
+        "batches", "members", "solo_bypass", "solo_demotions",
+        "fsyncs_saved", "deadline_culls", "merged_members")}
+    log(f"namespace: group commit over the PUTs: {gcd['batches']} batches, "
+        f"{gcd['members'] / max(1, gcd['batches']):.2f} members a batch, "
+        f"{gcd['solo_bypass']} solo bypasses, {gcd['solo_demotions']} "
+        f"demotions, {gcd['fsyncs_saved']} fsyncs saved, "
+        f"{gcd['deadline_culls']} deadline culls; batch sizes "
+        f"{gc1['size_buckets']}; member wait {summarize(gc1['wait_hist'])}")
+    check(gcd["members"] > gcd["batches"] > 0,
+          f"no group-commit batch had more than one member: {gcd}")
+    check(gcd["solo_demotions"] == 0 and gcd["deadline_culls"] == 0,
+          f"group-commit members demoted or culled: {gcd}")
+    from minio_tpu_torch.storage import meta_scan
+    scan0 = dict(meta_scan.counters)
+    mc0 = es.metacache.stats()
     t0 = time.perf_counter()
     got, _, pages = list_all(c, lb, {"max-keys": "1000"})
     note(f"deep ListObjectsV2 of {len(keys)} keys, pages of 1000",
          time.perf_counter() - t0, len(keys), "keys/s")
     check(got == keys and pages == -(-len(keys) // 1000),
           f"deep listing: {len(got)} keys in {pages} pages")
+    mc1 = es.metacache.stats()
+    t0 = time.perf_counter()
+    got, _, pages = list_all(c, lb, {"max-keys": "1000"})
+    note(f"the same deep listing again, from the walk stream",
+         time.perf_counter() - t0, len(keys), "keys/s")
+    check(got == keys, f"repeated deep listing: {len(got)} keys")
+    mc2 = es.metacache.stats()
+    check(mc2["hits"] > mc1["hits"] and
+          mc2["walks_started"] == mc1["walks_started"],
+          f"the repeated listing walked the drives again: {mc1} -> {mc2}")
+    t0 = time.perf_counter()
     got, prefixes, _ = list_all(c, lb, {"delimiter": "/"})
+    note(f"delimiter / page of {NS_DIRS} prefixes (shallow walk)",
+         time.perf_counter() - t0, NS_DIRS, "prefixes/s")
     check(got == [] and prefixes == [f"dir{d:02d}/" for d in range(NS_DIRS)],
           f"delimiter listing: {len(got)} keys, {len(prefixes)} prefixes")
+    log(f"namespace: metacache {mc0} -> {mc1} -> {mc2} -> "
+        f"{es.metacache.stats()}; journal summaries "
+        f"{ {k: meta_scan.counters[k] - scan0[k] for k in scan0} }")
     d42 = f"dir{42 % NS_DIRS:02d}/"
     got, _, _ = list_all(c, lb, {"prefix": d42})
     check(got == [k for k in keys if k.startswith(d42)],
@@ -1428,6 +1481,9 @@ def phase_namespace(rng, s: "Server", src: dict) -> dict:
 
     with mrf_paused(es):
         with drives_away(s, [5], lb):
+            # Taking a drive away by hand is no mutation the set sees:
+            # bump, so that the listing walks the drives as they are.
+            es.metacache.bump(lb)
             got, _, _ = list_all(c, lb, {"max-keys": "1000"})
         check(got == keys, f"deep listing with one drive away: {len(got)}")
         gone = keys[:len(keys) // 10]
@@ -1436,7 +1492,8 @@ def phase_namespace(rng, s: "Server", src: dict) -> dict:
             delete_objects(c, lb, [(k, "") for k in gone])
             note(f"DeleteObjects of {len(gone)} keys, 3 drives missing it",
                  time.perf_counter() - t0, len(gone), "keys/s")
-        for _ in range(2):          # the walked drives rotate page by page
+        for _ in range(2):          # the walked drives rotate walk by walk
+            es.metacache.bump(lb)
             got, _, _ = list_all(c, lb, {"max-keys": "1000"})
             check(got == keys[len(gone):],
                   f"a deleted key listed: {len(got)} keys")
@@ -1470,6 +1527,158 @@ def phase_namespace(rng, s: "Server", src: dict) -> dict:
           f"a kernel of the path never launched: {launches}")
     check(es.host_windows == windows0,
           f"windows went to the host: {es.host_windows}")
+    return launches
+
+
+# Phase 4d: a crash with group-commit WALs live.
+CRASH_CLIENTS = 16
+CRASH_KEYS = 400              # a client at most; the kill comes first
+CRASH_ACKS = 1000             # acknowledged PUTs before the SIGKILL
+CRASH_DELETE_EVERY = 4        # each client deletes every 4th key it PUT
+
+
+def phase_crash(rng, root: str, device: str = "cuda") -> dict:
+    """Group-committed small writes survive a SIGKILL (phase 4d): the
+    port's server in a subprocess on 12 fresh drives, its WAL
+    checkpoints an hour apart so that every batch's frame is still live;
+    16 clients PUT 1 KiB keys and delete every 4th after its PUT; SIGKILL
+    after CRASH_ACKS acknowledged PUTs; the server booted again on the
+    same drives, in this process. Its recovery must replay WAL frames;
+    every acknowledged key reads back its bytes and is listed, no key
+    whose DELETE was acknowledged is listed or read, and no pool lease
+    is outstanding. Returns the restarted server's launches."""
+    import signal
+    import socket
+    drives = [os.path.join(root, "crash", f"d{i}") for i in range(12)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MTPU_GROUP_COMMIT_CKPT_S="3600")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch.server", "--device", device,
+         "--address", f"127.0.0.1:{port}", *drives],
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list[str] = []
+    errs: list[str] = []
+    acks = {}                       # key -> body, PUT acknowledged
+    deleted, unsure = set(), set()  # DELETE acknowledged; outcome unknown
+    mu = threading.Lock()
+    try:
+        def read_out():
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+        reader = threading.Thread(target=read_out, daemon=True)
+        reader.start()
+        t0 = time.perf_counter()
+        while not any("serving S3 on" in ln for ln in lines):
+            check(proc.poll() is None and time.perf_counter() - t0 < 180,
+                  f"the crash server did not boot: {lines[-20:]}")
+            time.sleep(0.1)
+        log(f"crash: server pid {proc.pid} up in "
+            f"{time.perf_counter() - t0:.1f} s: {lines[-1]}")
+        c = Client(f"127.0.0.1:{port}")
+        check(c("PUT", "/crash")[0] == 200, "make the crash bucket")
+        bodies = np.frombuffer(rng.bytes(CRASH_CLIENTS * CRASH_KEYS * 1024),
+                               np.uint8).reshape(CRASH_CLIENTS, CRASH_KEYS,
+                                                 1024)
+        killed = threading.Event()
+        lost = (OSError, http.client.HTTPException)
+
+        def failed(what: str) -> None:
+            if not killed.is_set():       # after the kill: the server is gone
+                errs.append(what)
+
+        def client(t: int) -> None:
+            for i in range(CRASH_KEYS):
+                key, body = f"t{t:02d}/k{i:05d}", bodies[t, i].tobytes()
+                try:
+                    st, _ = c("PUT", f"/crash/{key}", body)
+                except lost as e:
+                    return failed(f"PUT {key}: {e!r}")
+                if st != 200:
+                    return failed(f"PUT {key}: {st}")
+                with mu:
+                    acks[key] = body
+                if i % CRASH_DELETE_EVERY:
+                    continue
+                with mu:
+                    unsure.add(key)
+                try:
+                    st, _ = c("DELETE", f"/crash/{key}")
+                except lost as e:
+                    return failed(f"DELETE {key}: {e!r}")
+                if st != 204:
+                    return failed(f"DELETE {key}: {st}")
+                with mu:
+                    unsure.discard(key)
+                    deleted.add(key)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(CRASH_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        while len(acks) < CRASH_ACKS and any(th.is_alive() for th in threads):
+            time.sleep(0.005)
+        killed.set()
+        proc.send_signal(signal.SIGKILL)
+        wall = time.perf_counter() - t0
+        proc.wait(timeout=60)
+        for th in threads:
+            th.join(120)
+        check(not any(th.is_alive() for th in threads), "a client hung")
+        check(not errs, f"crash clients failed before the kill: {errs[:5]}")
+        check(len(acks) >= CRASH_ACKS, f"only {len(acks)} PUTs acknowledged")
+        log(f"crash: SIGKILL after {len(acks)} acknowledged PUTs and "
+            f"{len(deleted)} acknowledged DELETEs in {wall:.2f} s "
+            f"({len(acks) / wall:.1f} PUTs/s over HTTP); "
+            f"{len(unsure)} DELETEs in flight")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+    wal = []
+    for d in drives:
+        gdir = os.path.join(d, ".mtpu.sys", "gcommit")
+        if os.path.isdir(gdir):
+            wal += [os.path.getsize(os.path.join(gdir, f))
+                    for f in os.listdir(gdir)]
+    log(f"crash: WAL bytes left on the drives {sum(wal)} in {len(wal)} files")
+    check(sum(wal) > 0, "no group-commit WAL frame was live at the kill")
+
+    s = Server(root, "crash", device=device)
+    # After the boot's self-tests: the launches are the restart's reads.
+    reset_launches()
+    try:
+        rec = s.srv.recovery
+        log(f"crash: restart recovery {rec}")
+        check(rec["wal_replayed"] > 0, f"no WAL frame replayed: {rec}")
+        check(rec["swept"] == 12, f"not every drive swept: {rec}")
+        live = {k: b for k, b in acks.items()
+                if k not in deleted and k not in unsure}
+        bad = [k for k, b in live.items()
+               if s.client("GET", f"/crash/{k}") != (200, b)]
+        check(not bad, f"{len(bad)} acknowledged keys do not read back: "
+              f"{bad[:5]}")
+        gone = [k for k in deleted
+                if s.client("GET", f"/crash/{k}")[0] != 404]
+        check(not gone, f"deleted keys read back: {gone[:5]}")
+        listed, _, _ = list_all(s.client, "crash", {"max-keys": "1000"})
+        check(not set(listed) & deleted,
+              f"deleted keys listed: {sorted(set(listed) & deleted)[:5]}")
+        check(set(live) <= set(listed),
+              f"acknowledged keys not listed: "
+              f"{sorted(set(live) - set(listed))[:5]}")
+        launches = read_launches()
+        log(f"crash: after the restart {len(live)} acknowledged keys read "
+            f"back and are listed, {len(deleted)} deleted keys neither; "
+            f"launches {launches}")
+        check(launches["highwayhash256"],
+              f"the restarted server's GETs never launched: {launches}")
+    finally:
+        s.stop()
+    check_pool_idle("crash restart", device)
     return launches
 
 
@@ -1683,13 +1892,14 @@ def main() -> int:
         finally:
             s.stop()
         check_pool_idle("multipart/heal/namespace")
+        crash = phase_crash(rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     solo_dispatch_ms(torch, rng, conc_stats)
     b5 = phase_b5_entry_point(torch)
     times = phase_times(torch, dev, rng)
 
-    launches = {k: seq[k] + conc[k] + mph[k] + ns[k]
+    launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k]
                 for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {

@@ -45,6 +45,8 @@ import weakref
 import numpy as np
 import torch
 
+from minio_tpu_torch.utils.env import env_int
+
 _MIN_CLASS = 16          # 2**16 = 64 KiB
 _MAX_CLASS = 29          # 2**29 = 512 MiB
 CLASS_SIZES = tuple(1 << p for p in range(_MIN_CLASS, _MAX_CLASS + 1))
@@ -57,13 +59,6 @@ def _class_for(size: int) -> int:
         if size <= c:
             return i
     return -1
-
-
-def _env_int(key: str, default: int) -> int:
-    try:
-        return int(os.environ.get(key, "") or default)
-    except ValueError:
-        return default
 
 
 class _LeaseState:
@@ -148,7 +143,7 @@ class BufferPool:
     def __init__(self, max_per_class: int | None = None,
                  enabled: bool | None = None, pinned: bool = False):
         if max_per_class is None:
-            max_per_class = _env_int("MTPU_BUFPOOL_MAX_PER_CLASS", 16)
+            max_per_class = env_int("MTPU_BUFPOOL_MAX_PER_CLASS", 16)
         if enabled is None:
             enabled = os.environ.get("MTPU_BUFPOOL_OFF", "").lower() \
                 not in ("1", "on", "true")

@@ -44,9 +44,17 @@ erasureObjects, cmd/erasure-object.go) for one set of local drives:
     fresh version id, or the null version when versioning is off or
     suspended), reads of a named version, delete markers and null
     markers, version removal at a majority write quorum with the MRF
-    queued for the drives that missed it; listing pages merged from a
-    majority of the drives' sorted walks, with a quorum read wherever
-    their copies of a key disagree.
+    queued for the drives that missed it; listing pages served from
+    the shared walk streams of object/metacache.py (a majority of the
+    drives' sorted journal summaries, merged, with a quorum read
+    wherever their copies of a key disagree; "/" pages from a one-level
+    shallow walk), which every namespace mutation invalidates through
+    `metacache.bump`.
+  * The metadata plane's writes: a PUT of at most one erasure block and
+    a delete marker, when other such requests are in their commit
+    section, commit through the per-drive group lanes of
+    storage/group_commit.py (one WAL frame and one fdatasync a drive a
+    batch, replayed at boot by storage/local.recovery_sweep).
 
 Full blocks of every window go through the cross-request stripe batcher
 (ops/batcher.StripeBatcher), one per route and config: the PUT framer,
@@ -67,6 +75,7 @@ identical to the TPU package's for the same objects.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import hashlib
 import heapq
@@ -77,6 +86,7 @@ import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from itertools import groupby
 from typing import Iterator, Optional, Sequence
 
@@ -87,6 +97,7 @@ from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.erasure.codec import _HOST, Erasure
 from minio_tpu_torch.io.bufpool import global_pool, leases_of
 from minio_tpu_torch.io.engine import kernel_lane, shutdown_kernel_lane
+from minio_tpu_torch.object.metacache import MetaCache
 from minio_tpu_torch.object.types import (BucketExists, BucketInfo,
                                           BucketNotEmpty, BucketNotFound,
                                           DeletedObject, DeleteOptions,
@@ -99,12 +110,19 @@ from minio_tpu_torch.object.types import (BucketExists, BucketInfo,
 from minio_tpu_torch.ops import gf256, hh_device, rs_device
 from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
+from minio_tpu_torch.storage import group_commit as gc_mod
+from minio_tpu_torch.storage.group_commit import GroupOp
 from minio_tpu_torch.storage.local import (SYS_VOL, VolumeExists,
                                            VolumeNotEmpty, VolumeNotFound)
-from minio_tpu_torch.storage.meta import (ErasureInfo, FileInfo,
-                                          FileNotFoundErr, MetaError,
-                                          ObjectPartInfo, VersionNotFoundErr,
-                                          XLMeta, new_uuid, now_ns)
+from minio_tpu_torch.storage.meta import (KIND_DELETE_MARKER,
+                                          NULL_VERSION_ID, ErasureInfo,
+                                          FileInfo, FileNotFoundErr,
+                                          MetaError, ObjectPartInfo,
+                                          VersionNotFoundErr, XLMeta,
+                                          new_uuid, now_ns)
+from minio_tpu_torch.storage.meta_scan import (FLAG_DELETED, FLAG_INLINE,
+                                               PREFIX_MARK,
+                                               summary_sufficient)
 from minio_tpu_torch.utils.highwayhash import MAGIC_KEY, highwayhash256_many
 from minio_tpu_torch.utils.streams import Payload
 
@@ -372,9 +390,23 @@ class ErasureSet:
         self._bmeta_mu = threading.Lock()
         # Which drives the next listing walk starts at (_walk_resolved).
         self._walk_rotor = 0
+        # The listing's shared walk streams, and the bump funnel every
+        # namespace mutation of the set goes through (object/metacache).
+        self.metacache = MetaCache(persist_drive=self.disks[0]
+                                   if self.disks else None)
+        # Group-commit lanes (storage/group_commit): concurrent small
+        # journal-only commits coalesce a drive into one WAL-backed
+        # batch. Each batch bumps its buckets before any member acks.
+        self.group_commit = None
+        if gc_mod.enabled() and self.disks and \
+                all(hasattr(d, "commit_group") for d in self.disks):
+            self.group_commit = gc_mod.GroupCommit(
+                self.disks, name=f"set:{id(self) & 0xffff:x}")
+            self.group_commit.bump = self.metacache.bump
 
     def close(self) -> None:
-        """Stop the MRF worker, the drive fan-out pool and the batchers,
+        """Stop the MRF worker, the listing walks, the group-commit lanes
+        (checkpointing their WALs), the fan-out pool and the batchers,
         then join the kernel lane, whose worker calls into CUDA and must
         not outlive the process's useful life. Under _mrf_lock with the
         closed sentinel: a racing lazy `mrf` access must not start a
@@ -383,6 +415,11 @@ class ErasureSet:
             self._mrf_closed = True
             if self._mrf is not None:
                 self._mrf.stop()
+        self.metacache.close()
+        if self.group_commit is not None:
+            # A final WAL checkpoint: a graceful stop leaves no frame
+            # for the next boot to replay.
+            self.group_commit.close()
         self._readahead.shutdown(wait=True)
         self.pool.shutdown(wait=True)
         with self._batchers_mu:
@@ -544,6 +581,7 @@ class ErasureSet:
         if ok < len(self.disks) // 2 + 1:
             raise WriteQuorumError(bucket)
         self.invalidate_bucket_meta(bucket)
+        self.metacache.drop_bucket(bucket)
         self._fanout([lambda d=d: _quiet(lambda: d.delete(
             SYS_VOL, f"buckets/{bucket}", recursive=True))
             for d in self.disks])
@@ -625,7 +663,11 @@ class ErasureSet:
         meta = self.get_bucket_meta(bucket)
         meta["versioning"] = status is True or status == "Enabled"
         meta["versioning-suspended"] = status == "Suspended"
-        self.set_bucket_meta(bucket, meta)
+        try:
+            self.set_bucket_meta(bucket, meta)
+        finally:
+            # What a PUT or DELETE of the bucket writes changes with it.
+            self.metacache.bump(bucket)
 
     def bucket_exists(self, bucket: str) -> bool:
         results, _ = self._fanout([lambda d=d: d.stat_vol(bucket)
@@ -711,6 +753,20 @@ class ErasureSet:
         fails the PUT before anything is committed."""
         opts = opts or PutOptions()
         payload = Payload.wrap(data)
+        gc = self.group_commit
+        if gc is not None and payload.size <= BLOCK_SIZE:
+            # A body of at most one erasure block may commit through the
+            # group lanes. The whole request counts as in flight, encode
+            # included: the lanes' early close compares pending members
+            # with requests in flight, and this one's members are coming
+            # (minio_tpu/object/erasure_object.py `_put_object_buffered`).
+            with gc.tracking():
+                return self._put_object(bucket, object_, payload, opts,
+                                        group=True)
+        return self._put_object(bucket, object_, payload, opts, group=False)
+
+    def _put_object(self, bucket: str, object_: str, payload: Payload,
+                    opts: PutOptions, group: bool) -> ObjectInfo:
         self._check_bucket(bucket)
         n = len(self.disks)
         m = self.default_parity
@@ -754,11 +810,16 @@ class ErasureSet:
                     h.release()
             etag = hashlib.md5(body).hexdigest()
             mod_time = now_ns()
+
+            def inline_fi(i: int) -> FileInfo:
+                return make_fi(distribution[i] - 1, "", etag,
+                               frames[distribution[i] - 1])
             self._commit(bucket, object_, version_id, errors, write_quorum,
                          lambda i: self.disks[i].write_metadata(
-                             bucket, object_, make_fi(
-                                 distribution[i] - 1, "", etag,
-                                 frames[distribution[i] - 1])))
+                             bucket, object_, inline_fi(i)),
+                         (lambda i: GroupOp.write_meta(
+                             bucket, object_, inline_fi(i)))
+                         if group else None)
         else:
             data_dir = new_uuid()
             staging = f"{STAGING_PREFIX}/p{os.getpid()}-{new_uuid()}"
@@ -767,12 +828,17 @@ class ErasureSet:
                     payload, e, distribution, f"{staging}/{data_dir}/part.1",
                     write_quorum, errors)
                 mod_time = now_ns()
+
+                def staged_fi(i: int) -> FileInfo:
+                    return make_fi(distribution[i] - 1, data_dir, etag)
                 self._commit(bucket, object_, version_id, errors,
                              write_quorum,
                              lambda i: self.disks[i].rename_data(
-                                 SYS_VOL, staging, make_fi(
-                                     distribution[i] - 1, data_dir, etag),
-                                 bucket, object_))
+                                 SYS_VOL, staging, staged_fi(i), bucket,
+                                 object_),
+                             (lambda i: GroupOp.rename(
+                                 SYS_VOL, staging, staged_fi(i), bucket,
+                                 object_)) if group else None)
             finally:
                 # Committed drives already moved their data dir out;
                 # whatever staging is left is debris (errors ignored).
@@ -795,15 +861,29 @@ class ErasureSet:
                                                 etag=etag)])
 
     def _commit(self, bucket: str, object_: str, version_id: str,
-                errors: list, write_quorum: int, commit_one) -> None:
+                errors: list, write_quorum: int, commit_one,
+                group_op=None) -> None:
         """Run commit_one(i) on every drive still without an error, under
         the key's namespace lock; below write quorum, take the committed
-        version back and raise WriteQuorumError."""
+        version back and raise WriteQuorumError. With `group_op(i)` (the
+        GroupOp of drive i) and other requests in their commit section,
+        the drives' commits ride the group lanes instead, which bump the
+        bucket before they ack; otherwise the bucket is bumped here."""
         n = len(self.disks)
+        gc = self.group_commit if group_op is not None else None
+        used_group = False
         with self._ns.hold(f"{bucket}/{object_}"):
-            _, cerrs = self._fanout([
-                (lambda i=i: commit_one(i)) if errors[i] is None else None
-                for i in range(n)])
+            if gc is not None and gc.worth_batching():
+                used_group = True
+                cerrs = gc.commit_fanout([
+                    group_op(i) if errors[i] is None else None
+                    for i in range(n)])
+            else:
+                if gc is not None:
+                    gc.note_solo()
+                _, cerrs = self._fanout([
+                    (lambda i=i: commit_one(i)) if errors[i] is None
+                    else None for i in range(n)])
         for i, err in enumerate(cerrs):
             errors[i] = errors[i] or err
         ok = sum(err is None for err in errors)
@@ -812,8 +892,11 @@ class ErasureSet:
                                                        version_id)
                           if err is None else None
                           for d, err in zip(self.disks, errors)])
+            self.metacache.bump(bucket)
             raise WriteQuorumError(bucket, object_,
                                    f"wrote {ok}/{n}, need {write_quorum}")
+        if not used_group:
+            self.metacache.bump(bucket)
 
     def _stream_framed_writes(self, payload: Payload, e: Erasure,
                               distribution: Sequence[int], part: str,
@@ -1423,22 +1506,14 @@ class ErasureSet:
         write_quorum = n // 2 + 1
         with self._ns.hold(f"{bucket}/{object_}"):
             if (opts.versioned or opts.null_marker) and not opts.version_id:
-                marker_vid = "" if opts.null_marker else new_uuid()
-                fi = FileInfo(volume=bucket, name=object_,
-                              version_id=marker_vid, deleted=True,
-                              mod_time=now_ns())
+                return self._write_delete_marker(bucket, object_, opts)
+            try:
                 _, errors = self._fanout([
-                    lambda d=d: d.write_metadata(bucket, object_, fi)
+                    lambda d=d: d.delete_version(bucket, object_,
+                                                 opts.version_id)
                     for d in self.disks])
-                if sum(e is None for e in errors) < write_quorum:
-                    raise WriteQuorumError(bucket, object_)
-                return DeletedObject(
-                    object_name=object_, delete_marker=True,
-                    delete_marker_version_id=marker_vid or "null")
-            _, errors = self._fanout([
-                lambda d=d: d.delete_version(bucket, object_,
-                                             opts.version_id)
-                for d in self.disks])
+            finally:
+                self.metacache.bump(bucket)
         ok = sum(e is None for e in errors)
         missing = sum(isinstance(e, (FileNotFoundErr, VersionNotFoundErr))
                       for e in errors)
@@ -1449,26 +1524,65 @@ class ErasureSet:
             self.mrf.enqueue(bucket, object_, opts.version_id)
         return DeletedObject(object_name=object_, version_id=opts.version_id)
 
+    def _write_delete_marker(self, bucket: str, object_: str,
+                             opts: DeleteOptions) -> DeletedObject:
+        """A delete marker (a null marker when `opts.null_marker`), under
+        the key's lock. Markers are journal-only commits, the shape of an
+        inline PUT, so a concurrent delete storm coalesces through the
+        same group lanes (minio_tpu/object/erasure_object.py
+        `_delete_object_locked`)."""
+        marker_vid = "" if opts.null_marker else new_uuid()
+        fi = FileInfo(volume=bucket, name=object_, version_id=marker_vid,
+                      deleted=True, mod_time=now_ns())
+        gc = self.group_commit
+        used_group = False
+        try:
+            with gc.tracking() if gc is not None else nullcontext():
+                if gc is not None and gc.worth_batching():
+                    used_group = True
+                    errors = gc.commit_fanout(
+                        [GroupOp.write_meta(bucket, object_, fi)
+                         for _ in self.disks])
+                else:
+                    if gc is not None:
+                        gc.note_solo()
+                    _, errors = self._fanout(
+                        [lambda d=d: d.write_metadata(bucket, object_, fi)
+                         for d in self.disks])
+        finally:
+            if not used_group:
+                self.metacache.bump(bucket)
+        if sum(e is None for e in errors) < len(self.disks) // 2 + 1:
+            raise WriteQuorumError(bucket, object_)
+        return DeletedObject(object_name=object_, delete_marker=True,
+                             delete_marker_version_id=marker_vid or "null")
+
     # ------------------------------------------------------------------
     # listing
     # ------------------------------------------------------------------
 
-    def _walk_resolved(self, bucket: str, prefix: str, start: str = ""):
-        """Sorted (path, versions) stream of the keys at or after
-        max(start, prefix) (minio_tpu/object/erasure_object.py
-        `_walk_resolved`): each walked drive's sorted walk_dir, over a
+    def _walk_resolved(self, bucket: str, prefix: str, start: str = "",
+                       shallow: bool = False):
+        """Sorted (path, entry) stream of the keys at or after
+        max(start, prefix), the metacache's production side
+        (minio_tpu/object/erasure_object.py `_walk_resolved`): each walked
+        drive's sorted walk_scan (summaries, storage/meta_scan), over a
         majority of the drives (any write quorum meets the walked set,
         so a committed object is listed even where some drives missed
-        it), k-way merged and grouped by key. The walked drives rotate
-        from one walk to the next. There is no metadata cache yet: each
-        call walks from its start."""
+        it), k-way merged, each key resolved into a trimmed stream entry
+        (`_resolve_walked`). The walked drives rotate from one walk to
+        the next, so a drive failing mid-walk shadows only some walks.
+        `shallow` walks one level and passes prefix markers through (the
+        "/" delimiter pages); a marker on any walked drive lists the
+        prefix, as the deep walk's union would."""
         base_dir = prefix.rsplit("/", 1)[0] if "/" in prefix else ""
         forward = max(start, prefix)
 
         def disk_iter(d):
             try:
-                yield from d.walk_dir(bucket, base_dir=base_dir,
-                                      forward_from=forward)
+                yield from d.walk_scan(bucket, base_dir=base_dir,
+                                       forward_from=forward,
+                                       shallow=shallow)
             except Exception:  # noqa: BLE001 - a lost drive walks nothing
                 return
 
@@ -1478,77 +1592,161 @@ class ErasureSet:
             self._walk_rotor = (rotor + 1) % n
         walked = [self.disks[(rotor + i) % n] for i in range(n // 2 + 1)]
         merged = heapq.merge(*[disk_iter(d) for d in walked],
-                             key=lambda kv: kv[0])
-        for path, grp in groupby(merged, key=lambda kv: kv[0]):
-            versions = self._resolve_walked(bucket, path,
-                                            [b for _, b in grp], len(walked))
-            if versions is not None:
-                yield path, versions
+                             key=lambda t: t[0])
+        for path, grp in groupby(merged, key=lambda t: t[0]):
+            items = [(v, b) for _, v, b in grp]
+            if any(v is PREFIX_MARK for v, _ in items):
+                yield path, PREFIX_MARK
+                continue
+            entry = self._resolve_walked(bucket, path, items, len(walked))
+            if entry is not None:
+                yield path, entry
 
-    def _resolve_walked(self, bucket: str, path: str, blobs: list,
-                        total_walked: int) -> Optional[list]:
-        """One walked key's journal copies -> its version maps, latest
-        first (minio_tpu/object/erasure_object.py `_resolve_walked`).
+    def _resolve_walked(self, bucket: str, path: str, items: list,
+                        total_walked: int):
+        """One walked key's per-drive (summary, blob) copies -> its stream
+        entry (minio_tpu/object/erasure_object.py `_resolve_walked`).
         When every walked drive has the key and the copies agree on the
-        latest version, one copy's journal is the answer. Otherwise (a
-        drive missed a delete or an overwrite, or the object never
+        latest version, the journal is the answer: a summary that serves
+        listings becomes ("s", vlist) with no journal parsed here, else
+        one copy's journal is parsed into ("m", version maps). Otherwise
+        (a drive missed a delete or an overwrite, or the object never
         reached every walked drive) a quorum read decides and only its
         version is listed, so a lone stale copy cannot bring a deleted
         object back and a quorum-thin write is still listed. None: the
         key is not listed."""
-        parsed = []
-        for blob in blobs:
+        parsed = []      # (latest version's key, vlist, blob, parsed journal)
+        for vlist, blob in items:
+            if vlist is not None:
+                if not vlist:
+                    continue           # an empty journal lists nothing
+                lv = vlist[0]
+                parsed.append(((lv[1], lv[3], bool(lv[0] & FLAG_DELETED),
+                                lv[4]), vlist, blob, None))
+                continue
             try:
                 xl = XLMeta.load(blob)
                 v0 = xl.versions[0]
             except (MetaError, IndexError):   # an unreadable or empty copy
                 continue
-            parsed.append(((v0["mt"], v0["vid"], v0["kind"],
-                            v0.get("ddir", "") or ""), xl))
+            parsed.append(((v0["mt"], v0["vid"],
+                            v0["kind"] == KIND_DELETE_MARKER,
+                            v0.get("ddir", "") or ""), None, blob, xl))
         if len(parsed) == total_walked and len({p[0] for p in parsed}) == 1:
-            return list(parsed[0][1].versions)
+            for _, vlist, _, _ in parsed:
+                if vlist is not None and summary_sufficient(vlist):
+                    return ("s", vlist)
+            for _, _, blob, xl in parsed:
+                try:
+                    return ("m", list((xl or XLMeta.load(blob)).versions))
+                except MetaError:
+                    continue
         try:
             fi, _, _ = self._quorum_fileinfo(bucket, path, False)
         except ObjectError:               # dangling or below quorum
             return None
-        return [fi.to_version_map()]
+        return ("m", [fi.to_version_map()])
 
     @staticmethod
-    def _entry_fileinfos(bucket: str, path: str,
-                         versions: list) -> list[FileInfo]:
-        """A resolved key's version maps -> FileInfos, latest first."""
-        xl = XLMeta()
-        xl.versions = versions
-        return xl.list_versions(bucket, path)
+    def _shallow_ok(delimiter: str) -> bool:
+        """Whether a delimiter page rides the one-level shallow walk: the
+        delimiter is the path separator, so collapse boundaries are
+        directory boundaries (minio_tpu/object/erasure_object.py
+        `_shallow_ok`; MTPU_LIST_SHALLOW=off turns it off)."""
+        return delimiter == "/" and os.environ.get(
+            "MTPU_LIST_SHALLOW", "on").lower() not in ("0", "off", "false")
+
+    @staticmethod
+    def _entry_fileinfos(bucket: str, path: str, entry) -> list[FileInfo]:
+        """A stream entry -> its FileInfos, latest first. A summary
+        rebuilds the fields a listing reads (no parts: no listing shows
+        them)."""
+        kind, payload = entry
+        if kind == "m":
+            xl = XLMeta()
+            xl.versions = list(payload)
+            return xl.list_versions(bucket, path)
+        out = []
+        for i, (flags, mt, size, vid, ddir, etag, ctype, tags) in \
+                enumerate(payload):
+            fi = FileInfo(volume=bucket, name=path,
+                          version_id="" if vid == NULL_VERSION_ID else vid,
+                          is_latest=i == 0,
+                          deleted=bool(flags & FLAG_DELETED), mod_time=mt)
+            fi.metadata = {k: v for k, v in (("etag", etag),
+                                             ("content-type", ctype),
+                                             ("x-amz-tagging", tags)) if v}
+            if not fi.deleted:
+                fi.data_dir = ddir
+                fi.size = size
+                if flags & FLAG_INLINE:
+                    fi.inline_data = b""       # inline, not loaded
+            out.append(fi)
+        return out
 
     def list_objects(self, bucket: str, prefix: str = "", marker: str = "",
                      delimiter: str = "", max_keys: int = 1000,
                      include_versions: bool = False) -> ListObjectsInfo:
         """One page of the sorted listing with S3's prefix, marker,
-        delimiter and max-keys semantics, as the JAX package's
-        `list_objects` pages it (minio_tpu/object/erasure_object.py;
-        reference cmd/metacache-set.go:700): keys after `marker`, those
-        holding `delimiter` after the prefix collapsed into common
-        prefixes (a marker strictly inside a collapsed prefix brings
-        that prefix back), keys whose latest version is a delete marker
-        left out unless `include_versions`, which lists every version
-        of each key. A page holds at most max_keys (<= 1000) keys and
-        prefixes; `next_marker` is the last one of a truncated page.
-        The page walks from max(marker, prefix) and stops at its last
-        entry."""
+        delimiter and max-keys semantics, served from the shared walk
+        stream of object/metacache (minio_tpu/object/erasure_object.py
+        `list_objects`; reference cmd/metacache-set.go:700): every page,
+        every concurrent listing of the prefix and every follow-up
+        within the reuse window read ONE background walk, and a write
+        to the bucket orphans it. Keys after `marker`; those holding
+        `delimiter` after the prefix collapse into common prefixes (a
+        marker strictly inside a collapsed prefix brings that prefix
+        back); keys whose latest version is a delete marker are left out
+        unless `include_versions`, which lists every version of each
+        key. A page holds at most max_keys (<= 1000) keys and prefixes;
+        `next_marker` is the last one of a truncated page. "/" pages
+        read a shallow stream (one directory level and prefix markers),
+        so a page costs O(page), not O(subtree)."""
         self._check_bucket(bucket)
         max_keys = max(1, min(max_keys, 1000))
-        info = ListObjectsInfo()
-        seen_prefixes: set[str] = set()
-        last_added = ""
-        walk = self._walk_resolved(bucket, prefix, marker)
-        try:
-            for path, versions in walk:
-                if marker and path <= marker:
-                    continue
+        shallow = self._shallow_ok(delimiter)
+        floor = marker if marker > prefix else prefix
+        # A marker strictly inside a collapsed prefix must bring that
+        # prefix back. The deep stream does so by itself (later keys
+        # collapse again); the shallow stream holds ONE entry a prefix,
+        # sorted before such a marker: the page's scan starts there.
+        page_floor, floor_left = marker, False
+        if shallow and marker and marker.startswith(prefix):
+            di = marker[len(prefix):].find("/")
+            if di >= 0:
+                cp = marker[:len(prefix) + di + 1]
+                if cp != marker:
+                    page_floor, floor_left = cp, True
+        walk = self.metacache.walk_for(
+            self, bucket, prefix, shallow=shallow,
+            seek=page_floor if floor_left else marker)
+        if walk.truncated and walk.done and walk.keys and \
+                marker >= walk.keys[-1]:
+            # Past a capped stream: a start-floored walk (shared by the
+            # continuations after it) keeps the pages moving.
+            walk = self.metacache.walk_for(self, bucket, prefix,
+                                           start=marker, shallow=shallow)
+        need = max_keys + 1
+        while True:
+            count, done = walk.wait_past(floor, need)
+            # keys and entries only grow: indices below count are stable.
+            keys, entries = walk.keys, walk.entries
+            info = ListObjectsInfo()
+            seen_prefixes: set[str] = set()
+            last_added = ""
+            complete = False          # the page filled or the range ended
+            if not marker:
+                idx = 0
+            elif floor_left:
+                idx = bisect.bisect_left(keys, page_floor, 0, count)
+            else:
+                idx = bisect.bisect_right(keys, marker, 0, count)
+            for i in range(idx, count):
+                path = keys[i]
                 if not path.startswith(prefix):
                     if path > prefix and not prefix.startswith(path):
-                        break         # sorted stream passed the prefix
+                        complete = True
+                        break         # the sorted stream passed the prefix
                     continue
                 if delimiter:
                     rest = path[len(prefix):]
@@ -1564,24 +1762,42 @@ class ErasureSet:
                                 >= max_keys:
                             info.is_truncated = True
                             info.next_marker = last_added
+                            complete = True
                             break
                         seen_prefixes.add(cp)
                         last_added = cp
                         continue
-                fis = self._entry_fileinfos(bucket, path, versions)
+                entry = entries[i]
+                if entry is PREFIX_MARK:
+                    continue          # reachable only with a delimiter
+                fis = self._entry_fileinfos(bucket, path, entry)
                 if not fis or (fis[0].deleted and not include_versions):
                     continue
                 if len(info.objects) + len(seen_prefixes) >= max_keys:
                     info.is_truncated = True
                     info.next_marker = last_added
+                    complete = True
                     break
                 info.objects += [self._to_info(bucket, path, v) for v in
                                  (fis if include_versions else fis[:1])]
                 last_added = path
-        finally:
-            walk.close()
-        info.prefixes = sorted(seen_prefixes)
-        return info
+            if complete or done:
+                if walk.error is not None and not complete:
+                    # The walk failed before this page's range ended: a
+                    # short page would drop every key past the failure.
+                    raise walk.error
+                if done and not complete and walk.truncated:
+                    # The stream stopped (its cap, or a write orphaned
+                    # it) before the range ended: page out what is here;
+                    # the next page walks on from its marker.
+                    info.is_truncated = True
+                    info.next_marker = last_added or (
+                        keys[count - 1] if count else "")
+                info.prefixes = sorted(seen_prefixes)
+                return info
+            # Not deep enough to fill the page yet (collapsing can use
+            # many entries a prefix): wait for more.
+            need *= 2
 
     def list_versions_all(self, bucket: str, object_: str) -> list[FileInfo]:
         """Every version of one key, latest first, from the first drive

@@ -24,8 +24,11 @@ that fails its digest in some window is marked corrupt and the pass
 starts again with it among the bad drives, so the verdicts and the
 bytes equal the JAX package's.
 
-Not ported yet: the tiered-version branch (it waits for tiering) and the
-metadata cache's bump (it waits for the metadata cache).
+A heal that changed drive journals bumps the bucket in the set's
+metacache (both sites of the JAX package: a rebuild or a metadata copy
+that healed drives, and the purge of a dangling version), so no cached
+listing outlives it. Not ported yet: the tiered-version branch (it
+waits for tiering).
 """
 
 from __future__ import annotations
@@ -103,6 +106,18 @@ def _heal_object_locked(es, bucket: str, object_: str, version_id: str,
     if not_found > n // 2:
         return _heal_dangling(es, bucket, object_, version_id, fis,
                               not_found)
+    result = _heal_present(es, bucket, object_, fis, errors, deep, stop)
+    if result.healed:
+        # Drive journals changed under the key: orphan the bucket's
+        # listing walks.
+        es.metacache.bump(bucket)
+    return result
+
+
+def _heal_present(es, bucket: str, object_: str, fis: list, errors: list,
+                  deep: bool, stop) -> HealResult:
+    """Heal the quorum version a majority of drives holds."""
+    n = len(es.disks)
     if all(f is None for f in fis):
         raise ObjectNotFound(bucket, object_)
     fi = es._pick_quorum(fis, es._read_quorum(fis, n))
@@ -364,6 +379,7 @@ def _heal_dangling(es, bucket: str, object_: str, version_id: str,
                 pass
         es._fanout([functools.partial(drop, i) if i in stale else None
                     for i in range(n)])
+        es.metacache.bump(bucket)
     result = HealResult(bucket=bucket, object=object_,
                         version_id=version_id)
     result.before = [DRIVE_STATE_OUTDATED if i in stale

@@ -16,19 +16,19 @@ from itertools import groupby
 
 def _walk_all_drives(es, bucket: str):
     """Merged sorted walk over all of the set's drives: (object path,
-    [(drive index, xl.meta blob), ...]) per key. A drive that cannot be
-    walked contributes nothing."""
+    [drive index, ...]) per key. A drive that cannot be walked
+    contributes nothing."""
     def tagged(i, d):
         try:
-            for path, blob in d.walk_dir(bucket):
-                yield path, i, blob
+            for path, _, _ in d.walk_scan(bucket):
+                yield path, i
         except Exception:  # noqa: BLE001 - offline drive, missing volume
             return
 
     merged = heapq.merge(*[tagged(i, d) for i, d in enumerate(es.disks)],
                          key=lambda t: t[0])
     for path, grp in groupby(merged, key=lambda t: t[0]):
-        yield path, [(i, blob) for _, i, blob in grp]
+        yield path, [i for _, i in grp]
 
 
 def heal_set(es, deep: bool = False) -> dict:

@@ -1,6 +1,7 @@
 """Where a large PUT and GET spend their time on the card.
 
     python -m minio_tpu_torch.tools.where_time_goes [--size-mib 256] [--reps 3] [--seed 7]
+        [--namespace-only]
 
 One 12-drive EC 8+4 ErasureSet on the card (drives under /dev/shm where
 it has room), no HTTP. For one object of --size-mib it times, on the
@@ -24,8 +25,16 @@ host clock and each --reps times (median and spread printed):
     versioned bucket, healthy and with 4 data-shard drives wiped, and a
     listing of 10,000 keys of 1 KiB (written once, from 16 threads,
     after a tenth of them from one thread) in pages of 1000, deep and
-    with delimiter "/" (keys/s); 100 of the one-thread PUTs again under
-    torch.profiler and under cProfile (host time by function),
+    with delimiter "/" (keys/s), each run a fresh walk of the drives
+    (the bucket's metacache bumped before it), and the deep listing
+    repeated with no write between (`list_10k_repeat`: served from the
+    walk stream where the package has one); a small PUT's 12 journal
+    writes through the set's fan-out pool against one thread writing
+    them drive after drive, and a fan-out of 12 no-ops; 100 of the
+    one-thread PUTs
+    again under torch.profiler and under cProfile (host time by
+    function), and the set's group-commit, metacache and journal-summary
+    counters where the package has them,
 
 then runs one signed PUT and one GET (healthy, then degraded), the
 multipart GET, the one-drive heal and the degraded GET of the oldest
@@ -35,12 +44,17 @@ by copy, each copy row marked with the host memory it read or wrote
 (pinned or pageable), and the card's busy share of the wall time. The
 last line is one JSON object with every number, the card's name and its
 power limit. It needs a CUDA card and fails without one.
+--namespace-only runs the listing and small-PUT rows alone. The script
+uses only public calls of the package and reads its metadata-plane
+counters with getattr, so a copy of it times an older tree of the
+package as well, for a comparison within one call.
 """
 
 from __future__ import annotations
 
 import argparse
 import cProfile
+import dataclasses
 import hashlib
 import io
 import json
@@ -60,6 +74,7 @@ from concurrent.futures import ThreadPoolExecutor
 from minio_tpu_torch.object.erasure_object import ErasureSet, hash_order
 from minio_tpu_torch.object.types import GetOptions, PutOptions
 from minio_tpu_torch.storage.local import LocalStorage
+from minio_tpu_torch.storage.meta import FileInfo
 from minio_tpu_torch.utils.streams import (ChunkReader, HashingReader,
                                            LimitedReader, Payload)
 
@@ -67,6 +82,7 @@ MIB = 1 << 20
 BUCKET = "prof"
 VBUCKET = "profv"
 LBUCKET = "profl"
+JBUCKET = "profj"
 LIST_KEYS = [f"dir{d:02d}/obj{o:03d}" for d in range(100) for o in range(100)]
 
 
@@ -141,6 +157,37 @@ def _host_profile(fn) -> list:
     return rows[:12]
 
 
+def _journal_rows(es, drives: list, n: int = 100) -> dict:
+    """Where a small PUT's journal writes go: ms per PUT's worth (one
+    inline journal of 1 KiB on each of the 12 drives) written by the
+    set's fan-out pool (as a PUT commits) and written by one thread,
+    drive after drive; and ms per fan-out of 12 calls that do nothing
+    (the pool's handoffs alone). Host clock, n runs each."""
+    fi = FileInfo(volume=JBUCKET, name="", size=1024, mod_time=1,
+                  metadata={"etag": "0" * 32}, inline_data=bytes(1056))
+    es.make_bucket(JBUCKET)
+
+    def write(d, key):
+        d.write_metadata(JBUCKET, key, dataclasses.replace(fi, name=key))
+    out = {}
+    t0 = time.perf_counter()
+    for j in range(n):
+        es._fanout([lambda d=d, j=j: write(d, f"f{j}") for d in es.disks])
+    out["journal_12_fanout_ms"] = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for j in range(n):
+        for d in es.disks:
+            write(d, f"s{j}")
+    out["journal_12_serial_ms"] = (time.perf_counter() - t0) / n * 1e3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        es._fanout([lambda: None] * len(es.disks))
+    out["fanout_noop_12_ms"] = (time.perf_counter() - t0) / n * 1e3
+    for d in drives:
+        shutil.rmtree(os.path.join(d, JBUCKET), ignore_errors=True)
+    return out
+
+
 def _payload(body: bytes, want: str | None) -> Payload:
     """The body as the S3 front end hands it to put_object: a Payload
     over a length-limited reader; hashed as it streams and checked
@@ -161,6 +208,8 @@ def main(argv=None) -> int:
     p.add_argument("--size-mib", type=int, default=256)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--namespace-only", action="store_true",
+                   help="only the listing and small-PUT rows")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("where_time_goes: needs a CUDA card")
@@ -183,126 +232,130 @@ def main(argv=None) -> int:
         # Degraded reads must stay degraded: no background heals.
         es._mrf_closed = True
         try:
-            es.make_bucket(BUCKET)
-            es.put_object(BUCKET, "warm", body[:40 * MIB])   # build + warm
-            es.get_object(BUCKET, "warm")
+            if not args.namespace_only:
+                es.make_bucket(BUCKET)
+                es.put_object(BUCKET, "warm", body[:40 * MIB])   # build + warm
+                es.get_object(BUCKET, "warm")
 
-            signed = hashlib.sha256(body).hexdigest()
+                signed = hashlib.sha256(body).hexdigest()
 
-            def put(signed: str | None = signed):
-                es.put_object(BUCKET, "obj", _payload(body, signed))
+                def put(signed: str | None = signed):
+                    es.put_object(BUCKET, "obj", _payload(body, signed))
 
-            def get():
-                _, chunks = es.get_object_stream(BUCKET, "obj")
-                for _ in chunks:
-                    pass
+                def get():
+                    _, chunks = es.get_object_stream(BUCKET, "obj")
+                    for _ in chunks:
+                        pass
 
-            def get_bytes():
-                if es.get_object(BUCKET, "obj")[1] != body:
+                def get_bytes():
+                    if es.get_object(BUCKET, "obj")[1] != body:
+                        raise RuntimeError("GET returned other bytes")
+
+                _, got = es.get_object(BUCKET, "warm")
+                if got != body[:40 * MIB]:
                     raise RuntimeError("GET returned other bytes")
+                result["sha256"] = _timed(lambda: hashlib.sha256(body), args.reps)
+                result["md5"] = _timed(lambda: hashlib.md5(body), args.reps)
+                result["put_unsigned"] = _timed(lambda: put(None), args.reps)
+                result["put"] = _timed(put, args.reps)
+                result["get"] = _timed(get, args.reps)
+                result["get_bytes"] = _timed(get_bytes, args.reps)
+                result["profile_put"] = _device_profile(put)
+                result["profile_get"] = _device_profile(get)
+                dist = hash_order(f"{BUCKET}/obj", 12)
+                for i in [i for i in range(12) if dist[i] - 1 < 8][:4]:
+                    shutil.rmtree(os.path.join(drives[i], BUCKET, "obj"))
+                if es.get_object(BUCKET, "obj")[1] != body:
+                    raise RuntimeError("degraded GET returned other bytes")
+                result["get_degraded"] = _timed(get, args.reps)
+                result["profile_get_degraded"] = _device_profile(get)
+                if es.heal_object(BUCKET, "obj").healed != 4:
+                    raise RuntimeError("the wiped drives did not heal")
 
-            _, got = es.get_object(BUCKET, "warm")
-            if got != body[:40 * MIB]:
-                raise RuntimeError("GET returned other bytes")
-            result["sha256"] = _timed(lambda: hashlib.sha256(body), args.reps)
-            result["md5"] = _timed(lambda: hashlib.md5(body), args.reps)
-            result["put_unsigned"] = _timed(lambda: put(None), args.reps)
-            result["put"] = _timed(put, args.reps)
-            result["get"] = _timed(get, args.reps)
-            result["get_bytes"] = _timed(get_bytes, args.reps)
-            result["profile_put"] = _device_profile(put)
-            result["profile_get"] = _device_profile(get)
-            dist = hash_order(f"{BUCKET}/obj", 12)
-            for i in [i for i in range(12) if dist[i] - 1 < 8][:4]:
-                shutil.rmtree(os.path.join(drives[i], BUCKET, "obj"))
-            if es.get_object(BUCKET, "obj")[1] != body:
-                raise RuntimeError("degraded GET returned other bytes")
-            result["get_degraded"] = _timed(get, args.reps)
-            result["profile_get_degraded"] = _device_profile(get)
-            if es.heal_object(BUCKET, "obj").healed != 4:
-                raise RuntimeError("the wiped drives did not heal")
+                # After the rows above, so that they run as on the parent.
+                part = 8 * MIB
 
-            # After the rows above, so that they run as on the parent.
-            part = 8 * MIB
+                def mp_put():
+                    uid = es.new_multipart_upload(BUCKET, "mp")
+                    done = [es.put_object_part(BUCKET, "mp", uid, n + 1,
+                                               _payload(body[o:o + part], None))
+                            for n, o in enumerate(range(0, len(body), part))]
+                    es.complete_multipart_upload(BUCKET, "mp", uid, [
+                        (p.number, p.etag) for p in done])
 
-            def mp_put():
-                uid = es.new_multipart_upload(BUCKET, "mp")
-                done = [es.put_object_part(BUCKET, "mp", uid, n + 1,
-                                           _payload(body[o:o + part], None))
-                        for n, o in enumerate(range(0, len(body), part))]
-                es.complete_multipart_upload(BUCKET, "mp", uid, [
-                    (p.number, p.etag) for p in done])
+                def mp_get():
+                    _, chunks = es.get_object_stream(BUCKET, "mp")
+                    for _ in chunks:
+                        pass
+                result["mp_put"] = _timed(mp_put, args.reps)
+                if es.get_object(BUCKET, "mp")[1] != body:
+                    raise RuntimeError("multipart GET returned other bytes")
+                result["mp_get"] = _timed(mp_get, args.reps)
+                result["profile_mp_get"] = _device_profile(mp_get)
 
-            def mp_get():
-                _, chunks = es.get_object_stream(BUCKET, "mp")
-                for _ in chunks:
-                    pass
-            result["mp_put"] = _timed(mp_put, args.reps)
-            if es.get_object(BUCKET, "mp")[1] != body:
-                raise RuntimeError("multipart GET returned other bytes")
-            result["mp_get"] = _timed(mp_get, args.reps)
-            result["profile_mp_get"] = _device_profile(mp_get)
+                def wipe(shards):
+                    def go():
+                        for s in shards:
+                            shutil.rmtree(os.path.join(
+                                drives[dist.index(s + 1)], BUCKET, "obj"))
+                    return go
 
-            def wipe(shards):
-                def go():
-                    for s in shards:
-                        shutil.rmtree(os.path.join(
-                            drives[dist.index(s + 1)], BUCKET, "obj"))
-                return go
+                def heal(wiped: int):
+                    r = es.heal_object(BUCKET, "obj")
+                    if r.healed != wiped:
+                        raise RuntimeError(f"heal healed {r.healed} of {wiped}")
+                result["heal_1"] = _timed(lambda: heal(1), args.reps,
+                                          setup=wipe((0,)))
+                result["heal_4"] = _timed(lambda: heal(4), args.reps,
+                                          setup=wipe((0, 5, 8, 11)))
+                result["profile_heal_1"] = _device_profile(lambda: heal(1),
+                                                           setup=wipe((0,)))
+                if es.get_object(BUCKET, "obj")[1] != body:
+                    raise RuntimeError("GET after heal returned other bytes")
 
-            def heal(wiped: int):
-                r = es.heal_object(BUCKET, "obj")
-                if r.healed != wiped:
-                    raise RuntimeError(f"heal healed {r.healed} of {wiped}")
-            result["heal_1"] = _timed(lambda: heal(1), args.reps,
-                                      setup=wipe((0,)))
-            result["heal_4"] = _timed(lambda: heal(4), args.reps,
-                                      setup=wipe((0, 5, 8, 11)))
-            result["profile_heal_1"] = _device_profile(lambda: heal(1),
-                                                       setup=wipe((0,)))
-            if es.get_object(BUCKET, "obj")[1] != body:
-                raise RuntimeError("GET after heal returned other bytes")
+                # The bucket namespace, after the rows the parent has.
+                def copy():
+                    info, chunks = es.get_object_stream(BUCKET, "obj")
+                    reader = ChunkReader(chunks)
+                    try:
+                        es.put_object(BUCKET, "copy", Payload(reader, info.size))
+                    finally:
+                        reader.close()
+                result["copy_256"] = _timed(copy, args.reps)
+                if es.get_object(BUCKET, "copy")[1] != body:
+                    raise RuntimeError("the copy returned other bytes")
 
-            # The bucket namespace, after the rows the parent has.
-            def copy():
-                info, chunks = es.get_object_stream(BUCKET, "obj")
-                reader = ChunkReader(chunks)
-                try:
-                    es.put_object(BUCKET, "copy", Payload(reader, info.size))
-                finally:
-                    reader.close()
-            result["copy_256"] = _timed(copy, args.reps)
-            if es.get_object(BUCKET, "copy")[1] != body:
-                raise RuntimeError("the copy returned other bytes")
+                es.make_bucket(VBUCKET)
+                es.set_bucket_versioning(VBUCKET, "Enabled")
+                oldest = es.put_object(VBUCKET, "obj", body,
+                                       PutOptions(versioned=True)).version_id
+                for shift in (1, 2):
+                    es.put_object(VBUCKET, "obj", body[shift:] + body[:shift],
+                                  PutOptions(versioned=True))
 
-            es.make_bucket(VBUCKET)
-            es.set_bucket_versioning(VBUCKET, "Enabled")
-            oldest = es.put_object(VBUCKET, "obj", body,
-                                   PutOptions(versioned=True)).version_id
-            for shift in (1, 2):
-                es.put_object(VBUCKET, "obj", body[shift:] + body[:shift],
-                              PutOptions(versioned=True))
+                def get_old():
+                    _, chunks = es.get_object_stream(
+                        VBUCKET, "obj", opts=GetOptions(version_id=oldest))
+                    for _ in chunks:
+                        pass
+                if es.get_object(VBUCKET, "obj",
+                                 GetOptions(version_id=oldest))[1] != body:
+                    raise RuntimeError("GET by version id returned other bytes")
+                result["get_version_old"] = _timed(get_old, args.reps)
+                vdist = hash_order(f"{VBUCKET}/obj", 12)
+                for i in [i for i in range(12) if vdist[i] - 1 < 8][:4]:
+                    shutil.rmtree(os.path.join(drives[i], VBUCKET, "obj"))
+                if es.get_object(VBUCKET, "obj",
+                                 GetOptions(version_id=oldest))[1] != body:
+                    raise RuntimeError("degraded GET by version id returned "
+                                       "other bytes")
+                result["get_version_old_degraded"] = _timed(get_old, args.reps)
+                result["profile_get_version_old_degraded"] = \
+                    _device_profile(get_old)
 
-            def get_old():
-                _, chunks = es.get_object_stream(
-                    VBUCKET, "obj", opts=GetOptions(version_id=oldest))
-                for _ in chunks:
-                    pass
-            if es.get_object(VBUCKET, "obj",
-                             GetOptions(version_id=oldest))[1] != body:
-                raise RuntimeError("GET by version id returned other bytes")
-            result["get_version_old"] = _timed(get_old, args.reps)
-            vdist = hash_order(f"{VBUCKET}/obj", 12)
-            for i in [i for i in range(12) if vdist[i] - 1 < 8][:4]:
-                shutil.rmtree(os.path.join(drives[i], VBUCKET, "obj"))
-            if es.get_object(VBUCKET, "obj",
-                             GetOptions(version_id=oldest))[1] != body:
-                raise RuntimeError("degraded GET by version id returned "
-                                   "other bytes")
-            result["get_version_old_degraded"] = _timed(get_old, args.reps)
-            result["profile_get_version_old_degraded"] = \
-                _device_profile(get_old)
-
+            else:
+                es.make_bucket(BUCKET)
+                es.put_object(BUCKET, "warm", body[:4096])   # build + warm
             es.make_bucket(LBUCKET)
             small = np.random.default_rng(args.seed + 1).bytes(
                 len(LIST_KEYS) * 1024)
@@ -311,6 +364,7 @@ def main(argv=None) -> int:
             for i, key in enumerate(seq):
                 es.put_object(LBUCKET, key, small[i * 1024:(i + 1) * 1024])
             result["put_1k_one_thread_s"] = time.perf_counter() - t0
+            result.update(_journal_rows(es, drives))
 
             def put_small(n: int):
                 def go():
@@ -341,10 +395,28 @@ def main(argv=None) -> int:
                     if got != want:
                         raise RuntimeError(f"listed {got} of {want}")
                 return go
+            mc = getattr(es, "metacache", None)
+
+            def fresh_walk():
+                if mc is not None:
+                    mc.bump(LBUCKET)
             result["list_10k"] = _timed(listing("", len(LIST_KEYS)),
-                                        args.reps)
+                                        args.reps, setup=fresh_walk)
+            listing("", len(LIST_KEYS))()
+            result["list_10k_repeat"] = _timed(
+                listing("", len(LIST_KEYS)), args.reps)
             result["list_10k_delimiter"] = _timed(listing(
-                "/", len({k.split("/")[0] for k in LIST_KEYS})), args.reps)
+                "/", len({k.split("/")[0] for k in LIST_KEYS})), args.reps,
+                setup=fresh_walk)
+            gc = getattr(es, "group_commit", None)
+            result["group_commit"] = None if gc is None else {
+                k: v for k, v in gc.stats().items() if k != "wait_hist"}
+            result["metacache"] = None if mc is None else mc.stats()
+            try:
+                from minio_tpu_torch.storage import meta_scan
+                result["meta_scan"] = dict(meta_scan.counters)
+            except ImportError:
+                result["meta_scan"] = None
         finally:
             es.close()
     finally:
@@ -353,8 +425,10 @@ def main(argv=None) -> int:
     for op in ("sha256", "md5", "put_unsigned", "put", "get", "get_bytes",
                "get_degraded", "mp_put", "mp_get", "heal_1", "heal_4",
                "copy_256", "get_version_old", "get_version_old_degraded",
-               "list_10k", "list_10k_delimiter"):
-        r = result[op]
+               "list_10k", "list_10k_repeat", "list_10k_delimiter"):
+        r = result.get(op)
+        if r is None:
+            continue
         rate = f"{len(LIST_KEYS) / r['median_s']:.1f} keys/s" \
             if op.startswith("list") else \
             f"{args.size_mib / r['median_s']:.1f} MiB/s"
@@ -363,6 +437,10 @@ def main(argv=None) -> int:
     print(f"put_1k_one_thread: {result['put_1k_one_thread_s']:.4f} s "
           f"({len(LIST_KEYS) // 10 / result['put_1k_one_thread_s']:.1f} "
           "keys/s, one thread, once)")
+    print(f"journals of one small PUT (12 drives): through the fan-out "
+          f"pool {result['journal_12_fanout_ms']:.3f} ms, one thread "
+          f"{result['journal_12_serial_ms']:.3f} ms; a fan-out of 12 no-ops "
+          f"{result['fanout_noop_12_ms']:.3f} ms")
     print(f"list_10k_put: {result['list_10k_put_s']:.4f} s "
           f"({len(LIST_KEYS) / result['list_10k_put_s']:.1f} keys/s, "
           "16 threads, once)")
@@ -370,10 +448,14 @@ def main(argv=None) -> int:
           "time by function:")
     for tt, nc, name in result["host_put_1k"]:
         print(f"    {tt * 1e3:10.3f} ms  {nc:7d} calls  {name[:80]}")
+    for key in ("group_commit", "metacache", "meta_scan"):
+        print(f"{key}: {result[key]}")
     for op in ("profile_put", "profile_get", "profile_get_degraded",
                "profile_mp_get", "profile_heal_1",
                "profile_get_version_old_degraded", "profile_put_1k"):
-        r = result[op]
+        r = result.get(op)
+        if r is None:
+            continue
         print(f"{op}: wall {r['wall_s']:.4f} s, device busy "
               f"{r['device_busy_s']:.4f} s ({100 * r['device_busy_share']:.2f}%)")
         for name, s in r["device_s_by_name"].items():
