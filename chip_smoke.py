@@ -25,7 +25,9 @@ and prints no result line):
    lengths, from an unaligned base, and against gf_apply at 256 blocks;
    then the golden erasure and HighwayHash self-tests through the card.
 3. The main path, one client: the S3 server (minio_tpu_torch.server) on
-   12 drives, EC 8+4, device cuda, in this process. PUT a 256 MiB, a
+   12 drives, EC 8+4, device cuda, in this process (here and in 4-4d
+   with its periodic scanner off: those phases take drives away by hand
+   and compare heals with copies). PUT a 256 MiB, a
    33 MiB + 777 B and a 200 KiB object over signed HTTP, GET each back;
    wipe the copies of 4 data-shard drives and GET again; flip one byte of
    a data-shard block and GET again. Byte identity every time. Ranged
@@ -112,14 +114,47 @@ and prints no result line):
    must replay WAL frames on every drive; every acknowledged key reads
    back its bytes and is listed, no key whose DELETE was acknowledged
    is read or listed, and no pool lease is outstanding.
+4e. The drive plane: `python -m minio_tpu_torch.server
+   --scanner-interval 1` in a subprocess on 12 fresh drives (the drive
+   health wrapper on, as by default). Every drive gets format.json with
+   one layout, /minio/health/ready answers 200. 16 clients load 2 GiB of
+   16 MiB objects, 64 MiB + 1 B, a multipart of 8 x 8 MiB, 2,000 keys of
+   1 KiB and a versioned bucket of 200 keys x 3 versions with 100 delete
+   markers. Replaced at boot: the server stops cleanly, drive 3 is
+   copied, wiped and the server restarted: drive 3 must be adopted into
+   slot 3 and marked healing, /ready answer 503 naming set 0 with one
+   healing drive while GETs of the preloaded keys return their bytes;
+   once the drive lifecycle manager's bulk heal reports done, /ready is
+   200, and every shard file of drive 3 equals the copy byte for byte
+   and its journals as version lists. Replaced while serving: 16 clients
+   PUT and GET 1 MiB objects (24 pairs each, 0.25 s apart) while drive 7
+   is wiped; its format must be restored within two polls and its bulk
+   heal converge with no request failing; every acknowledged key reads
+   back, and (in this process) a second heal of every version of every
+   key heals nothing. A hung drive, in this process: an ErasureSet over
+   wrap_disks(op_timeout=1.0, bulk_timeout=1.0) with one drive asleep
+   30 s on every call; a 16 MiB PUT and its GET each finish within the
+   deadline plus a healthy PUT's time, the breaker opens after 3 faults
+   and then fails calls in under 10 ms, the half-open probe readmits the
+   drive once the sleep is lifted, and a deep scan cycle (1 in 1) finds
+   and rebuilds a flipped byte. The scanner, on the phase's drives in
+   this process: a cycle's usage equals what the phase wrote (objects,
+   versions, delete markers, bytes), and a cycle rebuilds one drive's
+   copy of a key with no client read. Time to heal each replaced drive,
+   MiB/s written to it and objects/s, the launches (the servers' while
+   serving, read from their clean-stop line, and this process's; gf_apply
+   by its number of rows), 1 KiB PUT keys/s from 16 clients with
+   --drive-timeout 10 and 0 (fresh servers, turns 10/0/0/10), and 0
+   pool leases outstanding.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
-   In phases 3, 4, 4b, 4c, 4d (the restarted server) and 5 every
+   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e and 5 every
    kernel's launch count is set to 0 just before the phase and read
-   just after; each kernel of the phase's
-   path must have launched.
+   just after (4e's servers count from their start, less their boot
+   self-tests); each kernel of the phase's path must have launched, in
+   4e gf_apply with one row (r = 1).
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
    its bound; gf_apply at 8, 32 and 256 blocks (parity rows) and at 32
@@ -512,16 +547,20 @@ def drive_root() -> str:
 
 
 class Server:
-    """The port's S3 server on 12 fresh drives under `root`, serving from
-    a thread of this process until stop(); with mrf=False its MRF heal
-    queue stays closed."""
+    """The port's S3 server on 12 drives under `root` (fresh, unless a
+    phase left them), serving from a thread of this process until
+    stop(); with mrf=False its MRF heal queue stays closed. Its periodic
+    scanner is off (a phase that takes drives away by hand must not see
+    them healed behind it); the drive health wrapper is on unless `args`
+    says otherwise."""
 
     def __init__(self, root: str, name: str, mrf: bool = False,
-                 device: str = "cuda"):
+                 device: str = "cuda", args: tuple = ()):
         from minio_tpu_torch import server
         self.drives = [os.path.join(root, name, f"d{i}") for i in range(12)]
         self.srv = server.boot(["--address", "127.0.0.1:0", "--device",
-                                device, *self.drives])
+                                device, "--scanner-interval", "0", *args,
+                                *self.drives])
         self.es = self.srv.objects
         self.es._mrf_closed = not mrf
         check(self.es.default_parity == M, "12 drives must give EC 8+4")
@@ -539,6 +578,7 @@ def reset_launches() -> None:
     from minio_tpu_torch.experiments import rs_i8_kernel
     from minio_tpu_torch.ops import hh_device, rs_device
     rs_device.LAUNCHES = hh_device.LAUNCHES = rs_i8_kernel.LAUNCHES = 0
+    rs_device.LAUNCHES_BY_R.clear()
 
 
 def read_launches() -> dict:
@@ -1682,6 +1722,603 @@ def phase_crash(rng, root: str, device: str = "cuda") -> dict:
     return launches
 
 
+# Phase 4e: the drive plane.
+DP_BIG = 16 * MIB               # MinIO's own layout: 16 MiB objects
+DP_BIG_BYTES = 2 << 30          # of them, 2 GiB (the data's scale cut)
+DP_RAGGED = 64 * MIB + 1        # a ragged tail
+DP_MP_PARTS = 8                 # a multipart object of 8 x AWS_PART
+DP_SMALL = 2000                 # keys of 1 KiB
+DP_VKEYS, DP_VERSIONS, DP_MARKERS = 200, 3, 100
+DP_VBODY = 4 * 1024
+DP_CLIENTS = 16
+DP_LIVE_KEYS = 24               # keys a client PUTs and GETs while serving
+DP_LIVE_SIZE = MIB              # their size
+DP_LIVE_PAUSE = 0.25            # seconds between a client's pairs
+DP_INTERVAL = 1.0               # --scanner-interval of the phase's server
+HUNG_SLEEP = 30.0               # the hung drive's sleep on every call
+SMALL_RATE_KEYS = 32            # 1 KiB PUTs a client for the rate pair
+
+
+class ServerProc:
+    """`python -m minio_tpu_torch.server` in a subprocess on `drives`,
+    its output collected; stop() sends SIGINT (the clean stop) and
+    returns the launches it printed while serving."""
+
+    def __init__(self, drives: list, extra: tuple = (),
+                 device: str = "cuda"):
+        import socket
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.t_start = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "minio_tpu_torch.server", "--device",
+             device, "--address", f"127.0.0.1:{port}", *extra, *drives],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: list[str] = []
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        t0 = time.perf_counter()
+        while not any("serving S3 on" in ln for ln in self.lines):
+            check(self.proc.poll() is None
+                  and time.perf_counter() - t0 < 240,
+                  f"the server did not boot: {self.lines[-20:]}")
+            time.sleep(0.05)
+        self.t_serving = time.time()
+        self.client = Client(f"127.0.0.1:{port}")
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+
+    def line(self, prefix: str) -> str:
+        return next((ln for ln in self.lines if ln.startswith(prefix)), "")
+
+    def stop(self) -> dict:
+        import signal
+        try:
+            self.proc.send_signal(signal.SIGINT)
+            rc = self.proc.wait(timeout=120)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self.reader.join(30)
+        check(rc == 0, f"the server's clean stop exited {rc}: "
+              f"{self.lines[-20:]}")
+        done = self.line("kernel launches while serving: ")
+        check(done, f"no launch line at the clean stop: {self.lines[-20:]}")
+        return json.loads(done.split(": ", 1)[1])
+
+
+def drive_files(root: str) -> dict:
+    """Relative path -> bytes of every file of a drive outside its system
+    volume (journals parsed: their versions and inline data)."""
+    from minio_tpu_torch.storage.meta import XLMeta
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        if os.path.relpath(dirpath, root).split(os.sep)[0] == ".mtpu.sys":
+            continue
+        for f in files:
+            full = os.path.join(dirpath, f)
+            blob = open(full, "rb").read()
+            if f == "xl.meta":
+                xl = XLMeta.load(blob)
+                blob = (xl.versions, xl.inline)
+            out[os.path.relpath(full, root)] = blob
+    return out
+
+
+def shard_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root)
+               if os.path.relpath(d, root).split(os.sep)[0] != ".mtpu.sys"
+               for f in fs)
+
+
+def drive_heal_status(c: "Client", drive: int) -> dict:
+    st, body, _ = c.send("GET", "/minio/admin/v3/heal")
+    check(st == 200, f"admin heal status: {st} {body[:200]!r}")
+    return next((d for d in json.loads(body).get("drive_heal", {})
+                 .get("drives", []) if d["drive"] == drive), {})
+
+
+def wait_healed(c: "Client", drive: int, timeout: float = 600) -> dict:
+    t0 = time.perf_counter()
+    while True:
+        entry = drive_heal_status(c, drive)
+        if entry.get("state") == "done":
+            return entry
+        check(time.perf_counter() - t0 < timeout,
+              f"drive {drive} not healed in {timeout} s: {entry}")
+        time.sleep(0.1)
+
+
+def ready(c: "Client") -> tuple[int, dict]:
+    st, body, _ = c.send("GET", "/minio/health/ready")
+    return st, json.loads(body)
+
+
+def add_launches(a: dict, b: dict) -> dict:
+    by_r = dict(a.get("gf_apply_by_r", {}))
+    for r, n in b.get("gf_apply_by_r", {}).items():
+        by_r[str(r)] = by_r.get(str(r), 0) + n
+    return {"gf_apply": a.get("gf_apply", 0) + b.get("gf_apply", 0),
+            "gf_apply_by_r": by_r,
+            "highwayhash256": a.get("highwayhash256", 0)
+            + b.get("highwayhash256", 0)}
+
+
+def in_process_launches() -> dict:
+    from minio_tpu_torch.ops import rs_device
+    got = read_launches()
+    return {"gf_apply": got["gf_apply"],
+            "gf_apply_by_r": {str(r): n for r, n in
+                              sorted(rs_device.LAUNCHES_BY_R.items())},
+            "highwayhash256": got["highwayhash256"]}
+
+
+class SleepyDisk:
+    """A drive whose every call first waits on `release` for up to
+    HUNG_SLEEP seconds while `hang` is set: a drive that hangs instead
+    of dying."""
+
+    def __init__(self, disk):
+        self._disk = disk
+        self.hang = False
+        self.release = threading.Event()
+
+    @property
+    def root(self):
+        return self._disk.root
+
+    @property
+    def endpoint(self):
+        return self._disk.endpoint
+
+    def __getattr__(self, name: str):
+        attr = getattr(self._disk, name)
+        if not callable(attr):
+            return attr
+
+        def call(*a, **kw):
+            if self.hang:
+                self.release.wait(HUNG_SLEEP)
+            return attr(*a, **kw)
+        return call
+
+
+def phase_hung_drive(rng, root: str, device: str = "cuda") -> None:
+    """An ErasureSet in this process over wrap_disks(op_timeout=1.0) (and
+    the same bulk deadline), one drive asleep on every call: the PUT and
+    GET of 16 MiB finish within the deadline plus a healthy one's time,
+    the breaker opens after 3 faults and then fails calls in under
+    10 ms, and once the sleep is lifted the half-open probe readmits the
+    drive after its cooldown."""
+    from minio_tpu_torch.object.erasure_object import ErasureSet
+    from minio_tpu_torch.storage.health import wrap_disks
+    from minio_tpu_torch.storage.local import FaultyDisk, LocalStorage
+    timeout = 1.0
+    sleepy = [SleepyDisk(LocalStorage(os.path.join(root, "hung", f"d{i}")))
+              for i in range(12)]
+    disks = wrap_disks(sleepy, op_timeout=timeout, bulk_timeout=timeout)
+    es = ErasureSet(disks, device=device)
+    es._mrf_closed = True
+    try:
+        es.make_bucket("hung")
+        bodies = [rng.bytes(DP_BIG) for _ in range(4)]
+
+        def put_get(key: str, body: bytes) -> tuple[float, float]:
+            t0 = time.perf_counter()
+            es.put_object("hung", key, body)
+            t1 = time.perf_counter()
+            check(es.get_object("hung", key)[1] == body,
+                  f"hung drive: GET {key} not identical")
+            return t1 - t0, time.perf_counter() - t1
+        for i in range(2):
+            put_get(f"warm{i}", bodies[0])
+        put_h, get_h = put_get("healthy", bodies[1])
+        # The (closed) MRF queue exists before the drive hangs: its first
+        # use, a degraded write's enqueue, reads every drive's pending
+        # list once.
+        es.mrf.save_now()
+        h = data_holders("hung", "slow", 1)[0]
+        sleepy[h].hang = True
+        put_s, get_s = put_get("slow", bodies[2])
+        log(f"hung drive: drive {h} asleep {HUNG_SLEEP:.0f} s on every "
+            f"call, deadline {timeout} s: 16 MiB PUT {put_s:.4f} s, GET "
+            f"{get_s:.4f} s (healthy {put_h:.4f} s, {get_h:.4f} s)")
+        # Each within the deadline plus a healthy PUT's time (0.5 s of
+        # the host's spread beside it).
+        check(max(put_s, get_s) <= timeout + put_h + 0.5,
+              "the hung drive held a request past its deadline")
+        # The PUT's staging clean-up on the drive fails in the
+        # background, about when the GET's metadata read does.
+        t0 = time.perf_counter()
+        while disks[h].is_online() and time.perf_counter() - t0 < 3:
+            time.sleep(0.01)
+        info = disks[h].health_info()
+        check(not disks[h].is_online() and info["consecutive_faults"] >= 3,
+              f"the breaker did not open after 3 faults: {info}")
+        fast = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            try:
+                disks[h].list_vols()
+            except FaultyDisk:
+                fast.append(time.perf_counter() - t0)
+        check(len(fast) == 5 and max(fast) < 0.010,
+              f"the open breaker did not fail fast: {fast}")
+        sleepy[h].hang = False
+        sleepy[h].release.set()
+        t_lift = time.perf_counter()
+        readmitted = None
+        while readmitted is None and time.perf_counter() - t_lift < 15:
+            try:
+                disks[h].list_vols()
+                readmitted = time.perf_counter() - t_lift
+            except FaultyDisk:
+                time.sleep(0.1)
+        check(readmitted is not None and disks[h].is_online(),
+              "the half-open probe did not readmit the drive")
+        put_get("after", bodies[3])
+        check(es.heal_object("hung", "after").before[h] == "ok",
+              "the readmitted drive missed the next PUT")
+        # The deep sample at 1 in 1: a flipped byte in a shard is found
+        # and rebuilt by a scan cycle, with no client read.
+        from minio_tpu_torch.object.scanner import Scanner
+        objdir = os.path.join(sleepy[(h + 1) % 12].root, "hung", "healthy")
+        ddir = next(e for e in os.listdir(objdir) if e != "xl.meta")
+        part = os.path.join(objdir, ddir, "part.1")
+        orig = open(part, "rb").read()
+        flipped = bytearray(orig)
+        flipped[len(flipped) // 2] ^= 0x5A
+        open(part, "wb").write(bytes(flipped))
+        t0 = time.perf_counter()
+        Scanner([es], throttle=0, deep_every=1).scan_cycle()
+        deep_wall = time.perf_counter() - t0
+        check(open(part, "rb").read() == orig,
+              "the deep scan did not repair the flipped byte")
+        log(f"hung drive: breaker open after {info['consecutive_faults']} "
+            f"faults, calls failed in at most {max(fast) * 1e3:.3f} ms; "
+            f"the probe readmitted the drive {readmitted:.2f} s after the "
+            "sleep was lifted (cooldown 5 s from the breaker's opening); "
+            "the next PUT reached all 12 drives; a deep scan cycle "
+            f"({deep_wall:.2f} s) found a flipped byte in a shard of "
+            "`healthy` and rebuilt it")
+    finally:
+        es.close()
+        for d in disks:
+            d.close()
+
+
+def small_put_rate(root: str, name: str, drive_timeout: str, rng,
+                   device: str = "cuda") -> float:
+    """Keys/s of 1 KiB PUTs from DP_CLIENTS clients (phase 4c's shape, cut
+    to SMALL_RATE_KEYS a client) on a fresh server in this process."""
+    s = Server(root, name, device=device,
+               args=("--drive-timeout", drive_timeout))
+    try:
+        check(s.client("PUT", "/rate")[0] == 200, "make the rate bucket")
+        bodies = rng.bytes(DP_CLIENTS * SMALL_RATE_KEYS * 1024)
+
+        def put(t: int, i: int) -> None:
+            o = (t * SMALL_RATE_KEYS + i) * 1024
+            st, _ = s.client("PUT", f"/rate/dir{t:02d}/obj{i:03d}",
+                             bodies[o:o + 1024])
+            check(st == 200, f"small PUT: {st}")
+        wall = run_clients(put, [range(SMALL_RATE_KEYS)] * DP_CLIENTS)
+    finally:
+        s.stop()
+    return DP_CLIENTS * SMALL_RATE_KEYS / wall
+
+
+def phase_drive_plane(rng, root: str, device: str = "cuda") -> dict:
+    """The drive plane (phase 4e); returns its launches (the servers'
+    while serving, and this process's)."""
+    from minio_tpu_torch.object.scanner import Scanner
+    from minio_tpu_torch.storage.meta import XLMeta
+    drives = [os.path.join(root, "dp", f"d{i}") for i in range(12)]
+    extra = ("--scanner-interval", str(DP_INTERVAL))
+    launches = {}
+    # What the phase wrote: bucket -> key -> [(size, delete marker)].
+    model: dict = {"dpb": {}, "dpv": {}}
+    pool = rng.bytes(DP_BIG_BYTES + DP_RAGGED + DP_MP_PARTS * AWS_PART)
+    view = memoryview(pool)
+    n_big = DP_BIG_BYTES // DP_BIG
+    big = {f"big/{i:04d}": (i * DP_BIG, DP_BIG) for i in range(n_big)}
+    big["ragged"] = (DP_BIG_BYTES, DP_RAGGED)
+
+    def body_of(key: str) -> bytes:
+        o, n = big[key]
+        return bytes(view[o:o + n])
+
+    # -- boot and load ---------------------------------------------------
+    p = ServerProc(drives, extra, device)
+    try:
+        c = p.client
+        fmts = [json.load(open(os.path.join(d, ".mtpu.sys",
+                                            "format.json"))) for d in drives]
+        layout = {(f["id"], json.dumps(f["xl"]["sets"])) for f in fmts}
+        check(len(layout) == 1 and len({f["xl"]["this"] for f in fmts}) == 12
+              and [f["xl"]["this"] for f in fmts] == fmts[0]["xl"]["sets"][0],
+              "the 12 drives' format.json disagree")
+        check(ready(c)[0] == 200, f"fresh server not ready: {ready(c)}")
+        log(f"drive plane: booted in {p.t_serving - p.t_start:.2f} s; "
+            f"{p.line('format: ')}")
+        check(c("PUT", "/dpb")[0] == 200, "make bucket dpb")
+        check(c("PUT", "/dpv")[0] == 200, "make bucket dpv")
+        check(c.send("PUT", "/dpv", VERSIONING.format("Enabled").encode(),
+                     query={"versioning": ""})[0] == 200, "versioning")
+        t0 = time.perf_counter()
+
+        def put_big(_t: int, key: str) -> None:
+            st, err = c("PUT", f"/dpb/{key}", body_of(key))
+            check(st == 200, f"PUT {key}: {st} {err[:200]!r}")
+        keys = sorted(big)
+        run_clients(put_big, [keys[t::DP_CLIENTS]
+                              for t in range(DP_CLIENTS)])
+        wall_big = time.perf_counter() - t0
+        for key in keys:
+            model["dpb"][key] = [(big[key][1], False)]
+        o = DP_BIG_BYTES + DP_RAGGED
+        parts = [bytes(view[o + n * AWS_PART:o + (n + 1) * AWS_PART])
+                 for n in range(DP_MP_PARTS)]
+        mp_upload(c, "/dpb/mp", parts, DP_MP_PARTS)
+        model["dpb"]["mp"] = [(DP_MP_PARTS * AWS_PART, False)]
+        small = rng.bytes(DP_SMALL * 1024)
+        t0 = time.perf_counter()
+
+        def put_small(_t: int, i: int) -> None:
+            st, _ = c("PUT", f"/dpb/small/{i:05d}",
+                      small[i * 1024:(i + 1) * 1024])
+            check(st == 200, f"PUT small/{i}: {st}")
+        run_clients(put_small, [range(t, DP_SMALL, DP_CLIENTS)
+                                for t in range(DP_CLIENTS)])
+        wall_small = time.perf_counter() - t0
+        for i in range(DP_SMALL):
+            model["dpb"][f"small/{i:05d}"] = [(1024, False)]
+        vbody = rng.bytes(DP_VKEYS * DP_VERSIONS * DP_VBODY)
+
+        def put_versions(_t: int, k: int) -> None:
+            for v in range(DP_VERSIONS):
+                o = (k * DP_VERSIONS + v) * DP_VBODY
+                st, _ = c("PUT", f"/dpv/v{k:04d}", vbody[o:o + DP_VBODY])
+                check(st == 200, f"PUT v{k} #{v}: {st}")
+            if k < DP_MARKERS:
+                st, _, h = c.send("DELETE", f"/dpv/v{k:04d}")
+                check(st == 204 and h.get("x-amz-delete-marker") == "true",
+                      f"marker on v{k}: {st} {h}")
+        run_clients(put_versions, [range(t, DP_VKEYS, DP_CLIENTS)
+                                   for t in range(DP_CLIENTS)])
+        for k in range(DP_VKEYS):
+            model["dpv"][f"v{k:04d}"] = [(DP_VBODY, False)] * DP_VERSIONS \
+                + ([(0, True)] if k < DP_MARKERS else [])
+        log(f"drive plane: loaded {n_big} x {DP_BIG / MIB:g} MiB and "
+            f"{DP_RAGGED} B in {wall_big:.2f} s "
+            f"({(DP_BIG_BYTES + DP_RAGGED) / MIB / wall_big:.1f} "
+            f"MiB/s, {DP_CLIENTS} clients), a multipart of {DP_MP_PARTS} x "
+            f"{AWS_PART / MIB:g} MiB, "
+            f"{DP_SMALL} keys of 1 KiB ({DP_SMALL / wall_small:.1f} keys/s), "
+            f"{DP_VKEYS} keys x {DP_VERSIONS} versions and {DP_MARKERS} "
+            "delete markers")
+    finally:
+        launches = add_launches(launches, p.stop())
+
+    # -- a drive replaced at boot ----------------------------------------
+    d3 = drives[3]
+    snap = os.path.join(root, "dp-snap3")
+    shutil.copytree(d3, snap)
+    slot3 = fmts[3]["xl"]["this"]
+    shutil.rmtree(d3)
+    os.makedirs(d3)
+    p = ServerProc(drives, extra, device)
+    try:
+        c = p.client
+        adopted = json.load(open(os.path.join(d3, ".mtpu.sys",
+                                              "format.json")))
+        check(adopted["xl"]["this"] == slot3 and adopted["id"] == fmts[0]["id"],
+              f"drive 3 not adopted into slot 3: {adopted}")
+        check(" 1 healing" in p.line("format: "),
+              f"the boot did not mark drive 3 healing: {p.line('format: ')}")
+        st, doc = ready(c)
+        check(st == 503 and doc["degraded_sets"][0]["set"] == 0
+              and doc["degraded_sets"][0]["healing_drives"] == 1,
+              f"readiness while drive 3 heals: {st} {doc}")
+        sample = keys[::8] + ["small/00000", f"small/{DP_SMALL - 1:05d}"]
+
+        def get_one(_t: int, key: str) -> None:
+            want = body_of(key) if key in big else \
+                small[int(key[6:]) * 1024:(int(key[6:]) + 1) * 1024]
+            check(c("GET", f"/dpb/{key}") == (200, want),
+                  f"GET {key} while drive 3 heals")
+        run_clients(get_one, [sample[t::DP_CLIENTS]
+                              for t in range(DP_CLIENTS)])
+        during = drive_heal_status(c, 3).get("state", "")
+        entry = wait_healed(c, 3)
+        boot_heal = entry["finished_at"] - p.t_start
+        heal_wall = entry["finished_at"] - entry["started"]
+        check(ready(c)[0] == 200, f"not ready after the heal: {ready(c)}")
+        healed_bytes = shard_bytes(d3)
+        log(f"drive plane: drive 3 replaced at boot: {len(sample)} GETs "
+            f"exact while it healed (heal {during or 'not yet started'} "
+            f"then); bulk heal finished {boot_heal:.2f} s after the "
+            f"process started ({entry['finished_at'] - p.t_serving:.2f} s "
+            f"after it served; tracker {heal_wall:.2f} s), "
+            f"{entry['objects_scanned']} keys scanned, "
+            f"{entry['objects_healed']} healed by the sweep, "
+            f"{healed_bytes / MIB / heal_wall:.1f} MiB/s of shard bytes "
+            f"to the new drive ({healed_bytes} B), "
+            f"{entry['objects_scanned'] / heal_wall:.1f} objects/s; "
+            "ready 200 again")
+        got, want = drive_files(d3), drive_files(snap)
+        check(sorted(got) == sorted(want),
+              f"drive 3 after its heal: {len(got)} files against "
+              f"{len(want)} in the snapshot, e.g. "
+              f"{sorted(set(got) ^ set(want))[:5]}")
+        bad = [k for k in want if got[k] != want[k]]
+        check(not bad, f"drive 3 differs from its snapshot: {bad[:5]}")
+        log(f"drive plane: drive 3's {len(want)} files equal the snapshot "
+            "(shard files byte for byte, journals as version lists)")
+
+        # -- a drive replaced while serving ------------------------------
+        acks: dict = {}
+        errs: list = []
+        live_pool = rng.bytes(64 * DP_LIVE_SIZE)
+        ran: list = []
+
+        def live(t: int) -> None:
+            # DP_LIVE_KEYS PUT-then-GET pairs a client, paced: the
+            # clients run through the wipe and into the refill, and
+            # leave the server time for it (all in one interpreter).
+            t0 = time.time()
+            for i in range(DP_LIVE_KEYS):
+                key = f"live/t{t:02d}/k{i:03d}"
+                o = (t * 7919 + i * 104729) % (63 * DP_LIVE_SIZE)
+                body = live_pool[o:o + DP_LIVE_SIZE]
+                try:
+                    st, _ = c("PUT", f"/dpb/{key}", body)
+                    if st != 200:
+                        errs.append(f"PUT {key}: {st}")
+                        return
+                    acks[key] = body
+                    st, got = c("GET", f"/dpb/{key}")
+                    if (st, got) != (200, body):
+                        errs.append(f"GET {key}: {st}")
+                        return
+                except (OSError, http.client.HTTPException) as e:
+                    errs.append(f"{key}: {e!r}")
+                    return
+                time.sleep(DP_LIVE_PAUSE)
+            ran.append(time.time() - t0)
+        clients = [threading.Thread(target=live, args=(t,))
+                   for t in range(DP_CLIENTS)]
+        for th in clients:
+            th.start()
+        try:
+            time.sleep(1.0)
+            d7 = drives[7]
+            away = os.path.join(root, "dp-wiped7")
+            t_wipe = time.time()
+            os.rename(d7, away)
+            os.makedirs(d7)
+            shutil.rmtree(away)
+            fmt7 = os.path.join(d7, ".mtpu.sys", "format.json")
+            while not os.path.exists(fmt7):
+                check(time.time() - t_wipe < 2 * DP_INTERVAL + 1.0,
+                      "drive 7's format was not restored within two polls")
+                time.sleep(0.01)
+            restored = time.time() - t_wipe
+            entry7 = wait_healed(c, 7)
+        finally:
+            for th in clients:
+                th.join(600)
+        check(not any(th.is_alive() for th in clients), "a live client hung")
+        check(not errs, f"client requests failed while drive 7 healed: "
+              f"{errs[:5]}")
+        for key, body in acks.items():
+            model["dpb"][key] = [(len(body), False)]
+
+        def check_ack(_t: int, key: str) -> None:
+            check(c("GET", f"/dpb/{key}") == (200, acks[key]),
+                  f"acknowledged {key} does not read back")
+        ack_keys = sorted(acks)
+        run_clients(check_ack, [ack_keys[t::DP_CLIENTS]
+                                for t in range(DP_CLIENTS)])
+        wall7 = entry7["finished_at"] - entry7["started"]
+        bytes7 = shard_bytes(d7)
+        log(f"drive plane: drive 7 holds {bytes7} B after its refill "
+            f"({bytes7 / MIB / wall7:.1f} MiB/s over the tracker's time, "
+            "the clients' writes to it included)")
+        log(f"drive plane: drive 7 wiped while {DP_CLIENTS} clients PUT "
+            f"and GET {DP_LIVE_SIZE} B objects: format restored "
+            f"{restored:.2f} s "
+            f"after the wipe (polls every {DP_INTERVAL} s), bulk heal "
+            f"finished {entry7['finished_at'] - t_wipe:.2f} s after it "
+            f"(tracker {wall7:.2f} s, {entry7['objects_scanned']} keys, "
+            f"{entry7['objects_scanned'] / wall7:.1f} objects/s); the "
+            f"clients ran {min(ran):.2f}-{max(ran):.2f} s from 1 s before "
+            f"the wipe; no request failed; {len(acks)} acknowledged keys "
+            "read back")
+    finally:
+        launches = add_launches(launches, p.stop())
+    log(f"drive plane: the servers' launches while serving {launches}")
+
+    # -- a hung drive, and the scanner, in this process -------------------
+    reset_launches()
+    phase_hung_drive(rng, root, device)
+    launches = add_launches(launches, in_process_launches())
+    s = Server(root, "dp", device=device)
+    try:
+        # The boot's self-tests launched the kernels: count from here.
+        reset_launches()
+        es = s.es
+        # Both refills done: a second heal of every version of every key
+        # heals nothing (16 threads).
+        work = [(b, k, "") for b, ks in model.items() for k in ks
+                if b != "dpv"]
+        work += [(b, k, fi.version_id or "null")
+                 for b, ks in model.items() if b == "dpv" for k in ks
+                 for fi in es.list_versions_all(b, k)]
+        t0 = time.perf_counter()
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(16) as ex:
+            healed = list(ex.map(lambda w: es.heal_object(*w).healed, work))
+        check(not any(healed) and len(healed) == sum(
+            len(v) for v in model["dpv"].values()) + len(model["dpb"]),
+            f"a second heal healed {sum(healed)} of {len(healed)}")
+        log(f"drive plane: a second heal of all {len(work)} versions of "
+            f"every key healed 0 ({time.perf_counter() - t0:.2f} s, 16 "
+            "threads in process)")
+        sc = Scanner([es], throttle=0)
+        t0 = time.perf_counter()
+        u = sc.scan_cycle()
+        wall = time.perf_counter() - t0
+        want = {"objects": 0, "versions": 0, "delete_markers": 0,
+                "total_size": 0}
+        for keysv in model.values():
+            for vers in keysv.values():
+                want["objects"] += 1
+                want["versions"] += len(vers)
+                want["delete_markers"] += sum(m for _, m in vers)
+                want["total_size"] += sum(n for n, m in vers if not m)
+        got_u = {k: getattr(u, k) for k in want}
+        check(got_u == want, f"scanner usage {got_u} != written {want}")
+        log(f"drive plane: a scan cycle of {u.objects} keys in "
+            f"{wall:.2f} s; usage equals what the phase wrote: {got_u}")
+        victim = os.path.join(s.drives[5], "dpb", "big", "0000")
+        before = drive_files(victim)
+        shutil.rmtree(victim)
+        sc.scan_cycle()
+        check(os.path.isdir(victim) and drive_files(victim) == before,
+              "the scan did not repair drive 5's copy of big/0000")
+        log("drive plane: a cycle rebuilt drive 5's copy of big/0000 "
+            "(journal and shard file) with no client read")
+    finally:
+        s.stop()
+    launches = add_launches(launches, in_process_launches())
+    check_pool_idle("drive plane", device)
+
+    rates = {}
+    for turn, timeout_s in enumerate(("10", "0", "0", "10")):
+        rates.setdefault(timeout_s, []).append(
+            small_put_rate(root, f"rate{turn}", timeout_s, rng, device))
+    log(f"drive plane: 1 KiB PUTs from {DP_CLIENTS} clients (phase 4c's "
+        "shape, "
+        f"{DP_CLIENTS * SMALL_RATE_KEYS} keys a run, fresh servers, turns "
+        "10/0/0/10): --drive-timeout 10 (the health wrapper) "
+        + " / ".join(f"{r:.1f}" for r in rates["10"])
+        + " keys/s; --drive-timeout 0 "
+        + " / ".join(f"{r:.1f}" for r in rates["0"]) + " keys/s")
+    log(f"drive plane: launches in the phase {launches}")
+    check(int(launches["gf_apply_by_r"].get("1", 0)) > 0
+          and launches["highwayhash256"] > 0,
+          f"the drive plane launched no r = 1 gf_apply or no hash: "
+          f"{launches}")
+    return launches
+
+
 def release(rows) -> None:
     """Return the pool leases a framer's rows hold."""
     from minio_tpu_torch.io.bufpool import leases_of
@@ -1893,13 +2530,16 @@ def main() -> int:
             s.stop()
         check_pool_idle("multipart/heal/namespace")
         crash = phase_crash(rng, root)
+        for done in ("seq", "conc", "mph", "crash"):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        dp = phase_drive_plane(rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     solo_dispatch_ms(torch, rng, conc_stats)
     b5 = phase_b5_entry_point(torch)
     times = phase_times(torch, dev, rng)
 
-    launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k]
+    launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
                 for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {

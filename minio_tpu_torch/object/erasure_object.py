@@ -22,13 +22,16 @@ erasureObjects, cmd/erasure-object.go) for one set of local drives:
     the commit: quorum-counted renames under the key's lock (write
     quorum k, +1 when k == m). Objects whose shard files fit
     SMALL_FILE_THRESHOLD go inline into xl.meta.
-  * GetObject picks the version agreed by read quorum and streams the
-    range window by window with one window read ahead on the set's
-    readahead pool. Each window's k data shards are scatter-read into a
-    pinned region [block, shard, frame], every block digest verified on
-    the device as the region lies (ops/hh_device.make_mesh_deframer),
-    and the payload de-framed into a pooled output lease with one
-    strided copy; each chunk handed out views that lease.
+  * GetObject holds the key's read lock (object/nslock.py) until its
+    stream is drained or closed, so an overwrite, delete or heal of the
+    key waits for it; it picks the version agreed by read quorum and
+    streams the range window by window with one window read ahead on
+    the set's readahead pool. Each window's k data shards are
+    scatter-read into a pinned region [block, shard, frame], every block
+    digest verified on the device as the region lies
+    (ops/hh_device.make_mesh_deframer), and the payload de-framed into a
+    pooled output lease with one strided copy; each chunk handed out
+    views that lease.
   * With drives missing, or blocks failing their digest, GetObject
     verifies the surviving shards on the device and rebuilds the data
     shards through the decode matrix on the device from a pinned stack
@@ -85,7 +88,7 @@ import queue
 import threading
 import time
 import zlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from contextlib import nullcontext
 from itertools import groupby
 from typing import Iterator, Optional, Sequence
@@ -98,6 +101,7 @@ from minio_tpu_torch.erasure.codec import _HOST, Erasure
 from minio_tpu_torch.io.bufpool import global_pool, leases_of
 from minio_tpu_torch.io.engine import kernel_lane, shutdown_kernel_lane
 from minio_tpu_torch.object.metacache import MetaCache
+from minio_tpu_torch.object.nslock import NSLockMap
 from minio_tpu_torch.object.types import (BucketExists, BucketInfo,
                                           BucketNotEmpty, BucketNotFound,
                                           DeletedObject, DeleteOptions,
@@ -112,7 +116,7 @@ from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
 from minio_tpu_torch.storage import group_commit as gc_mod
 from minio_tpu_torch.storage.group_commit import GroupOp
-from minio_tpu_torch.storage.local import (SYS_VOL, VolumeExists,
+from minio_tpu_torch.storage.local import (SYS_VOL, FaultyDisk, VolumeExists,
                                            VolumeNotEmpty, VolumeNotFound)
 from minio_tpu_torch.storage.meta import (KIND_DELETE_MARKER,
                                           NULL_VERSION_ID, ErasureInfo,
@@ -150,6 +154,17 @@ def _hold(leases: list):
     for h in leases:
         h.retain()
     return lambda: [h.release() for h in leases]
+
+
+def hold_past(exc: BaseException, leases: list) -> None:
+    """A drive call that outlived its deadline may still read or fill the
+    memory of `leases`: one more reference on each, dropped when that
+    call ends (storage/health.py attaches it to the error as
+    `pending`)."""
+    late = getattr(exc, "pending", None)
+    if late is not None:
+        drop = _hold(leases)
+        late.add_done_callback(lambda _f: drop())
 
 
 def _resolve_range(spec: tuple, size: int, bucket: str, object_: str):
@@ -324,33 +339,6 @@ def hash_order(key: str, cardinality: int) -> list[int]:
     return [1 + (start + i) % cardinality for i in range(cardinality)]
 
 
-class _KeyLocks:
-    """Per-object mutexes serializing commits and deletes of one key."""
-
-    def __init__(self):
-        self._mu = threading.Lock()
-        self._locks: dict[str, list] = {}     # key -> [lock, holders]
-
-    def hold(self, key: str):
-        locks = self
-
-        class _Held:
-            def __enter__(self):
-                with locks._mu:
-                    ent = locks._locks.setdefault(key, [threading.Lock(), 0])
-                    ent[1] += 1
-                ent[0].acquire()
-
-            def __exit__(self, *exc):
-                with locks._mu:
-                    ent = locks._locks[key]
-                    ent[0].release()
-                    ent[1] -= 1
-                    if not ent[1]:
-                        del locks._locks[key]
-        return _Held()
-
-
 class ErasureSet:
     """One erasure set over n local drives; device work on `device`."""
 
@@ -368,7 +356,9 @@ class ErasureSet:
         # GET readahead runs apart from the drive fan-out pool it uses.
         self._readahead = ThreadPoolExecutor(
             max_workers=max(8, 2 * n), thread_name_prefix="get-readahead")
-        self._ns = _KeyLocks()
+        # Per-key reader/writer locks (object/nslock.py): commits,
+        # deletes and heals write, GETs read until their stream ends.
+        self.ns = NSLockMap()
         # Windows of full blocks by route, as the batcher routed them:
         # through the device kernels, or through a host rival (only when
         # a caller pinned the route to the host).
@@ -392,8 +382,11 @@ class ErasureSet:
         self._walk_rotor = 0
         # The listing's shared walk streams, and the bump funnel every
         # namespace mutation of the set goes through (object/metacache).
-        self.metacache = MetaCache(persist_drive=self.disks[0]
-                                   if self.disks else None)
+        # Persisted runs go to the first drive with a root of its own
+        # (an OfflineDisk in slot 0 has none).
+        self.metacache = MetaCache(persist_drive=next(
+            (d for d in self.disks
+             if isinstance(getattr(d, "root", None), str)), None))
         # Group-commit lanes (storage/group_commit): concurrent small
         # journal-only commits coalesce a drive into one WAL-backed
         # batch. Each batch bumps its buckets before any member acks.
@@ -670,9 +663,11 @@ class ErasureSet:
             self.metacache.bump(bucket)
 
     def bucket_exists(self, bucket: str) -> bool:
-        results, _ = self._fanout([lambda d=d: d.stat_vol(bucket)
-                                   for d in self.disks])
-        return any(r is not None for r in results)
+        """Whether any drive holds the bucket: the first drive that
+        answers yes decides, so a drive that hangs holds the check up
+        only when no other drive has the bucket."""
+        futs = [self.pool.submit(d.stat_vol, bucket) for d in self.disks]
+        return any(f.exception() is None for f in as_completed(futs))
 
     def _check_bucket(self, bucket: str) -> None:
         """Bucket existence, positive-cached for _BUCKET_EXISTS_TTL
@@ -842,9 +837,18 @@ class ErasureSet:
             finally:
                 # Committed drives already moved their data dir out;
                 # whatever staging is left is debris (errors ignored).
-                self._fanout([lambda d=d: d.delete(SYS_VOL, staging,
-                                                   recursive=True)
-                              for d in self.disks])
+                # A drive that missed its deadline (storage/health.py)
+                # is cleaned in the background: a hung drive must not
+                # hold the PUT for a second deadline.
+                cleanup = [functools.partial(d.delete, SYS_VOL, staging,
+                                             recursive=True)
+                           for d in self.disks]
+                hung = [isinstance(err, FaultyDisk) for err in errors]
+                self._fanout([None if h else fn
+                              for fn, h in zip(cleanup, hung)])
+                for fn, h in zip(cleanup, hung):
+                    if h:
+                        self.pool.submit(fn)
         if any(errors):
             # Committed on fewer than n drives: heal the rest in the
             # background (reference MRF hook,
@@ -872,7 +876,7 @@ class ErasureSet:
         n = len(self.disks)
         gc = self.group_commit if group_op is not None else None
         used_group = False
-        with self._ns.hold(f"{bucket}/{object_}"):
+        with self.ns.write(bucket, object_):
             if gc is not None and gc.worth_batching():
                 used_group = True
                 cerrs = gc.commit_fanout([
@@ -966,6 +970,14 @@ class ErasureSet:
             except Exception as exc:  # noqa: BLE001 - collected for quorum
                 errors[i] = exc
                 dead[i] = True
+                late = getattr(exc, "pending", None)
+                if late is not None:
+                    # The abandoned call may still be writing the row it
+                    # holds; it is handed no other.
+                    hooks = inflight[:]
+                    inflight.clear()
+                    late.add_done_callback(
+                        lambda _f: [h() for h in hooks])
                 while not sentinel_seen[i]:
                     c = qs[i].get()
                     if not got_sentinel(i, c):
@@ -1049,6 +1061,7 @@ class ErasureSet:
                     f.result()
                 except Exception as exc:  # noqa: BLE001 - for quorum
                     errors[i] = exc
+                    hold_past(exc, held)
         finally:
             for h in held:
                 h.release()
@@ -1164,7 +1177,7 @@ class ErasureSet:
                    ) -> tuple[ObjectInfo, bytes]:
         info, chunks = self.get_object_stream(bucket, object_, opts=opts)
         # Each chunk is copied as it is pulled: its lease goes back to
-        # the pool at the next pull.
+        # the pool at the next pull. The drained stream drops the lock.
         return info, b"".join([bytes(c) for c in chunks])
 
     def get_object_stream(self, bucket: str, object_: str, offset: int = 0,
@@ -1188,18 +1201,31 @@ class ErasureSet:
         response of one window reads on the calling thread. Each chunk
         is a view of a pooled lease, valid until the consumer pulls the
         next chunk or closes the iterator; closing early collects the
-        prefetch in flight and returns its lease."""
+        prefetch in flight and returns its lease.
+
+        The key's namespace read lock is taken before the version is
+        resolved and held until the iterator is drained or closed
+        (minio_tpu/object/erasure_object.py `get_object_stream`; the
+        reference's GetObjectNInfo unlocks on the reader's close), so an
+        overwrite waits for the stream instead of removing its data dir.
+        A consumer that writes the same key must close the stream first."""
         opts = opts or GetOptions()
-        fi, fis, errors = self._read_fileinfo(bucket, object_, True,
-                                              opts.version_id)
-        if any(errors):
-            # A drive misses this version's metadata: heal it in the
-            # background even though the read succeeds from the rest.
-            self.mrf.enqueue(bucket, object_, fi.version_id)
-        if length is None:
-            length = fi.size - offset
-        if offset < 0 or length < 0 or offset + length > fi.size:
-            raise InvalidRange(bucket, object_)
+        cm = self.ns.read(bucket, object_)
+        cm.__enter__()
+        try:
+            fi, fis, errors = self._read_fileinfo(bucket, object_, True,
+                                                  opts.version_id)
+            if any(errors):
+                # A drive misses this version's metadata: heal it in the
+                # background even though the read succeeds from the rest.
+                self.mrf.enqueue(bucket, object_, fi.version_id)
+            if length is None:
+                length = fi.size - offset
+            if offset < 0 or length < 0 or offset + length > fi.size:
+                raise InvalidRange(bucket, object_)
+        except BaseException:
+            cm.__exit__(None, None, None)
+            raise
         end = offset + length
         descs = self._window_descs(fi, offset, end)
 
@@ -1211,7 +1237,7 @@ class ErasureSet:
             return memoryview(win)[max(offset, lo) - lo:
                                    min(end, lo + win.size) - lo]
 
-        def gen():
+        def windows():
             if not descs:
                 return
             if len(descs) == 1:
@@ -1243,7 +1269,19 @@ class ErasureSet:
                         fut.result()[1].release()
                     except BaseException:  # noqa: BLE001 - unwinding
                         pass
-        return self._to_info(bucket, object_, fi), gen()
+
+        def gen():
+            try:
+                # Primer: advanced below before the iterator is handed
+                # out, so the generator has started and a close() before
+                # its first chunk still runs this finally and unlocks.
+                yield b""
+                yield from windows()
+            finally:
+                cm.__exit__(None, None, None)
+        g = gen()
+        next(g)
+        return self._to_info(bucket, object_, fi), g
 
     @staticmethod
     def _window_descs(fi: FileInfo, offset: int, end: int) -> list[tuple]:
@@ -1383,6 +1421,9 @@ class ErasureSet:
                     framed_lo, bufs) == span
             except (OSError, FileNotFoundErr):
                 return False                 # unreadable shard == missing
+            except Exception as exc:
+                hold_past(exc, [lease])
+                raise
 
         fns: list = [None] * len(self.disks)
         for j, di in enumerate(drives):
@@ -1504,7 +1545,7 @@ class ErasureSet:
         self._check_bucket(bucket)
         n = len(self.disks)
         write_quorum = n // 2 + 1
-        with self._ns.hold(f"{bucket}/{object_}"):
+        with self.ns.write(bucket, object_):
             if (opts.versioned or opts.null_marker) and not opts.version_id:
                 return self._write_delete_marker(bucket, object_, opts)
             try:

@@ -47,7 +47,7 @@ from minio_tpu_torch.erasure.codec import Erasure
 from minio_tpu_torch.io.bufpool import global_pool
 from minio_tpu_torch.object.erasure_object import (DIGEST, STAGING_PREFIX,
                                                    STREAM_WINDOW_BLOCKS,
-                                                   rebuild_rows)
+                                                   hold_past, rebuild_rows)
 from minio_tpu_torch.object.types import ObjectNotFound, ReadQuorumError
 from minio_tpu_torch.ops import hh_device
 from minio_tpu_torch.storage import bitrot
@@ -88,7 +88,7 @@ def heal_object(es, bucket: str, object_: str, version_id: str = "",
     Normal mode (deep=False) classifies shard files by stat, existence
     and exact framed size, and reads only when a rebuild is needed; deep
     mode reads and verifies every block of every surviving shard."""
-    with es._ns.hold(f"{bucket}/{object_}"):
+    with es.ns.write(bucket, object_):
         return _heal_object_locked(es, bucket, object_, version_id, deep)
 
 
@@ -312,6 +312,9 @@ def _rebuild_pass(es, bucket: str, object_: str, fi: FileInfo, fis: list,
                     functools.partial(d.create_file, SYS_VOL, path,
                                       pieces[dist[i] - 1], append=b0 > 0)
                     if i in bad else None for i, d in enumerate(es.disks)])
+                for x in werrs:
+                    if x is not None:
+                        hold_past(x, leases)
                 failed = next((x for x in werrs if x is not None), None)
                 if failed is not None:
                     raise failed
@@ -575,7 +578,7 @@ class MRFQueue:
                 # MRF entries come from observed failures: verify deeply.
                 # The key leaves the pending set under its lock, so a
                 # commit that lands after the heal queues it again.
-                with self.es._ns.hold(f"{bucket}/{object_}"):
+                with self.es.ns.write(bucket, object_):
                     _heal_object_locked(self.es, bucket, object_, vid,
                                         True, self._stop)
                     with self._mu:

@@ -4,7 +4,8 @@ The port of minio_tpu/object/metacache.py (reference cmd/metacache.go,
 cmd/metacache-set.go:700, cmd/metacache-walk.go:73). A listing starts
 ONE background walk of the erasure set (ErasureSet._walk_resolved: the
 drives' sorted journal walks merged, each key resolved) whose sorted
-entry stream collects in memory and persists on the set's first drive.
+entry stream collects in memory and persists on the set's first drive
+with a root of its own (slot 0 unless that slot is offline).
 Every page of that listing, every concurrent listing of the prefix and
 every follow-up listing within _IDLE_TTL reads the SAME stream: a large
 bucket is walked once, not once a page.
@@ -165,9 +166,9 @@ class WalkStream:
         persist_mu with the cancel re-checked there: a bump that
         orphaned the walk first means no write, and a bump after it
         removes what was written."""
-        if not es.disks or not self.keys:
+        d = mc.persist_drive
+        if d is None or not self.keys:
             return
-        d = es.disks[0]
         base = self._dir(self.bucket, self.prefix)
         try:
             with mc.persist_mu:
@@ -247,9 +248,9 @@ class WalkStream:
         segments holding keys past it are read (the seek the index
         exists for); the stream then starts at the marker as a
         start-floored walk would."""
-        if not es.disks:
+        d = es.metacache.persist_drive
+        if d is None:
             return None
-        d = es.disks[0]
         base = cls._dir(bucket, prefix)
         try:
             head = json.loads(d.read_all(SYS_VOL_, f"{base}/head"))
@@ -323,7 +324,7 @@ class MetaCache:
         # The drive runs persist on, and the buckets whose runs this
         # process removed there with none persisted since: any other
         # bucket may have a run, from this process or an earlier one.
-        self._persist_drive = persist_drive
+        self.persist_drive = persist_drive
         self._clean: set[str] = set()
         self.hits = 0
         self.misses = 0
@@ -366,7 +367,7 @@ class MetaCache:
         """Remove the bucket's persisted runs from the first drive unless
         none can exist. Under persist_mu: a walk persisting now finishes
         first (it saw its cancel, or wrote what is removed here)."""
-        root = getattr(self._persist_drive, "root", None)
+        root = getattr(self.persist_drive, "root", None)
         if root is None:
             return
         with self.persist_mu:

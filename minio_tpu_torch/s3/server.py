@@ -31,7 +31,12 @@ uploads a part (streamed and checked as an object PUT is), `POST
 `GET ?uploadId` lists the parts and `GET /<bucket>?uploads` the uploads.
 The admin heal, `POST /minio/admin/v3/heal[?deep=true]`, starts a sweep of
 the set (object/scanner.heal_set) in the background and `GET` on the same
-path polls it; both are SigV4-signed by the root credential.
+path polls it, with the bulk heals of replaced drives under `drive_heal`;
+both are SigV4-signed by the root credential. The health probes are not
+signed: `/minio/health/live` answers 200 while the server serves, and
+`/minio/health/ready` 200, or 503 with the set's `degraded_sets` entry
+(drives online, write quorum, healing drives) while fewer drives answer
+than write quorum or a replaced drive is still being refilled.
 
 The bucket namespace, as minio_tpu/s3/server.py serves it: `GET /` lists
 the buckets; `GET /<bucket>` is ListObjects V1, or V2 with
@@ -73,8 +78,10 @@ from xml.sax.saxutils import escape
 
 from minio_tpu_torch.object import types as ot
 from minio_tpu_torch.object.erasure_object import _resolve_range
+from minio_tpu_torch.object.nslock import LockTimeout
 from minio_tpu_torch.s3 import checksum as ck
 from minio_tpu_torch.s3 import sigv4
+from minio_tpu_torch.storage.health import DiskHealthWrapper
 from minio_tpu_torch.utils.streams import (ChunkReader, HashingReader,
                                            HttpChunkedReader, LimitedReader,
                                            Payload)
@@ -99,6 +106,7 @@ ERRORS = {
     "NoSuchKey": (404, "The specified key does not exist."),
     "SlowDownRead": (503, "Resource requested is unreadable, please reduce your request rate"),
     "SlowDownWrite": (503, "Resource requested is unwritable, please reduce your request rate"),
+    "SlowDown": (503, "Please reduce your request rate."),
     "NotImplemented": (501, "A header you provided implies functionality that is not implemented."),
     "InternalError": (500, "We encountered an internal error, please try again."),
     "MalformedXML": (400, "The XML you provided was not well-formed or did not validate against our published schema."),
@@ -126,6 +134,7 @@ _OBJECT_ERRORS = {
     ot.BucketNotEmpty: "BucketNotEmpty",
     ot.VersionNotFound: "NoSuchVersion",
     ot.MethodNotAllowed: "MethodNotAllowed",
+    LockTimeout: "SlowDown",
 }
 
 # Query parameters of the bucket GETs served here (listings, versioning,
@@ -139,6 +148,8 @@ _BUCKET_GET_PARAMS = frozenset((
 
 XMLNS = "http://s3.amazonaws.com/doc/2006-03-01/"
 ADMIN_PREFIX = "/minio/admin/v3/"
+HEALTH_LIVE = "/minio/health/live"
+HEALTH_READY = "/minio/health/ready"
 
 _BUCKET_RE = re.compile(r"^[a-z0-9][a-z0-9.-]{1,61}[a-z0-9]$")
 
@@ -237,6 +248,11 @@ class S3Server:
         self.heal_status: dict = {"state": "idle"}
         self._heal_lock = threading.Lock()
         self._heal_thread: threading.Thread | None = None
+        # The drive plane's background work, when the server runs it
+        # (minio_tpu_torch.server.boot): the periodic scanner and the
+        # drive lifecycle manager, stopped before the set closes.
+        self.scanner = None
+        self.drive_heal = None
 
     @property
     def address(self) -> str:
@@ -247,13 +263,44 @@ class S3Server:
         self.httpd.serve_forever()
 
     def shutdown(self) -> None:
-        """Stop serving (from another thread), wait for a heal sweep in
-        flight, and release the drives."""
+        """Stop serving (from another thread) and release the drives."""
         self.httpd.shutdown()
+        self.close()
+
+    def close(self) -> None:
+        """After serving: stop the scanner and the drive lifecycle
+        manager, wait for a heal sweep in flight, close the set and the
+        health wrappers' pools."""
         self.httpd.server_close()
+        for bg in (self.scanner, self.drive_heal):
+            if bg is not None:
+                bg.stop()
         if self._heal_thread is not None:
             self._heal_thread.join()
         self.objects.close()
+        for d in self.objects.disks:
+            if isinstance(d, DiskHealthWrapper):
+                d.close()
+
+    def readiness(self) -> tuple[int, dict]:
+        """/minio/health/ready (minio_tpu/s3/server.py `_health_ready`;
+        reference ClusterCheckHandler): 503 naming the set when fewer
+        drives answer than its write quorum or a drive is still healing
+        (a replaced drive's bulk heal), else 200."""
+        es = self.objects
+        infos, _ = es._fanout([d.disk_info for d in es.disks])
+        ok = sum(di is not None for di in infos)
+        healing = sum(di is not None and di.healing for di in infos)
+        n = len(es.disks)
+        parity = es.default_parity
+        k = n - parity
+        write_quorum = max(k + (1 if k == parity else 0),
+                           n // 2 + (1 if n > 1 else 0))
+        if ok < write_quorum or healing:
+            return 503, {"ready": False, "degraded_sets": [{
+                "set": 0, "drives_online": ok, "drives": n,
+                "write_quorum": write_quorum, "healing_drives": healing}]}
+        return 200, {"ready": True}
 
     def start_heal(self, deep: bool) -> dict:
         """Start a heal sweep of the set in the background unless one is
@@ -304,6 +351,16 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _dispatch(self, method: str) -> None:
         raw_path, _, qs = self.path.partition("?")
+        if raw_path in (HEALTH_LIVE, HEALTH_READY) and method in ("GET",
+                                                                   "HEAD"):
+            # Unauthenticated probes (reference healthcheck-handler.go).
+            status, doc = (200, None) if raw_path == HEALTH_LIVE \
+                else self.s3.readiness()
+            body = b"" if doc is None else json.dumps(doc).encode()
+            self._send(status, {"Content-Type": "application/json"}
+                       if doc is not None else {},
+                       b"" if method == "HEAD" else body, length=len(body))
+            return
         self._resource = urllib.parse.unquote(raw_path)
         self._query = urllib.parse.parse_qs(qs, keep_blank_values=True)
         bucket, _, key = self._resource.lstrip("/").partition("/")
@@ -351,7 +408,7 @@ class _Handler(BaseHTTPRequestHandler):
                                 str(e)), method)
         except S3Error as e:
             self._error(e, method)
-        except ot.ObjectError as e:
+        except (ot.ObjectError, LockTimeout) as e:
             code = next((c for t, c in _OBJECT_ERRORS.items()
                          if isinstance(e, t)), "InternalError")
             headers = {}
@@ -814,6 +871,10 @@ class _Handler(BaseHTTPRequestHandler):
                 self._query.get("deep", [""])[0] in ("true", "1"))
         else:
             status = dict(self.s3.heal_status)
+            if self.s3.drive_heal is not None:
+                # The replaced drives' bulk heals (the JAX package's
+                # `drive_heal` entry).
+                status["drive_heal"] = self.s3.drive_heal.status()
         self._send(200, {"Content-Type": "application/json"},
                    json.dumps(status).encode())
 
@@ -893,13 +954,16 @@ class _Handler(BaseHTTPRequestHandler):
         `svid` of the source ("null" for the null version; length None:
         to the end), streamed from
         get_object_stream one window at a time; the source's leases
-        return whatever write() does. Returns write()'s result."""
+        return whatever write() does. The stream, and with it the
+        source key's read lock, closes once the last byte is copied out,
+        before write() commits: a copy onto its own key must not wait on
+        its own source. Returns write()'s result."""
         sinfo, chunks = self.s3.objects.get_object_stream(
             sbucket, skey, start, length, ot.GetOptions(version_id=svid))
-        reader = ChunkReader(chunks)
+        size = sinfo.size - start if length is None else length
+        reader = ChunkReader(chunks, size)
         try:
-            return write(Payload(reader, sinfo.size - start
-                                 if length is None else length))
+            return write(Payload(reader, size))
         finally:
             reader.close()
 

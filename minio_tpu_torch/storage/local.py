@@ -1,11 +1,14 @@
 """Local drive backend: the per-drive POSIX storage the slice uses.
 
 The subset of minio_tpu/storage/local.py that PutObject, GetObject,
-DeleteObject, multipart uploads and healing need, with the same on-disk
-layout:
+DeleteObject, multipart uploads, healing and the drive plane need, with
+the same on-disk layout:
 
     <root>/<volume>/<object>/xl.meta            version journal (meta.py)
     <root>/<volume>/<object>/<dataDir>/part.N   bitrot-framed shard file
+    <root>/.mtpu.sys/format.json                drive identity, set layout
+    <root>/.mtpu.sys/healing.json               bulk-heal tracker of a
+                                                replaced drive
     <root>/.mtpu.sys/staging/...                staging for commits
     <root>/.mtpu.sys/multipart/...              uploads in progress
     <root>/.mtpu.sys/mrf/pending.json           the MRF heal queue
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import errno
 import itertools
+import json
 import os
 import shutil
 import threading
@@ -44,6 +48,12 @@ from minio_tpu_torch.storage.meta import (FileInfo, FileNotFoundErr,
 SYS_VOL = ".mtpu.sys"
 META_FILE = "xl.meta"
 TMP_DIR = "tmp"
+# The drive's identity and its set's layout (topology/format.py).
+FORMAT_FILE = "format.json"
+# Present on a drive adopted into a formatted slot (a replaced drive)
+# until its bulk heal finishes; holds the checkpointed tracker JSON of
+# object/drive_heal.py (the reference's .healing.bin).
+HEALING_FILE = "healing.json"
 
 # Directory-entry fsync after rename commits, as the JAX package and the
 # reference do it: file contents are always synced, parent directories
@@ -70,6 +80,21 @@ class VolumeNotEmpty(StorageError):
 
 class DiskAccessDenied(StorageError):
     pass
+
+
+class FaultyDisk(StorageError):
+    """The drive failed an operation for reasons of its own (a deadline
+    it missed, its open breaker: storage/health.py)."""
+
+
+@dataclass
+class DiskInfo:
+    total: int = 0
+    free: int = 0
+    used: int = 0
+    healing: bool = False
+    endpoint: str = ""
+    disk_id: str = ""
 
 
 @dataclass
@@ -122,11 +147,30 @@ def _is_valid_volname(vol: str) -> bool:
         and "\\" not in vol
 
 
+class OfflineDisk:
+    """The drive of a format slot that is missing or refused: every
+    operation raises StorageError, which the erasure layer tolerates up
+    to parity (the reference's nil StorageAPI slot). It has no root, so
+    nothing that writes beside the storage API picks it."""
+
+    root = None
+
+    def __init__(self, endpoint: str = "offline"):
+        self.endpoint = endpoint
+
+    def __getattr__(self, name: str):
+        def fail(*a, **kw):
+            raise StorageError(f"drive offline: {self.endpoint}")
+        return fail
+
+
 class LocalStorage:
     """One local drive. All paths are (volume, object-path) pairs."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, endpoint: str = ""):
         self.root = os.path.abspath(root)
+        self.endpoint = endpoint or self.root
+        self._disk_id: Optional[str] = None
         self._lock = threading.Lock()
         self._path_locks: dict[str, threading.Lock] = {}
         # The group-commit WAL (commit_group): one append-mode file per
@@ -154,6 +198,45 @@ class LocalStorage:
                         del self._path_locks[k]
                 lk = self._path_locks[key] = threading.Lock()
             return lk
+
+    # -- identity (format.json; reference cmd/format-erasure.go) -------------
+
+    def read_format(self) -> Optional[dict]:
+        try:
+            with open(os.path.join(self.root, SYS_VOL, FORMAT_FILE),
+                      "rb") as f:
+                return json.loads(f.read())
+        except FileNotFoundError:
+            return None
+
+    def write_format(self, fmt: dict) -> None:
+        """Write the drive's format.json (the JAX package's bytes:
+        json.dumps with indent 2). A drive wiped while serving gets its
+        format back through here (scanner.check_drive_formats), so the
+        group-commit WAL reopens too: its cached descriptor names a file
+        the wipe unlinked, and frames appended there would reach no
+        linked file."""
+        blob = json.dumps(fmt, indent=2).encode()
+        self._atomic_write(os.path.join(self.root, SYS_VOL, FORMAT_FILE),
+                           blob)
+        self._disk_id = fmt.get("xl", {}).get("this")
+        self._gc_reopen_if_unlinked()
+
+    def disk_id(self) -> str:
+        if self._disk_id is None:
+            fmt = self.read_format()
+            self._disk_id = fmt.get("xl", {}).get("this", "") if fmt else ""
+        return self._disk_id or ""
+
+    def disk_info(self) -> DiskInfo:
+        st = os.statvfs(self.root)
+        total = st.f_blocks * st.f_frsize
+        free = st.f_bavail * st.f_frsize
+        healing = os.path.exists(os.path.join(self.root, SYS_VOL,
+                                              HEALING_FILE))
+        return DiskInfo(total=total, free=free, used=total - free,
+                        healing=healing, endpoint=self.endpoint,
+                        disk_id=self.disk_id())
 
     # -- paths --------------------------------------------------------------
 
@@ -802,6 +885,26 @@ class LocalStorage:
         os.sync()
         return self.gc_truncate_wal(expect=pre)
 
+    def _gc_reopen_if_unlinked(self) -> None:
+        """Drop the cached WAL descriptor when its file is no longer
+        linked (the drive was wiped under it), so the next batch opens
+        the WAL at its path again."""
+        with self._gc_mu:
+            fd = self._gc_wal_fd
+            if fd is None:
+                return
+            try:
+                linked = os.fstat(fd).st_nlink > 0
+            except OSError:
+                linked = False
+            if linked:
+                return
+            self._gc_wal_fd = None
+        try:
+            os.close(fd)
+        except OSError:
+            pass
+
     def gc_close(self) -> None:
         """Close the WAL's descriptor (after a final checkpoint; an empty
         WAL file may remain, and replays to nothing)."""
@@ -812,6 +915,32 @@ class LocalStorage:
                 os.close(fd)
             except OSError:
                 pass
+
+
+# -- the healing marker (drive replacement) -----------------------------------
+# Through the storage API (read_all/write_all/delete), so the helpers work
+# on a LocalStorage and on a health-wrapped drive alike; the tracker JSON
+# is object/drive_heal.py's.
+
+
+def read_healing(disk) -> Optional[dict]:
+    """The drive's healing tracker, or None (absent or unreachable)."""
+    try:
+        return json.loads(disk.read_all(SYS_VOL, HEALING_FILE))
+    except Exception:  # noqa: BLE001 - no marker == not healing
+        return None
+
+
+def write_healing(disk, tracker: dict) -> None:
+    disk.write_all(SYS_VOL, HEALING_FILE,
+                   json.dumps(tracker, indent=1).encode())
+
+
+def clear_healing(disk) -> None:
+    try:
+        disk.delete(SYS_VOL, HEALING_FILE)
+    except Exception:  # noqa: BLE001 - already gone, or offline
+        pass
 
 
 # -- boot-time crash recovery -------------------------------------------------

@@ -1,7 +1,7 @@
 """Where a large PUT and GET spend their time on the card.
 
     python -m minio_tpu_torch.tools.where_time_goes [--size-mib 256] [--reps 3] [--seed 7]
-        [--namespace-only]
+        [--namespace-only | --drive-plane-only]
 
 One 12-drive EC 8+4 ErasureSet on the card (drives under /dev/shm where
 it has room), no HTTP. For one object of --size-mib it times, on the
@@ -44,7 +44,15 @@ by copy, each copy row marked with the host memory it read or wrote
 (pinned or pageable), and the card's busy share of the wall time. The
 last line is one JSON object with every number, the card's name and its
 power limit. It needs a CUDA card and fails without one.
---namespace-only runs the listing and small-PUT rows alone. The script
+The drive plane's rows follow (where the package has it): the bulk
+heal of one wiped drive of 12 (`drive_heal_1`, phase 4e's data mix cut
+to about 512 MiB, with its device profile), 1 KiB PUTs from one
+thread over health-wrapped drives beside unwrapped ones
+(`put_1k_wrapped`, `put_1k_unwrapped`), and on the same sets a drained
+GET of --size-mib, healthy and with 4 data-shard drives wiped
+(`get_wrapped`, `get_degraded_wrapped` and their unwrapped twins).
+--namespace-only runs the listing and small-PUT rows alone,
+--drive-plane-only the drive plane's. The script
 uses only public calls of the package and reads its metadata-plane
 counters with getattr, so a copy of it times an older tree of the
 package as well, for a comparison within one call.
@@ -188,6 +196,146 @@ def _journal_rows(es, drives: list, n: int = 100) -> dict:
     return out
 
 
+def _tree_bytes(root: str) -> int:
+    """Bytes of a drive's files outside its system volume."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root)
+               if os.path.relpath(d, root).split(os.sep)[0] != ".mtpu.sys"
+               for f in fs)
+
+
+def _drive_plane_rows(root: str, seed: int, reps: int,
+                      size_mib: int) -> dict:
+    """The drive plane's rows, where the package has it ({} otherwise):
+    `drive_heal_1`, the bulk heal of one wiped drive of 12 in process
+    (phase 4e's data mix cut to about 512 MiB: 24 objects of 16 MiB,
+    64 MiB + 1 B, a multipart of 8 x 8 MiB, 500 keys of 1 KiB, 50 keys of
+    3 versions and 25 delete markers), each run after the drive is
+    wiped again and its format restored; and `put_1k_wrapped`, 1 KiB
+    PUTs from one thread on a set whose drives are health-wrapped
+    (storage/health.wrap_disks, the server's default), beside the same
+    PUTs on unwrapped drives (`put_1k_unwrapped`), runs interleaved; on
+    the same two sets, a drained GET of one object of `size_mib`,
+    healthy (`get_wrapped`, `get_unwrapped`) and with 4 data-shard
+    drives wiped (`get_degraded_wrapped`, `get_degraded_unwrapped`), in
+    MiB/s, each timed after one untimed GET of its kind."""
+    try:
+        from minio_tpu_torch.object.drive_heal import bulk_heal_drive
+        from minio_tpu_torch.object.scanner import check_drive_formats
+        from minio_tpu_torch.storage.health import wrap_disks
+        from minio_tpu_torch.storage.local import read_healing
+        from minio_tpu_torch.topology.format import init_formats
+    except ImportError:
+        return {}
+    rng = np.random.default_rng(seed + 2)
+    out: dict = {}
+    drives = [os.path.join(root, "dp", f"d{i}") for i in range(12)]
+    disks = [LocalStorage(d) for d in drives]
+    init_formats(disks, 12)
+    es = ErasureSet(disks, device="cuda")
+    es._mrf_closed = True
+    try:
+        es.make_bucket("dp")
+        es.make_bucket("dpv")
+        es.set_bucket_versioning("dpv", "Enabled")
+        for i in range(24):
+            es.put_object("dp", f"big/{i:04d}", rng.bytes(16 * MIB))
+        es.put_object("dp", "ragged", rng.bytes(64 * MIB + 1))
+        uid = es.new_multipart_upload("dp", "mp")
+        done = [es.put_object_part("dp", "mp", uid, n, rng.bytes(8 * MIB))
+                for n in range(1, 9)]
+        es.complete_multipart_upload("dp", "mp", uid,
+                                     [(p.number, p.etag) for p in done])
+        small = rng.bytes(500 * 1024)
+        with ThreadPoolExecutor(16) as ex:
+            list(ex.map(lambda i: es.put_object(
+                "dp", f"small/{i:05d}", small[i * 1024:(i + 1) * 1024]),
+                range(500)))
+        for k in range(50):
+            for _ in range(3):
+                es.put_object("dpv", f"v{k:03d}", rng.bytes(4096),
+                              PutOptions(versioned=True))
+        from minio_tpu_torch.object.types import DeleteOptions
+        for k in range(25):
+            es.delete_object("dpv", f"v{k:03d}",
+                             DeleteOptions(versioned=True))
+        wiped = 5
+        trackers: list = []
+
+        def wipe():
+            shutil.rmtree(drives[wiped])
+            os.makedirs(drives[wiped])
+            if check_drive_formats([es]) != 1:
+                raise RuntimeError("the wiped drive's format not restored")
+            trackers.append(read_healing(es.disks[wiped]))
+
+        def heal():
+            t = bulk_heal_drive(es, wiped, trackers[-1])
+            if not t["finished"] or t["objects_failed"]:
+                raise RuntimeError(f"bulk heal: {t}")
+        out["drive_heal_1"] = _timed(heal, reps, setup=wipe)
+        t = trackers[-1]
+        out["drive_heal_1"].update(
+            keys=t["objects_scanned"], healed=t["objects_healed"],
+            bytes=_tree_bytes(drives[wiped]))
+        out["profile_drive_heal_1"] = _device_profile(heal, setup=wipe)
+    finally:
+        es.close()
+    rates: dict = {f"{op}_{kind}": [] for op in
+                   ("put_1k", "get", "get_degraded")
+                   for kind in ("unwrapped", "wrapped")}
+    body = rng.bytes(1024)
+    big = rng.bytes(size_mib * MIB)
+    dist = hash_order(f"{LBUCKET}/big", 12)
+    data_drives = [i for i in range(12) if dist[i] - 1 < 8][:4]
+
+    def get_rate(s) -> float:
+        _, chunks = s.get_object_stream(LBUCKET, "big")
+        for _ in chunks:
+            pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, chunks = s.get_object_stream(LBUCKET, "big")
+        for _ in chunks:
+            pass
+        torch.cuda.synchronize()
+        return size_mib / (time.perf_counter() - t0)
+    for r in range(reps):
+        for row in ("put_1k_unwrapped", "put_1k_wrapped"):
+            sub = [os.path.join(root, f"{row}{r}", f"d{i}")
+                   for i in range(12)]
+            ws = [LocalStorage(d) for d in sub]
+            ws = wrap_disks(ws) if row == "put_1k_wrapped" else ws
+            s = ErasureSet(ws, device="cuda")
+            s._mrf_closed = True
+            try:
+                s.make_bucket(LBUCKET)
+                s.put_object(LBUCKET, "warm", body)
+                t0 = time.perf_counter()
+                for i in range(1000):
+                    s.put_object(LBUCKET, f"k{i:04d}", body)
+                rates[row].append(1000 / (time.perf_counter() - t0))
+                kind = row.rpartition("_")[2]
+                s.put_object(LBUCKET, "big", big)
+                if s.get_object(LBUCKET, "big")[1] != big:
+                    raise RuntimeError("GET returned other bytes")
+                rates[f"get_{kind}"].append(get_rate(s))
+                for i in data_drives:
+                    shutil.rmtree(os.path.join(sub[i], LBUCKET, "big"))
+                if s.get_object(LBUCKET, "big")[1] != big:
+                    raise RuntimeError("degraded GET returned other bytes")
+                rates[f"get_degraded_{kind}"].append(get_rate(s))
+            finally:
+                s.close()
+                for d in ws:
+                    if hasattr(d, "health_info"):
+                        d.close()
+                shutil.rmtree(os.path.join(root, f"{row}{r}"),
+                              ignore_errors=True)
+    out.update(rates)
+    return out
+
+
 def _payload(body: bytes, want: str | None) -> Payload:
     """The body as the S3 front end hands it to put_object: a Payload
     over a length-limited reader; hashed as it streams and checked
@@ -210,6 +358,9 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--namespace-only", action="store_true",
                    help="only the listing and small-PUT rows")
+    p.add_argument("--drive-plane-only", action="store_true",
+                   help="only the drive plane's rows (drive_heal_1, "
+                        "put_1k_wrapped)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("where_time_goes: needs a CUDA card")
@@ -226,6 +377,15 @@ def main(argv=None) -> int:
     result = {"card": smi, "size_mib": args.size_mib,
               "drives": f"{root} ({_fs_type(root)})"}
     print(f"drives under {result['drives']}", flush=True)
+    if args.drive_plane_only:
+        try:
+            result.update(_drive_plane_rows(root, args.seed, args.reps,
+                                            args.size_mib))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        _print_drive_plane(result)
+        print(json.dumps(result))
+        return 0
     try:
         drives = [os.path.join(root, f"d{i}") for i in range(12)]
         es = ErasureSet([LocalStorage(d) for d in drives], device="cuda")
@@ -419,6 +579,8 @@ def main(argv=None) -> int:
                 result["meta_scan"] = None
         finally:
             es.close()
+        result.update(_drive_plane_rows(root, args.seed, args.reps,
+                                        args.size_mib))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -450,21 +612,46 @@ def main(argv=None) -> int:
         print(f"    {tt * 1e3:10.3f} ms  {nc:7d} calls  {name[:80]}")
     for key in ("group_commit", "metacache", "meta_scan"):
         print(f"{key}: {result[key]}")
+    _print_drive_plane(result)
     for op in ("profile_put", "profile_get", "profile_get_degraded",
                "profile_mp_get", "profile_heal_1",
                "profile_get_version_old_degraded", "profile_put_1k"):
-        r = result.get(op)
-        if r is None:
-            continue
-        print(f"{op}: wall {r['wall_s']:.4f} s, device busy "
-              f"{r['device_busy_s']:.4f} s ({100 * r['device_busy_share']:.2f}%)")
-        for name, s in r["device_s_by_name"].items():
-            print(f"    {s * 1e3:10.3f} ms  {name[:90]}")
-        for name, c in r["copies"].items():
-            print(f"    copy {c['s'] * 1e3:10.3f} ms  host memory "
-                  f"{c['host_memory']:8s}  {name[:70]}")
+        _print_profile(op, result.get(op))
     print(json.dumps(result))
     return 0
+
+
+def _print_profile(op: str, r) -> None:
+    if r is None:
+        return
+    print(f"{op}: wall {r['wall_s']:.4f} s, device busy "
+          f"{r['device_busy_s']:.4f} s ({100 * r['device_busy_share']:.2f}%)")
+    for name, s in r["device_s_by_name"].items():
+        print(f"    {s * 1e3:10.3f} ms  {name[:90]}")
+    for name, c in r["copies"].items():
+        print(f"    copy {c['s'] * 1e3:10.3f} ms  host memory "
+              f"{c['host_memory']:8s}  {name[:70]}")
+
+
+def _print_drive_plane(result: dict) -> None:
+    r = result.get("drive_heal_1")
+    if r is None:
+        return
+    print(f"drive_heal_1: median {r['median_s']:.4f} s, min "
+          f"{r['min_s']:.4f} max {r['max_s']:.4f} over {r['runs']}; "
+          f"{r['keys']} keys ({r['healed']} healed), {r['bytes']} B to the "
+          f"drive: {r['bytes'] / MIB / r['median_s']:.1f} MiB/s, "
+          f"{r['keys'] / r['median_s']:.1f} objects/s")
+    _print_profile("profile_drive_heal_1", result.get("profile_drive_heal_1"))
+    for row in ("put_1k_unwrapped", "put_1k_wrapped"):
+        print(f"{row}: " + " / ".join(f"{x:.1f}" for x in result[row])
+              + " keys/s (1000 PUTs of 1 KiB, one thread, turns "
+              "interleaved)")
+    for row in ("get_unwrapped", "get_wrapped", "get_degraded_unwrapped",
+                "get_degraded_wrapped"):
+        print(f"{row}: " + " / ".join(f"{x:.1f}" for x in result[row])
+              + f" MiB/s (a drained GET of {result['size_mib']} MiB, turns "
+              "interleaved)")
 
 
 if __name__ == "__main__":

@@ -149,14 +149,24 @@ class ChunkReader:
     until the next is pulled (ErasureSet.get_object_stream's windows):
     readinto copies out of the current chunk before pulling another, so a
     copy's source streams into its destination's buffers with one copy.
-    close() closes the iterator, which returns its leases."""
+    close() closes the iterator, which returns its leases.
 
-    def __init__(self, chunks):
+    With `length`, the iterator is closed as soon as that many bytes have
+    been copied out (at once for a length of 0): a GET stream then drops
+    its key's read lock before the reader's consumer commits, so a copy onto its own key (or of an
+    older version over the latest) does not wait on its own source."""
+
+    def __init__(self, chunks, length: Optional[int] = None):
         self._chunks = chunks
         self._cur = memoryview(b"")
+        self._left = length
+        if length == 0:
+            self.close()
 
     def readinto(self, view) -> int:
         while not len(self._cur):
+            if self._left == 0:
+                return 0
             nxt = next(self._chunks, None)
             if nxt is None:
                 return 0
@@ -164,6 +174,11 @@ class ChunkReader:
         n = min(len(view), len(self._cur))
         view[:n] = self._cur[:n]
         self._cur = self._cur[n:]
+        if self._left is not None:
+            self._left -= n
+            if self._left <= 0:
+                self._left = 0
+                self.close()
         return n
 
     def read(self, n: int) -> bytes:

@@ -13,7 +13,11 @@ requests (tests/s3client.py) go to both:
     bucket, a copy of a multipart object, UploadPartCopy of ranges (one
     across an erasure block boundary) beside an uploaded part, and the
     refusals (missing source, a malformed source, a range past the end):
-    statuses, error codes, ETags and the bytes read back must be equal.
+    statuses, error codes, ETags and the bytes read back must be equal;
+  * a copy onto its own key (REPLACE) and a copy of an older version over
+    the latest of its key, each with a body and empty: each finishes in
+    under 5 s (the source's GET read lock is dropped before the
+    destination commits) and answers as the JAX server does.
 
 The port's set has its MRF heal queue closed, as in
 tests/test_torch_s3_compat.py.
@@ -21,6 +25,7 @@ tests/test_torch_s3_compat.py.
 
 import re
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -149,6 +154,66 @@ def test_copy_by_version_id(servers):
     assert got["p"] == got["r"]
     assert got["p"][0][2] and got["p"][1][:2] == (404, "NoSuchVersion")
     assert got["p"][2] == bodies[0]
+
+
+def _timed_copy(c, dst, src, extra=None):
+    t0 = time.monotonic()
+    out = _copy(c, dst, src, extra)
+    return out, time.monotonic() - t0 < 5
+
+
+@pytest.mark.parametrize("size", [3 * MIB + 11, 0])
+def test_copy_onto_its_own_key(servers, size):
+    """A copy onto its own key with REPLACE: the source's read lock is
+    dropped before the destination commits, so the copy does not wait
+    out its own lock (under 5 s, the answers of the JAX server); an
+    empty body too (a folder marker's metadata update), whose stream
+    delivers no byte at all."""
+    body = RNG.bytes(size)
+    key = f"/{BUCKET}/self{size}"
+
+    def run(c):
+        assert c.request("PUT", key, body=body)[0] == 200
+        out = _timed_copy(c, key, key, {
+            "x-amz-metadata-directive": "REPLACE",
+            "x-amz-meta-round": "two"})
+        st, h, got = c.request("GET", key)
+        h = {k.lower(): v for k, v in h.items()}
+        return out, st, got, h.get("x-amz-meta-round")
+    got = _both(servers, run)
+    assert got["p"] == got["r"]
+    assert got["p"][0] == ((200, got["p"][0][0][1], False), True)
+    assert got["p"][1:] == (200, body, "two")
+
+
+@pytest.mark.parametrize("size", [2 * MIB + 5, 0])
+def test_copy_older_version_over_latest(servers, size):
+    """In a versioned bucket, the oldest version copied over the latest
+    of its own key becomes a new latest version with its bytes; an empty
+    oldest version too."""
+    bodies = [RNG.bytes(size), RNG.bytes(700)]
+    bucket = f"/copyself{size}"
+
+    def run(c):
+        assert c.request("PUT", bucket)[0] == 200
+        assert c.request("PUT", bucket, query={"versioning": ""},
+                         body=b"<VersioningConfiguration><Status>Enabled"
+                              b"</Status></VersioningConfiguration>")[0] == 200
+        vids = []
+        for b in bodies:
+            _, h, _ = c.request("PUT", f"{bucket}/k", body=b)
+            vids.append({k.lower(): v for k, v in h.items()}
+                        ["x-amz-version-id"])
+        out = _timed_copy(c, f"{bucket}/k",
+                          f"{bucket}/k?versionId={vids[0]}")
+        latest = c.request("GET", f"{bucket}/k")[2]
+        older = [c.request("GET", f"{bucket}/k",
+                           query={"versionId": v})[2] for v in vids]
+        return out, latest, older
+    got = _both(servers, run)
+    assert got["p"] == got["r"]
+    assert got["p"][0][1] and got["p"][0][0][0] == 200 and got["p"][0][0][2]
+    assert got["p"][1] == bodies[0] and got["p"][2] == bodies
 
 
 def _upload(c, key, parts):

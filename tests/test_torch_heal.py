@@ -332,7 +332,7 @@ def test_mrf_one_heal_per_degraded_get(tmp_path, monkeypatch):
         es.put_object(BUCKET, "multi", body)
         lost = _holders("multi", (0,))[0]
         shutil.rmtree(os.path.join(drives[lost], BUCKET, "multi"))
-        with es._ns.hold(f"{BUCKET}/multi"):
+        with es.ns.read(BUCKET, "multi"):
             assert es.get_object(BUCKET, "multi")[1] == body
         assert es.mrf.drain(timeout=120)
         assert es.mrf.stats() == {"healed": 1, "spilled": 0, "dropped": 0,

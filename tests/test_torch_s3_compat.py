@@ -67,8 +67,10 @@ def servers(tmp_path_factory):
     BUCKET holding OBJECTS."""
     root = tmp_path_factory.mktemp("s3compat")
     drives = [str(root / "port" / f"d{i}") for i in range(12)]
+    # No periodic scanner: a case moves shard files away by hand and back,
+    # which a scanner cycle in between would heal over.
     port = server.boot(["--device", "cpu", "--address", "127.0.0.1:0",
-                        *drives])
+                        "--scanner-interval", "0", *drives])
     port.objects._mrf_closed = True
     thread = threading.Thread(target=port.serve_forever, daemon=True)
     thread.start()
