@@ -118,7 +118,7 @@ and prints no result line):
    --scanner-interval 1` in a subprocess on 12 fresh drives (the drive
    health wrapper on, as by default). Every drive gets format.json with
    one layout, /minio/health/ready answers 200. 16 clients load 2 GiB of
-   16 MiB objects, 64 MiB + 1 B, a multipart of 8 x 8 MiB, 2,000 keys of
+   16 MiB objects, 64 MiB + 1 B, a multipart of 8 x 8 MiB, 1,000 keys of
    1 KiB and a versioned bucket of 200 keys x 3 versions with 100 delete
    markers. Replaced at boot: the server stops cleanly, drive 3 is
    copied, wiped and the server restarted: drive 3 must be adopted into
@@ -144,17 +144,42 @@ and prints no result line):
    MiB/s written to it and objects/s, the launches (the servers' while
    serving, read from their clean-stop line, and this process's; gf_apply
    by its number of rows), 1 KiB PUT keys/s from 16 clients with
-   --drive-timeout 10 and 0 (fresh servers, turns 10/0/0/10), and 0
+   --drive-timeout 10 and 0 (fresh servers, turns 10/0), and 0
    pool leases outstanding.
+   Phases 3-4e run with MTPU_FILEINFO_CACHE=off and MTPU_HOT_CACHE=off
+   (they take drives away by hand and read: a cache hit would answer
+   for the drives) and MTPU_HTTP_WORKERS=1 (their servers are one
+   process; 4d's SIGKILL must hit the server itself).
+4f. The pre-forked fleet: `python -m minio_tpu_torch.server
+   --scanner-interval 0` with MTPU_HTTP_WORKERS=4 and both caches on,
+   on 12 fresh drives (EC 8+4), in its own session. The parent holds no
+   CUDA context (no /dev/nvidia* descriptor; nvidia-smi's compute apps
+   and the device memory used are printed) and each of the 4 workers
+   holds one. 16 clients' 1 KiB PUT keys/s and 1 MiB PUT+GET MiB/s on
+   the fresh drives. Phase 4's 96 objects PUT by 16 clients, each
+   request on a fresh connection so that SO_REUSEPORT spreads them, and
+   GET back byte for byte. Worker 3 SIGKILLed while 16 clients read
+   (retrying a cut connection): the parent respawns it and its new pid
+   holds a context within 30 s, no read failing. 200 coherence rounds,
+   alternating a 1 KiB and a 1 MiB key: PUT new bytes, 8 GETs on fresh
+   connections return them; DELETE, 8 GETs answer 404; PUT again, a
+   listing from a fresh connection names the key; 0 stale reads.
+   SIGTERM to the parent: it exits 0 within 20 s, every worker printed
+   its launches (each must have launched gf_apply and highwayhash256)
+   and every drive carries the clean-shutdown stamp. Then the same two
+   aggregates from one worker on fresh drives, printed beside the
+   card's name, power limit and the host's cores.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
-   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e and 5 every
-   kernel's launch count is set to 0 just before the phase and read
-   just after (4e's servers count from their start, less their boot
-   self-tests); each kernel of the phase's path must have launched, in
-   4e gf_apply with one row (r = 1).
+   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f and 5
+   every kernel's launch count is set to 0 just before the phase and
+   read just after (4e's servers and 4f's workers count from their
+   start, less their boot self-tests); each kernel of the phase's path
+   must have launched, in 4e gf_apply with one row (r = 1), in 4f in
+   every worker. Each phase's wall time is printed on a line of its
+   own.
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
    its bound; gf_apply at 8, 32 and 256 blocks (parity rows) and at 32
@@ -1593,12 +1618,14 @@ def phase_crash(rng, root: str, device: str = "cuda") -> dict:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    env = dict(os.environ, MTPU_GROUP_COMMIT_CKPT_S="3600")
+    env = dict(os.environ, MTPU_GROUP_COMMIT_CKPT_S="3600",
+               MTPU_HTTP_WORKERS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "minio_tpu_torch.server", "--device", device,
          "--address", f"127.0.0.1:{port}", *drives],
         env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
     lines: list[str] = []
     errs: list[str] = []
     acks = {}                       # key -> body, PUT acknowledged
@@ -1675,8 +1702,10 @@ def phase_crash(rng, root: str, device: str = "cuda") -> dict:
             f"({len(acks) / wall:.1f} PUTs/s over HTTP); "
             f"{len(unsure)} DELETEs in flight")
     finally:
-        if proc.poll() is None:
-            proc.kill()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
         proc.wait(timeout=60)
     wal = []
     for d in drives:
@@ -1727,7 +1756,7 @@ DP_BIG = 16 * MIB               # MinIO's own layout: 16 MiB objects
 DP_BIG_BYTES = 2 << 30          # of them, 2 GiB (the data's scale cut)
 DP_RAGGED = 64 * MIB + 1        # a ragged tail
 DP_MP_PARTS = 8                 # a multipart object of 8 x AWS_PART
-DP_SMALL = 2000                 # keys of 1 KiB
+DP_SMALL = 1000                 # keys of 1 KiB
 DP_VKEYS, DP_VERSIONS, DP_MARKERS = 200, 3, 100
 DP_VBODY = 4 * 1024
 DP_CLIENTS = 16
@@ -1740,12 +1769,17 @@ SMALL_RATE_KEYS = 32            # 1 KiB PUTs a client for the rate pair
 
 
 class ServerProc:
-    """`python -m minio_tpu_torch.server` in a subprocess on `drives`,
-    its output collected; stop() sends SIGINT (the clean stop) and
-    returns the launches it printed while serving."""
+    """`python -m minio_tpu_torch.server` in a subprocess on `drives` in
+    a session of its own (kill() takes its process group, fleet workers
+    included), its output collected; MTPU_HTTP_WORKERS=`workers`, the
+    environment's cache switches unless `env` overrides them. Up once
+    every worker printed its serving line; stop() sends SIGINT (the
+    clean stop) and returns the launches a one-process server printed
+    while serving."""
 
     def __init__(self, drives: list, extra: tuple = (),
-                 device: str = "cuda"):
+                 device: str = "cuda", workers: int = 1,
+                 env: dict | None = None):
         import socket
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
@@ -1755,18 +1789,34 @@ class ServerProc:
             [sys.executable, "-m", "minio_tpu_torch.server", "--device",
              device, "--address", f"127.0.0.1:{port}", *extra, *drives],
             cwd=os.path.dirname(os.path.abspath(__file__)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            env={**os.environ, "MTPU_HTTP_WORKERS": str(workers),
+                 **(env or {})},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
         self.lines: list[str] = []
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
         t0 = time.perf_counter()
-        while not any("serving S3 on" in ln for ln in self.lines):
-            check(self.proc.poll() is None
-                  and time.perf_counter() - t0 < 240,
-                  f"the server did not boot: {self.lines[-20:]}")
-            time.sleep(0.05)
+        try:
+            while sum("serving S3 on" in ln for ln in self.lines) < workers:
+                check(self.proc.poll() is None
+                      and time.perf_counter() - t0 < 240,
+                      f"the server did not boot: {self.lines[-20:]}")
+                time.sleep(0.05)
+        except BaseException:
+            self.kill()
+            raise
         self.t_serving = time.time()
         self.client = Client(f"127.0.0.1:{port}")
+
+    def kill(self) -> None:
+        """SIGKILL the whole process group; reap the server."""
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait(timeout=60)
 
     def _read(self) -> None:
         for line in self.proc.stdout:
@@ -1781,9 +1831,7 @@ class ServerProc:
             self.proc.send_signal(signal.SIGINT)
             rc = self.proc.wait(timeout=120)
         finally:
-            if self.proc.poll() is None:
-                self.proc.kill()
-                self.proc.wait(timeout=60)
+            self.kill()
         self.reader.join(30)
         check(rc == 0, f"the server's clean stop exited {rc}: "
               f"{self.lines[-20:]}")
@@ -2301,13 +2349,13 @@ def phase_drive_plane(rng, root: str, device: str = "cuda") -> dict:
     check_pool_idle("drive plane", device)
 
     rates = {}
-    for turn, timeout_s in enumerate(("10", "0", "0", "10")):
+    for turn, timeout_s in enumerate(("10", "0")):
         rates.setdefault(timeout_s, []).append(
             small_put_rate(root, f"rate{turn}", timeout_s, rng, device))
     log(f"drive plane: 1 KiB PUTs from {DP_CLIENTS} clients (phase 4c's "
         "shape, "
         f"{DP_CLIENTS * SMALL_RATE_KEYS} keys a run, fresh servers, turns "
-        "10/0/0/10): --drive-timeout 10 (the health wrapper) "
+        "10/0): --drive-timeout 10 (the health wrapper) "
         + " / ".join(f"{r:.1f}" for r in rates["10"])
         + " keys/s; --drive-timeout 0 "
         + " / ".join(f"{r:.1f}" for r in rates["0"]) + " keys/s")
@@ -2317,6 +2365,271 @@ def phase_drive_plane(rng, root: str, device: str = "cuda") -> dict:
           f"the drive plane launched no r = 1 gf_apply or no hash: "
           f"{launches}")
     return launches
+
+
+# Phase 4f: the pre-forked fleet.
+FLEET_WORKERS = 4
+FLEET_ROUNDS = 200              # coherence rounds, half 1 KiB, half 1 MiB
+FLEET_GETS = 8                  # fresh connections a check
+RATE_KEYS = 32                  # 1 KiB PUTs a client for the fleet's rate
+RATE_PAIRS = 4                  # 1 MiB PUT+GET pairs a client
+
+
+def cuda_processes(pids) -> dict:
+    """pid -> whether the process holds a CUDA context (/dev/nvidia*
+    among its open descriptors)."""
+    out = {}
+    for pid in pids:
+        fd_dir = f"/proc/{pid}/fd"
+        held = False
+        for fd in os.listdir(fd_dir):
+            try:
+                held |= os.readlink(os.path.join(fd_dir, fd)).startswith(
+                    "/dev/nvidia")
+            except OSError:
+                continue
+        out[pid] = held
+    return out
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60
+                          ).stdout.strip()
+
+
+def fleet_pids(p: ServerProc) -> dict:
+    """worker id -> pid of its latest serving line."""
+    import re
+    out = {}
+    for ln in list(p.lines):
+        m = re.search(r"serving S3 on .*worker (\d+) of \d+, pid (\d+)", ln)
+        if m:
+            out[int(m.group(1))] = int(m.group(2))
+    return out
+
+
+def fleet_rates(c: "Client", rng, tag: str) -> tuple[float, float, float]:
+    """16 clients, each on fresh connections: keys/s of 1 KiB PUTs,
+    MiB/s of 1 MiB PUT+GET pairs (both directions counted), and the
+    HTTP floor: requests/s of /minio/health/live, which no object work
+    follows (this process's clients and the front end alone)."""
+    def probe(_t: int, _i: int) -> None:
+        check(c("GET", "/minio/health/live")[0] == 200, "live probe")
+    wall_p = run_clients(probe, [range(RATE_KEYS)] * CONC_THREADS)
+    check(c("PUT", f"/{tag}")[0] == 200, f"make bucket {tag}")
+    small = rng.bytes(CONC_THREADS * RATE_KEYS * 1024)
+
+    def put_small(t: int, i: int) -> None:
+        o = (t * RATE_KEYS + i) * 1024
+        st, _ = c("PUT", f"/{tag}/s{t:02d}/{i:03d}", small[o:o + 1024])
+        check(st == 200, f"1 KiB PUT: {st}")
+    wall_s = run_clients(put_small, [range(RATE_KEYS)] * CONC_THREADS)
+    big = [rng.bytes(MIB) for _ in range(CONC_THREADS)]
+
+    def pair(t: int, i: int) -> None:
+        st, _ = c("PUT", f"/{tag}/m{t:02d}/{i}", big[t])
+        check(st == 200, f"1 MiB PUT: {st}")
+        check(c("GET", f"/{tag}/m{t:02d}/{i}") == (200, big[t]),
+              "1 MiB GET differs")
+    wall_m = run_clients(pair, [range(RATE_PAIRS)] * CONC_THREADS)
+    return (CONC_THREADS * RATE_KEYS / wall_s,
+            2 * CONC_THREADS * RATE_PAIRS / wall_m,
+            CONC_THREADS * RATE_KEYS / wall_p)
+
+
+def phase_fleet(rng, root: str, device: str = "cuda") -> dict:
+    """The pre-forked fleet (phase 4f): `python -m minio_tpu_torch.server`
+    with MTPU_HTTP_WORKERS=4 and the caches on, on 12 fresh drives;
+    returns the launches every worker printed at its drain."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+    from minio_tpu_torch.storage.local import CLEAN_SHUTDOWN_FILE
+    caches_on = {"MTPU_FILEINFO_CACHE": "on", "MTPU_HOT_CACHE": "on"}
+    drives = [os.path.join(root, "fleet", f"d{i}") for i in range(12)]
+    used0 = smi("--query-gpu=memory.used")
+    p = ServerProc(drives, ("--scanner-interval", "0"), device,
+                   workers=FLEET_WORKERS, env=caches_on)
+    try:
+        c = p.client
+        boot_s = p.t_serving - p.t_start
+        pids = fleet_pids(p)
+        check(sorted(pids) == list(range(FLEET_WORKERS)),
+              f"not every worker served: {pids}")
+        held = cuda_processes([p.proc.pid, *pids.values()])
+        check(not held[p.proc.pid], "the fleet parent holds the card")
+        check(all(held[pid] for pid in pids.values()),
+              f"a worker holds no CUDA context: {held}")
+        apps = smi("--query-compute-apps=pid,used_memory")
+        used1 = smi("--query-gpu=memory.used")
+        mem = {int(a.split(",")[0]): a.split(",")[1].strip()
+               for a in apps.splitlines() if a.strip()}
+        log(f"fleet: {FLEET_WORKERS} workers up in {boot_s:.2f} s, nproc "
+            f"{os.cpu_count()}; parent pid {p.proc.pid} holds no CUDA "
+            f"context, workers {pids} each hold one; nvidia-smi "
+            f"compute apps: {mem or 'none listed'}; device memory used "
+            f"{used0} before the boot, {used1} after")
+        check(p.proc.pid not in mem, "nvidia-smi lists the parent")
+        if any(pid in mem for pid in pids.values()):
+            log("fleet: device memory a worker " + ", ".join(
+                f"{w}: {mem.get(pid, 'not listed')}"
+                for w, pid in sorted(pids.items())))
+        else:
+            # nvidia-smi sees other pids (another pid namespace): the
+            # device-wide growth over the fleet's boot, shared out.
+            grew = int(used1.split()[0]) - int(used0.split()[0])
+            log(f"fleet: device memory a worker {grew / FLEET_WORKERS:.0f} "
+                f"MiB (the device's {grew} MiB growth over the boot / "
+                f"{FLEET_WORKERS}; nvidia-smi lists none of the workers' "
+                "pids)")
+
+        # Aggregates at 4 workers, on the fresh drives.
+        rates = {FLEET_WORKERS: fleet_rates(c, rng, "rate4")}
+
+        # 1. Phase 4's 96 objects from 16 clients, then read back.
+        keys = conc_keys("flt")
+        data = {k: rng.bytes(n) for row in keys
+                for k, n in zip(row, CONC_SIZES)}
+        check(c("PUT", "/flt")[0] == 200, "make bucket flt")
+
+        def put(_t: int, k: str) -> None:
+            st, err = c("PUT", f"/flt/{k}", data[k])
+            check(st == 200, f"fleet PUT {k}: {st} {err[:200]!r}")
+
+        def get(_t: int, k: str) -> None:
+            check(c("GET", f"/flt/{k}") == (200, data[k]),
+                  f"fleet GET {k} differs")
+        wall_put = run_clients(put, keys)
+        wall_get = run_clients(get, keys)
+        total = sum(map(len, data.values())) / MIB
+        log(f"fleet: 96 objects ({total:.1f} MiB) PUT by 16 clients in "
+            f"{wall_put:.2f} s, GET byte-identical in {wall_get:.2f} s")
+
+        # 2. A sibling SIGKILLed while 16 clients read: it comes back.
+        victim = pids[FLEET_WORKERS - 1]
+        stop = threading.Event()
+        failures, retried, served = [], [0], [0]
+        flat = [k for row in keys for k in row]
+
+        def reader(t: int) -> None:
+            i = t
+            while not stop.is_set():
+                k = flat[i % len(flat)]
+                for attempt in range(3):
+                    try:
+                        if c("GET", f"/flt/{k}") == (200, data[k]):
+                            served[0] += 1
+                            break
+                    except (OSError, http.client.HTTPException):
+                        pass
+                    retried[0] += 1
+                else:
+                    failures.append(k)
+                i += CONC_THREADS
+        readers = [threading.Thread(target=reader, args=(t,))
+                   for t in range(CONC_THREADS)]
+        for th in readers:
+            th.start()
+        time.sleep(1.0)
+        t0 = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        new = None
+        while time.perf_counter() - t0 < 30:
+            new = fleet_pids(p).get(FLEET_WORKERS - 1)
+            if new not in (None, victim) and \
+                    cuda_processes([new]).get(new):
+                break
+            time.sleep(0.1)
+        respawn_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        stop.set()
+        for th in readers:
+            th.join(120)
+        check(new not in (None, victim) and respawn_s < 30,
+              f"worker {FLEET_WORKERS - 1} was not respawned with a CUDA "
+              f"context within 30 s: {p.lines[-10:]}")
+        check(not failures, f"reads failed through the respawn: "
+              f"{failures[:5]}")
+        log(f"fleet: worker {FLEET_WORKERS - 1} (pid {victim}) SIGKILLed; "
+            f"pid {new} serving with its context after {respawn_s:.2f} s; "
+            f"{served[0]} GETs served meanwhile, {retried[0]} retried, "
+            "0 failed")
+
+        # 3. Cross-worker coherence: every read after a write sees it
+        # (the respawned worker among the rest).
+        stale = []
+        pool = ThreadPoolExecutor(max_workers=FLEET_GETS)
+        small_key, big_key = "coh/small", "coh/big"
+        t0 = time.perf_counter()
+        for r in range(FLEET_ROUNDS):
+            key = small_key if r % 2 == 0 else big_key
+            body = rng.bytes(1024 if key == small_key else MIB)
+            check(c("PUT", f"/flt/{key}", body)[0] == 200, "round PUT")
+            got = list(pool.map(lambda _: c("GET", f"/flt/{key}"),
+                                range(FLEET_GETS)))
+            stale += [(r, "put", st) for st, b in got
+                      if (st, b) != (200, body)]
+            check(c("DELETE", f"/flt/{key}")[0] == 204, "round DELETE")
+            got = list(pool.map(lambda _: c("GET", f"/flt/{key}")[0],
+                                range(FLEET_GETS)))
+            stale += [(r, "delete", st) for st in got if st != 404]
+            check(c("PUT", f"/flt/{key}", body)[0] == 200, "round PUT")
+            st, page, _ = c.send("GET", "/flt",
+                                 query={"list-type": "2", "prefix": key})
+            if st != 200 or f"<Key>{key}</Key>".encode() not in page:
+                stale.append((r, "list", st))
+        pool.shutdown()
+        check(not stale, f"stale reads across workers: {stale[:10]}")
+        log(f"fleet: {FLEET_ROUNDS} overwrite/delete/list rounds (1 KiB "
+            f"and 1 MiB keys, {FLEET_GETS} fresh GETs after each write) in "
+            f"{time.perf_counter() - t0:.2f} s: 0 stale reads")
+
+        # 4. SIGTERM to the parent: every worker drains and stamps.
+        t0 = time.perf_counter()
+        p.proc.send_signal(signal.SIGTERM)
+        rc = p.proc.wait(timeout=60)
+        drain_s = time.perf_counter() - t0
+        p.reader.join(30)
+        check(rc == 0 and drain_s < 20, f"the fleet's SIGTERM drain: exit "
+              f"{rc} after {drain_s:.2f} s: {p.lines[-10:]}")
+        per_worker = {}
+        for ln in p.lines:
+            if " kernel launches while serving: " in ln \
+                    and ln.startswith("worker "):
+                per_worker[int(ln.split()[1])] = json.loads(
+                    ln.split(": ", 1)[1])
+        check(sorted(per_worker) == list(range(FLEET_WORKERS)),
+              f"launch lines of workers {sorted(per_worker)} only")
+        for w, n in per_worker.items():
+            check(n["gf_apply"] > 0 and n["highwayhash256"] > 0,
+                  f"worker {w} did not launch both kernels: {n}")
+        missing = [d for d in drives if not os.path.exists(
+            os.path.join(d, ".mtpu.sys", CLEAN_SHUTDOWN_FILE))]
+        check(not missing, f"drives without the clean-shutdown stamp: "
+              f"{missing}")
+        log(f"fleet: SIGTERM drained every worker, parent exit 0 in "
+            f"{drain_s:.2f} s, 12 drives stamped; launches by worker "
+            f"(the respawned one's since its boot) "
+            f"{dict(sorted(per_worker.items()))}")
+    finally:
+        p.kill()
+
+    # The same aggregates from one worker, on fresh drives.
+    one = ServerProc([os.path.join(root, "fleet1", f"d{i}")
+                      for i in range(12)], ("--scanner-interval", "0"),
+                     device, workers=1, env=caches_on)
+    try:
+        rates[1] = fleet_rates(one.client, rng, "rate1")
+    finally:
+        one.stop()
+    card = smi("--query-gpu=name,power.limit")
+    for w, (keys_s, mib_s, floor) in sorted(rates.items()):
+        log(f"fleet: {w} worker(s), 16 clients: 1 KiB PUT {keys_s:.1f} "
+            f"keys/s, 1 MiB PUT+GET {mib_s:.1f} MiB/s, HTTP floor (live "
+            f"probes) {floor:.1f} requests/s ({card}, nproc "
+            f"{os.cpu_count()})")
+    return {k: sum(n[k] for n in per_worker.values())
+            for k in ("gf_apply", "highwayhash256")}
 
 
 def release(rows) -> None:
@@ -2517,30 +2830,47 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1234)
     errs = {"gf_apply": 0, "highwayhash256": 0, "rs_i8": 0}
-    phase_kernels(torch, dev, rng, errs)
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            log(f"phase {name} wall {time.perf_counter() - t0:.1f} s")
+
+    # Phases 3-4e take drives away by hand and then read: no fileinfo or
+    # hot-object cache may answer for the drives there, and their
+    # servers run in one process (4d's SIGKILL must hit the server).
+    os.environ.update(MTPU_FILEINFO_CACHE="off", MTPU_HOT_CACHE="off",
+                      MTPU_HTTP_WORKERS="1")
+    timed("2 (kernels)", phase_kernels, torch, dev, rng, errs)
     root = drive_root()
     try:
-        seq = phase_main_path(torch, rng, root)
-        conc, conc_stats = phase_concurrent(torch, rng, root)
+        seq = timed("3", phase_main_path, torch, rng, root)
+        conc, conc_stats = timed("4", phase_concurrent, torch, rng, root)
         s = Server(root, "mph", mrf=True)
         try:
-            mph, mph_objs = phase_multipart_heal(torch, rng, s, root)
-            ns = phase_namespace(rng, s, mph_objs)
+            mph, mph_objs = timed("4b", phase_multipart_heal, torch, rng, s,
+                                  root)
+            ns = timed("4c", phase_namespace, rng, s, mph_objs)
         finally:
             s.stop()
         check_pool_idle("multipart/heal/namespace")
-        crash = phase_crash(rng, root)
+        crash = timed("4d", phase_crash, rng, root)
         for done in ("seq", "conc", "mph", "crash"):
             shutil.rmtree(os.path.join(root, done), ignore_errors=True)
-        dp = phase_drive_plane(rng, root)
+        dp = timed("4e", phase_drive_plane, rng, root)
+        for done in os.listdir(root):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        fleet = timed("4f", phase_fleet, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    solo_dispatch_ms(torch, rng, conc_stats)
-    b5 = phase_b5_entry_point(torch)
-    times = phase_times(torch, dev, rng)
+    timed("4 (solo dispatch)", solo_dispatch_ms, torch, rng, conc_stats)
+    b5 = timed("5", phase_b5_entry_point, torch)
+    times = timed("6", phase_times, torch, dev, rng)
 
     launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
-                for k in ("gf_apply", "highwayhash256")}
+                + fleet[k] for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {
         "gf_apply": ("minio_tpu_torch/ops/csrc/gf_apply.cu",

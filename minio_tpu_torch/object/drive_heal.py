@@ -14,9 +14,8 @@ shrinks), reads rebuild around what it misses, and readiness
 (/minio/health/ready) names its set. The bulk heal saves its position
 (bucket, last key) in the marker every CHECKPOINT_EVERY keys, so a
 restart resumes there; it yields while the front end's admission
-controller queues clients (`admission_pressure`; the port has no
-admission controller yet, so a manager's `pressure` is None unless its
-caller passes one).
+controller (s3/admission.py) queues clients: the server sets a
+manager's `pressure` to `admission_pressure` of its controller.
 """
 
 from __future__ import annotations

@@ -100,6 +100,7 @@ from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.erasure.codec import _HOST, Erasure
 from minio_tpu_torch.io.bufpool import global_pool, leases_of
 from minio_tpu_torch.io.engine import kernel_lane, shutdown_kernel_lane
+from minio_tpu_torch.object.fi_cache import FileInfoCache
 from minio_tpu_torch.object.metacache import MetaCache
 from minio_tpu_torch.object.nslock import NSLockMap
 from minio_tpu_torch.object.types import (BucketExists, BucketInfo,
@@ -116,8 +117,9 @@ from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
 from minio_tpu_torch.storage import group_commit as gc_mod
 from minio_tpu_torch.storage.group_commit import GroupOp
-from minio_tpu_torch.storage.local import (SYS_VOL, FaultyDisk, VolumeExists,
-                                           VolumeNotEmpty, VolumeNotFound)
+from minio_tpu_torch.storage.local import (SYS_VOL, FaultyDisk, StorageError,
+                                           VolumeExists, VolumeNotEmpty,
+                                           VolumeNotFound)
 from minio_tpu_torch.storage.meta import (KIND_DELETE_MARKER,
                                           NULL_VERSION_ID, ErasureInfo,
                                           FileInfo, FileNotFoundErr,
@@ -378,6 +380,9 @@ class ErasureSet:
         self._bmeta_cache: dict[str, tuple] = {}
         self._bexists_until: dict[str, float] = {}
         self._bmeta_mu = threading.Lock()
+        # Serializes the read-modify-write of a bucket's metadata record
+        # (a flock'd mutex across pre-forked workers, io/workers.py).
+        self.bucket_meta_lock = threading.Lock()
         # Which drives the next listing walk starts at (_walk_resolved).
         self._walk_rotor = 0
         # The listing's shared walk streams, and the bump funnel every
@@ -396,6 +401,11 @@ class ErasureSet:
             self.group_commit = gc_mod.GroupCommit(
                 self.disks, name=f"set:{id(self) & 0xffff:x}")
             self.group_commit.bump = self.metacache.bump
+        # Quorum-fileinfo cache (object/fi_cache.py): repeat GET, HEAD
+        # and listing lookups of a key serve the quorum-agreed (fi, fis)
+        # from memory; every namespace mutation's bump invalidates it.
+        self.fi_cache = FileInfoCache()
+        self.metacache.listeners.append(self.fi_cache.invalidate_bucket)
 
     def close(self) -> None:
         """Stop the MRF worker, the listing walks, the group-commit lanes
@@ -630,9 +640,14 @@ class ErasureSet:
         if sum(e is None for e in errors) < len(self.disks) // 2 + 1:
             raise WriteQuorumError(bucket)
 
-    def invalidate_bucket_meta(self, bucket: str) -> None:
-        """Drop the cached record and existence of one bucket."""
+    def invalidate_bucket_meta(self, bucket: str = "") -> None:
+        """Drop the cached record and existence of one bucket ("" =
+        every bucket: a sibling worker rewrote some record)."""
         with self._bmeta_mu:
+            if not bucket:
+                self._bmeta_cache.clear()
+                self._bexists_until.clear()
+                return
             self._bmeta_cache.pop(bucket, None)
             self._bexists_until.pop(bucket, None)
 
@@ -653,11 +668,12 @@ class ErasureSet:
         """status: True or "Enabled", "Suspended", or False (off). A
         suspended bucket writes the null version, replacing the null
         version before it; the versions of the Enabled era stay."""
-        meta = self.get_bucket_meta(bucket)
-        meta["versioning"] = status is True or status == "Enabled"
-        meta["versioning-suspended"] = status == "Suspended"
         try:
-            self.set_bucket_meta(bucket, meta)
+            with self.bucket_meta_lock:
+                meta = self.get_bucket_meta(bucket)
+                meta["versioning"] = status is True or status == "Enabled"
+                meta["versioning-suspended"] = status == "Suspended"
+                self.set_bucket_meta(bucket, meta)
         finally:
             # What a PUT or DELETE of the bucket writes changes with it.
             self.metacache.bump(bucket)
@@ -1108,15 +1124,33 @@ class ErasureSet:
         return max(k, n // 2) if k else n // 2 + 1
 
     def _quorum_fileinfo(self, bucket: str, object_: str, read_data: bool,
-                         version_id: str = "") -> tuple[FileInfo, list,
-                                                        list]:
+                         version_id: str = "", stat_only: bool = False
+                         ) -> tuple[FileInfo, list, list]:
         """(the version agreed by read quorum, per-drive FileInfos,
         per-drive errors): the latest version, or `version_id`. A delete
         marker comes back as it is; `_read_fileinfo` maps it to the
-        errors of a read."""
+        errors of a read.
+
+        A repeat lookup of an unchanged key is a hit of the fileinfo
+        cache, no drive call (minio_tpu/object/erasure_object.py
+        `_get_object_fileinfo`); the token taken before the fan-out keeps
+        a read that raced a mutation out of it, and only fully healthy
+        reads fill it (a degraded read keeps re-reading, so its MRF heal
+        keeps being queued). `stat_only` is a HEAD's: the cache's stat
+        class, and no per-drive FileInfos (None)."""
+        n = len(self.disks)
+        if stat_only:
+            fi = self.fi_cache.get_stat(bucket, object_, version_id)
+            if fi is not None:
+                return fi, None, [None] * n
+        else:
+            hit = self.fi_cache.get(bucket, object_, version_id,
+                                    need_data=read_data)
+            if hit is not None:
+                return hit[0], hit[1], [None] * n
+        token = self.fi_cache.token(bucket)
         fis, errors = self._read_version_all(bucket, object_, version_id,
                                              read_data=read_data)
-        n = len(self.disks)
         if sum(isinstance(e, FileNotFoundErr) for e in errors) > n // 2:
             self._check_bucket(bucket)
             raise ObjectNotFound(bucket, object_)
@@ -1129,17 +1163,24 @@ class ErasureSet:
         if fi is None:
             raise ReadQuorumError(bucket, object_,
                                   f"no version agreed by {quorum} drives")
+        if all(e is None for e in errors):
+            if stat_only:
+                self.fi_cache.put_stat(bucket, object_, version_id, fi, token)
+            else:
+                self.fi_cache.put(bucket, object_, version_id, fi, fis,
+                                  read_data, token)
         return fi, fis, errors
 
     def _read_fileinfo(self, bucket: str, object_: str, read_data: bool,
-                       version_id: str) -> tuple[FileInfo, list, list]:
+                       version_id: str, stat_only: bool = False
+                       ) -> tuple[FileInfo, list, list]:
         """`_quorum_fileinfo` for a GET or HEAD, with the JAX package's
         errors (minio_tpu/object/erasure_object.py `get_object_info`): a
         latest version that is a delete marker is ObjectNotFound, a
         marker named by its version id MethodNotAllowed, an unknown
         version id VersionNotFound."""
         fi, fis, errors = self._quorum_fileinfo(bucket, object_, read_data,
-                                                version_id)
+                                                version_id, stat_only)
         if fi.deleted:
             if version_id:
                 raise MethodNotAllowed(bucket, object_,
@@ -1165,7 +1206,7 @@ class ErasureSet:
                         opts: Optional[GetOptions] = None) -> ObjectInfo:
         opts = opts or GetOptions()
         fi, _, _ = self._read_fileinfo(bucket, object_, False,
-                                       opts.version_id)
+                                       opts.version_id, stat_only=True)
         return self._to_info(bucket, object_, fi)
 
     # ------------------------------------------------------------------
@@ -1405,8 +1446,18 @@ class ErasureSet:
         ta = flat[full * c * frame:].reshape(c, tframe)
 
         def fetch(j: int, di: int) -> bool:
-            if fis[di].inline_data is not None:
-                src = np.frombuffer(fis[di].inline_data, dtype=np.uint8)[
+            blob = fis[di].inline_data
+            if blob is not None:
+                if not blob:
+                    # The not-loaded sentinel (a parity holder of a
+                    # cached entry): this holder's journal has it.
+                    try:
+                        blob = self.disks[di].read_version(
+                            bucket, object_, fi.version_id,
+                            read_data=True).inline_data or b""
+                    except (OSError, StorageError, MetaError):
+                        return False
+                src = np.frombuffer(blob, dtype=np.uint8)[
                     framed_lo:framed_lo + span]
                 if src.size != span:
                     return False

@@ -65,10 +65,14 @@ import base64
 import datetime
 import email.utils
 import hashlib
+import itertools
 import json
+import os
 import re
+import socket
 import sys
 import threading
+import time
 import traceback
 import urllib.parse
 import uuid
@@ -78,10 +82,14 @@ from xml.sax.saxutils import escape
 
 from minio_tpu_torch.object import types as ot
 from minio_tpu_torch.object.erasure_object import _resolve_range
+from minio_tpu_torch.object.hotcache import HotObjectCache
 from minio_tpu_torch.object.nslock import LockTimeout
 from minio_tpu_torch.s3 import checksum as ck
 from minio_tpu_torch.s3 import sigv4
+from minio_tpu_torch.s3.admission import (AdmissionController, AdmissionShed,
+                                          class_for, path_class)
 from minio_tpu_torch.storage.health import DiskHealthWrapper
+from minio_tpu_torch.utils import deadline as deadline_mod
 from minio_tpu_torch.utils.streams import (ChunkReader, HashingReader,
                                            HttpChunkedReader, LimitedReader,
                                            Payload)
@@ -107,6 +115,7 @@ ERRORS = {
     "SlowDownRead": (503, "Resource requested is unreadable, please reduce your request rate"),
     "SlowDownWrite": (503, "Resource requested is unwritable, please reduce your request rate"),
     "SlowDown": (503, "Please reduce your request rate."),
+    "RequestTimeout": (408, "The request did not complete within the allotted time, please reduce your request rate."),
     "NotImplemented": (501, "A header you provided implies functionality that is not implemented."),
     "InternalError": (500, "We encountered an internal error, please try again."),
     "MalformedXML": (400, "The XML you provided was not well-formed or did not validate against our published schema."),
@@ -135,6 +144,7 @@ _OBJECT_ERRORS = {
     ot.VersionNotFound: "NoSuchVersion",
     ot.MethodNotAllowed: "MethodNotAllowed",
     LockTimeout: "SlowDown",
+    deadline_mod.DeadlineExceeded: "RequestTimeout",
 }
 
 # Query parameters of the bucket GETs served here (listings, versioning,
@@ -231,8 +241,24 @@ class _HTTPServer(ThreadingHTTPServer):
     request_queue_size = 128
 
 
+class _ReusePortHTTPServer(_HTTPServer):
+    """Joins an SO_REUSEPORT group: every pre-forked worker
+    (io/workers.py) binds the same (host, port) and the kernel spreads
+    accepted connections across their accept queues, no proxy hop
+    (minio_tpu/s3/server.py `_ReusePortHTTPServer`)."""
+
+    def server_bind(self):
+        self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        super().server_bind()
+
+
 class S3Server:
-    """S3 over HTTP for one object layer (an ErasureSet)."""
+    """S3 over HTTP for one object layer (an ErasureSet). With
+    MTPU_REUSE_PORT=1, which the pre-forked fleet sets in each worker,
+    it binds its address in an SO_REUSEPORT group."""
+
+    # Seconds stop() waits for the requests in flight.
+    DRAIN_S = 10.0
 
     def __init__(self, objects, address: tuple[str, int],
                  credentials: dict[str, str]):
@@ -242,8 +268,23 @@ class S3Server:
 
         class Handler(_Handler):
             s3 = server
-        self.httpd = _HTTPServer(address, Handler)
+        reuse_port = os.environ.get("MTPU_REUSE_PORT", "") \
+            in ("1", "on", "true")
+        cls = _ReusePortHTTPServer if reuse_port else _HTTPServer
+        self.httpd = cls(address, Handler)
         self.httpd.daemon_threads = True
+        # Admission control (s3/admission.py): bounded in-flight
+        # requests per class; a worker of a fleet holds its share.
+        self.admission = AdmissionController.from_env()
+        # Requests in the handler, counted for stop()'s drain
+        # (socketserver does not track daemon handler threads).
+        self._inflight = 0
+        self._inflight_mu = threading.Lock()
+        # Hot-object read tier (object/hotcache.py), invalidated through
+        # the set's bump funnel; MTPU_HOT_CACHE=off disables it.
+        self.hot_cache = HotObjectCache()
+        self.hot_cache.attach_layer(objects)
+        self._thread: threading.Thread | None = None
         # The admin heal sweep: one at a time, its state for GET heal.
         self.heal_status: dict = {"state": "idle"}
         self._heal_lock = threading.Lock()
@@ -262,9 +303,28 @@ class S3Server:
     def serve_forever(self) -> None:
         self.httpd.serve_forever()
 
+    def start(self) -> None:
+        """Serve from a thread of this process (the caller's thread
+        stays free for signals)."""
+        self._thread = threading.Thread(target=self.serve_forever,
+                                        daemon=True, name="s3-serve")
+        self._thread.start()
+
     def shutdown(self) -> None:
         """Stop serving (from another thread) and release the drives."""
         self.httpd.shutdown()
+        self.close()
+
+    def stop(self) -> None:
+        """After start(): stop accepting, let the requests in flight
+        finish (up to DRAIN_S seconds), then close
+        (minio_tpu/s3/server.py `stop`)."""
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        deadline = time.monotonic() + self.DRAIN_S
+        while self._inflight > 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        self._thread.join(timeout=self.DRAIN_S)
         self.close()
 
     def close(self) -> None:
@@ -349,8 +409,63 @@ class _Handler(BaseHTTPRequestHandler):
 
     # ------------------------------------------------------------------
 
+    # A shed request's body is read and dropped up to this size, so its
+    # client can finish sending and read the 503 (minio_tpu/s3/server.py
+    # `_drain_unread_body`).
+    _DRAIN_CAP = 8 << 20
+
     def _dispatch(self, method: str) -> None:
+        """Admission first (minio_tpu/s3/server.py `_route`): a request
+        that finds no slot of its class (s3/admission.py) answers 503
+        SlowDown with Retry-After before any auth or body work; an
+        admitted one runs under the request deadline budget, if one is
+        configured."""
         raw_path, _, qs = self.path.partition("?")
+        srv = self.s3
+        with srv._inflight_mu:
+            srv._inflight += 1
+        try:
+            try:
+                gate = srv.admission.enter(class_for(path_class(raw_path)))
+            except AdmissionShed as shed:
+                self._resource = urllib.parse.unquote(raw_path)
+                self._drain_unread_body()
+                self.close_connection = True
+                self._error(S3Error("SlowDown", str(shed)), method,
+                            {"Retry-After": str(shed.retry_after)})
+                return
+            try:
+                budget = srv.admission.request_timeout
+                with deadline_mod.bind(deadline_mod.Deadline(budget)
+                                       if budget > 0 else None):
+                    self._route(method, raw_path, qs)
+            finally:
+                gate.leave()
+        finally:
+            with srv._inflight_mu:
+                srv._inflight -= 1
+
+    def _drain_unread_body(self) -> None:
+        """Discard an unread Content-Length body, bounded by _DRAIN_CAP
+        and a 2 s read timeout; a chunked body is left to the close."""
+        try:
+            remaining = int(self.headers.get("content-length") or 0)
+        except ValueError:
+            return
+        if "chunked" in self.headers.get("transfer-encoding", "").lower() \
+                or remaining <= 0 or remaining > self._DRAIN_CAP:
+            return
+        try:
+            self.connection.settimeout(2.0)
+            while remaining > 0:
+                chunk = self.rfile.read(min(65536, remaining))
+                if not chunk:
+                    return
+                remaining -= len(chunk)
+        except OSError:
+            pass        # a stalled or gone client; the close handles it
+
+    def _route(self, method: str, raw_path: str, qs: str) -> None:
         if raw_path in (HEALTH_LIVE, HEALTH_READY) and method in ("GET",
                                                                    "HEAD"):
             # Unauthenticated probes (reference healthcheck-handler.go).
@@ -408,9 +523,12 @@ class _Handler(BaseHTTPRequestHandler):
                                 str(e)), method)
         except S3Error as e:
             self._error(e, method)
-        except (ot.ObjectError, LockTimeout) as e:
+        except (ot.ObjectError, LockTimeout,
+                deadline_mod.DeadlineExceeded) as e:
             code = next((c for t, c in _OBJECT_ERRORS.items()
                          if isinstance(e, t)), "InternalError")
+            if code == "RequestTimeout":
+                self.s3.admission.record_deadline_exceeded()
             headers = {}
             if isinstance(e, ot.MethodNotAllowed) or \
                     getattr(e, "delete_marker", False):
@@ -586,6 +704,12 @@ class _Handler(BaseHTTPRequestHandler):
             raise S3Error("InternalError", f"body ended {declared - len(body)}"
                           " bytes short of declared size")
         return body
+
+    def flush_headers(self):
+        # The head as it goes on the wire: the hot cache keeps a plain
+        # whole-object GET's as its entry's template.
+        self._last_head = b"".join(getattr(self, "_headers_buffer", ()))
+        super().flush_headers()
 
     def _send(self, status: int, headers: dict, body: bytes = b"",
               length: int | None = None) -> None:
@@ -1076,35 +1200,71 @@ class _Handler(BaseHTTPRequestHandler):
                    length=length)
 
     def _get_object(self, bucket, key, _body, headers):
+        """GET, streamed window by window. The latest version of a key
+        may be a hit of the hot-object tier (object/hotcache.py), served
+        with no object-layer work and the miss's headers, a range
+        resolved on the resident object (minio_tpu/s3/server.py
+        `_get_object`); a plain whole-object miss the tinyLFU filter
+        admits is buffered as it is sent and inserted at its end, with
+        its head as the entry's template unless checksum headers shaped
+        it."""
         if "uploadId" in self._query:
             return self._list_parts(bucket, key)
         spec = _range_spec(headers.get("range", ""))
         opts = self._version_opts()
-        start, length = 0, None
-        if spec is not None:
-            info = self.s3.objects.get_object_info(bucket, key, opts)
+        hot = self.s3.hot_cache
+        entry = hot.get(bucket, key) if not opts.version_id else None
+        template = hot.enabled and headers.get(
+            "x-amz-checksum-mode", "").upper() != "ENABLED"
+        token = admit = None
+        if entry is not None:
+            info = entry.info
             spec, start, length = self._resolve(spec, info, bucket, key)
-            # The range was resolved on this version: read the same one.
-            opts = ot.GetOptions(version_id=info.version_id or "null")
-        info, chunks = self.s3.objects.get_object_stream(bucket, key, start,
-                                                         length, opts)
-        if length is None:
-            length = info.size
+            chunks = (w for w in (memoryview(entry.body)
+                                  [start:start + length],))
+        else:
+            if hot.enabled and not opts.version_id:
+                # Before the read fan-out: a mutation racing this read
+                # moves the bucket's generation and put() refuses.
+                token = hot.token(bucket)
+            start, length = 0, None
+            if spec is not None:
+                info = self.s3.objects.get_object_info(bucket, key, opts)
+                spec, start, length = self._resolve(spec, info, bucket, key)
+                # The range was resolved on this version: read the same one.
+                opts = ot.GetOptions(version_id=info.version_id or "null")
+            info, chunks = self.s3.objects.get_object_stream(
+                bucket, key, start, length, opts)
+            if length is None:
+                length = info.size
+            if token is not None and spec is None and length:
+                admit = hot.admit(bucket, key, length)
+        buf = bytearray() if admit else None
         try:
             first = next(chunks, b"")      # errors before the head is sent
             self._send(*self._answer(info, spec, start, length, headers),
                        length=length)
+            if entry is not None and spec is None and template:
+                hot.set_head(bucket, key, info.etag, info.version_id or "",
+                             self._last_head)
+            sent = 0
             try:
                 # Each chunk views a pooled lease that returns at the
-                # next pull, so it is on the wire before then.
-                self.wfile.write(first)
-                for chunk in chunks:
+                # next pull, so it is on the wire (and copied into the
+                # hot buffer) before then.
+                for chunk in itertools.chain((first,), chunks):
+                    if buf is not None:
+                        buf += chunk
                     self.wfile.write(chunk)
+                    sent += len(chunk)
             except Exception:  # noqa: BLE001 - head already sent
                 # A failure mid-body can only cut the connection (the
                 # client sees a short body), never send a second response.
                 traceback.print_exc(file=sys.stderr)
                 self.close_connection = True
+            if buf is not None and sent == length:
+                hot.put(bucket, key, info, bytes(buf),
+                        self._last_head if template else None, token)
         finally:
             chunks.close()        # returns the leases of a cut response
 

@@ -43,7 +43,8 @@ per operation, the device time by kernel and
 by copy, each copy row marked with the host memory it read or wrote
 (pinned or pageable), and the card's busy share of the wall time. The
 last line is one JSON object with every number, the card's name and its
-power limit. It needs a CUDA card and fails without one.
+power limit. It needs a CUDA card and fails without one. It runs with
+the fileinfo cache off (MTPU_FILEINFO_CACHE=off), as before the cache.
 The drive plane's rows follow (where the package has it): the bulk
 heal of one wiped drive of 12 (`drive_heal_1`, phase 4e's data mix cut
 to about 512 MiB, with its device profile), 1 KiB PUTs from one
@@ -364,6 +365,9 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("where_time_goes: needs a CUDA card")
+    # The degraded rows wipe drives behind the sets' backs, and every
+    # row times the drives' reads: no fileinfo cache answers for them.
+    os.environ["MTPU_FILEINFO_CACHE"] = "off"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()

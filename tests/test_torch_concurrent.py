@@ -25,6 +25,7 @@ from minio_tpu.storage.local import LocalStorage as RefDisk
 from minio_tpu_torch.io.bufpool import global_pool
 from minio_tpu_torch.object.erasure_object import ErasureSet, hash_order
 from minio_tpu_torch.storage.local import LocalStorage
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 N = 12
 MIB = 1 << 20

@@ -55,6 +55,7 @@ from minio_tpu_torch.storage.local import (SYS_VOL, LocalStorage,
                                            write_healing)
 from minio_tpu_torch.topology import format as fmt_mod
 from tests.s3client import S3Client
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 BKT = "bkt"
 MIB = 1 << 20

@@ -33,6 +33,7 @@ from minio_tpu_torch.storage.local import (SYS_VOL, LocalStorage,
                                            OfflineDisk, read_healing)
 from minio_tpu_torch.topology import format as fmt_mod
 from tests.s3client import S3Client
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 
 def _mkdisks(tmp_path, n, prefix="d", cls=LocalStorage):

@@ -44,6 +44,7 @@ from minio_tpu_torch.object.erasure_object import (STAGING_PREFIX,
 from minio_tpu_torch.object.healing import MRF_PATH
 from minio_tpu_torch.storage import meta as port_meta
 from minio_tpu_torch.storage.local import SYS_VOL, LocalStorage
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 N = 12
 MIB = 1 << 20

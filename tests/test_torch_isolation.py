@@ -89,3 +89,26 @@ def test_server_cli_without_cuda_refuses_to_serve(tmp_path):
     assert r.returncode != 0
     assert "torch.cuda.is_available() is false" in r.stderr
     assert "serving S3" not in r.stdout
+
+
+def test_fleet_without_cuda_refuses_to_serve(tmp_path):
+    """--device cuda with MTPU_HTTP_WORKERS=2 and no card: worker 0's
+    boot raises, and the fleet exits non-zero without serving (the
+    kernels' build is stubbed: this host has no nvcc either)."""
+    code = ("import torch, sys\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "from minio_tpu_torch.ops import _build\n"
+            "_build.build = lambda *a, **k: {}\n"
+            "from minio_tpu_torch import server\n"
+            f"sys.exit(server.main(['--address', '127.0.0.1:0', "
+            f"{str(tmp_path / 'd0')!r}]))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                       env=dict(os.environ, PYTHONPATH=str(REPO),
+                                MTPU_HTTP_WORKERS="2"),
+                       capture_output=True, text=True, timeout=120,
+                       start_new_session=True)
+    assert r.returncode != 0
+    assert "pre-forked front end: 2 workers" in r.stdout
+    assert "worker 0 boot failed" in r.stderr
+    assert "torch.cuda.is_available() is false" in r.stderr
+    assert "serving S3" not in r.stdout

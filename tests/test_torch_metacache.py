@@ -45,6 +45,7 @@ from minio_tpu_torch.object.types import DeleteOptions, PutOptions
 from minio_tpu_torch.storage.local import LocalStorage
 from minio_tpu_torch.storage.meta import FileInfo, now_ns
 from minio_tpu_torch.utils.streams import ChunkReader, Payload
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 N = 4
 PKGS = {"r": (RefSet, RefDisk, RefPut, RefDelete, ref_mc),

@@ -32,6 +32,7 @@ from minio_tpu_torch.object import types as ot
 from minio_tpu_torch.object.erasure_object import ErasureSet, hash_order
 from minio_tpu_torch.storage import meta as port_meta
 from minio_tpu_torch.storage.local import LocalStorage
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 N = 12
 MIB = 1 << 20

@@ -51,6 +51,7 @@ from minio_tpu_torch.object.erasure_object import (BLOCK_SIZE,
                                                    hash_order)
 from minio_tpu_torch.s3 import sigv4
 from tests.s3client import S3Client
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 BUCKET = "compat"
 WINDOW = STREAM_WINDOW_BLOCKS * BLOCK_SIZE

@@ -40,6 +40,7 @@ from minio_tpu_torch.object.types import DeleteOptions, PutOptions
 from minio_tpu_torch.storage import meta as port_meta
 from minio_tpu_torch.storage.local import SYS_VOL, LocalStorage
 from minio_tpu_torch.topology.format import init_formats
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 
 @pytest.fixture

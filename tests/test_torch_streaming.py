@@ -36,6 +36,7 @@ from minio_tpu_torch.object.types import WriteQuorumError
 from minio_tpu_torch.s3 import sigv4
 from minio_tpu_torch.storage.local import SYS_VOL, LocalStorage
 from minio_tpu_torch.utils.streams import Payload
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 N = 12
 MIB = 1 << 20

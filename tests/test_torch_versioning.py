@@ -40,6 +40,7 @@ from minio_tpu_torch.object.erasure_object import (SMALL_FILE_THRESHOLD,
 from minio_tpu_torch.object.types import DeleteOptions, GetOptions, PutOptions
 from minio_tpu_torch.storage import meta as port_meta
 from minio_tpu_torch.storage.local import SYS_VOL, LocalStorage
+from tests.torch_no_caches import no_read_caches  # noqa: F401
 
 N = 12
 BUCKET = "verb"
