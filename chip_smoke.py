@@ -84,16 +84,16 @@ and prints no result line):
    heal_object of each copy finding every shard good; an UploadPartCopy
    upload of the first 64 MiB, 40 MiB across two 32 MiB windows and the
    last 5 MiB + 777 B of the single-part object beside an uploaded 5 MiB
-   part, exact. 16 clients PUT 10,000 keys of 1 KiB
-   (dir00..99/obj000..099) into an unversioned bucket, their commits
+   part, exact. 16 clients PUT 5,000 keys of 1 KiB
+   (dir00..49/obj000..099) into an unversioned bucket, their commits
    coalescing in the group-commit lanes (at least one batch of 2 or
    more members, no demotion, no deadline cull; batches, members a
    batch, solo bypasses, demotions and fsyncs saved printed);
    ListObjectsV2 in pages of 1000 (continuation tokens), then the same
    listing again, which must be served from the walk stream (metacache
-   hits up, walks started unchanged), with delimiter / (100 prefixes,
+   hits up, walks started unchanged), with delimiter / (50 prefixes,
    the shallow walk), with prefix dir42/, V1 with a marker inside
-   dir57/, and ListObjectVersions of the versioned bucket in pages of 2
+   dir07/, and ListObjectVersions of the versioned bucket in pages of 2
    equal what was written; the metacache stats and the journal-summary
    counters are printed. The deep listing again with one drive away,
    and after 3 drives missed a DeleteObjects of 1000 keys it lists none
@@ -169,16 +169,40 @@ and prints no result line):
    and every drive carries the clean-shutdown stamp. Then the same two
    aggregates from one worker on fresh drives, printed beside the
    card's name, power limit and the host's cores.
+4g. Pools of erasure sets: `python -m minio_tpu_torch.server` with
+   MTPU_HTTP_WORKERS=2, both caches on and MTPU_REBALANCE_WORKERS=4, on
+   `ROOT/p1/d{1...24}`: one pool of 2 sets x 12 at EC 8+4. 16 clients
+   load 48 objects of 16 MiB (4e's size), 64 MiB + 1 B, a multipart of
+   8 x 8 MiB, 500 keys of 1 KiB, and 100 keys x 3 versions with 50 delete
+   markers in a versioned bucket; every key's journal must lie on the
+   12 drives of the set the port's sip_hash_mod names under the
+   deployment id; 16 clients' 1 KiB PUT keys/s. SIGTERM; restarted with
+   `ROOT/p2/d{1...16}` added (MinIO's documented expansion): pool 2 is
+   1 x 16 at EC 12+4 under pool 1's deployment id, every key and version
+   reads back, and the 1 KiB PUT rate on 2 pools is printed beside the
+   one on 1. `rebalance-start` until complete, then (after a restart on
+   the same pools) `decommission?pool=0` until complete, each while 16
+   clients overwrite 8 keys each with 1 MiB PUT+GET pairs 0.25 s apart
+   and read a preloaded 1 KiB key: 0 failed and 0 stale reads; each
+   walk's keys and bytes moved, wall, keys/s and MiB/s, and its server's
+   gf_apply launches by (k, r), which must include k = 12. No journal
+   is left on pool 1's drives. Restarted on pool 2 alone: every key and
+   version (ids and ETags), the live clients' last acknowledged bodies
+   among them, reads back byte for byte. The shard files of 8 migrated
+   16 MiB objects and of the 64 MiB + 1 B one on pool 2's drives equal
+   the 12+4 encode and digests of the plain PyTorch path on the CPU
+   (computed on a thread while the servers run). The phase's drives are
+   removed afterwards.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
-   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f and 5
+   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f, 4g and 5
    every kernel's launch count is set to 0 just before the phase and
-   read just after (4e's servers and 4f's workers count from their
-   start, less their boot self-tests); each kernel of the phase's path
-   must have launched, in 4e gf_apply with one row (r = 1), in 4f in
-   every worker. Each phase's wall time is printed on a line of its
+   read just after (4e's servers and 4f's and 4g's workers count from
+   their start, less their boot self-tests); each kernel of the phase's
+   path must have launched, in 4e gf_apply with one row (r = 1), in 4f
+   in every worker, in 4g at k = 12. Each phase's wall time is printed on a line of its
    own.
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
@@ -586,7 +610,7 @@ class Server:
         self.srv = server.boot(["--address", "127.0.0.1:0", "--device",
                                 device, "--scanner-interval", "0", *args,
                                 *self.drives])
-        self.es = self.srv.objects
+        self.es = self.srv.objects.sets[0]
         self.es._mrf_closed = not mrf
         check(self.es.default_parity == M, "12 drives must give EC 8+4")
         self.thread = threading.Thread(target=self.srv.serve_forever,
@@ -1205,7 +1229,9 @@ def phase_multipart_heal(torch, rng, s: "Server", root: str):
 
 # Phase 4c: the bucket namespace.
 NS_BIG = 256 * MIB          # each versioned PUT, as phase 4b's objects
-NS_DIRS, NS_PER_DIR = 100, 100     # 10,000 keys of 1 KiB for the listing
+# 5,000 keys of 1 KiB for the listing: with 10,000 and phase 4g the
+# script ran 1155.4 s on an H100, against a 1,200 s limit.
+NS_DIRS, NS_PER_DIR = 50, 100
 NS_CLIENTS = 16
 # UploadPartCopy's ranges of the 256 MiB source, (offset, length): its
 # first 64 MiB, 40 MiB across the boundary of its 32 MiB windows 3 and 4,
@@ -2685,6 +2711,425 @@ def solo_dispatch_ms(torch, rng, stats: dict, runs: int = 5) -> dict:
     return out
 
 
+PL_WORKERS = 2                  # the fleet of the phase's servers
+PL_CLIENTS = 16
+PL_BIG, PL_N_BIG = 16 * MIB, 48  # MinIO's object size in 4e
+PL_RAGGED = 64 * MIB + 1
+PL_MP_PARTS = 8                 # a multipart of 8 x AWS_PART
+PL_SMALL = 500                  # keys of 1 KiB
+PL_VKEYS, PL_VERSIONS, PL_MARKERS = 100, 3, 50
+PL_VBODY = 4 * 1024
+PL_RATE_KEYS = 16               # 1 KiB PUTs a client for each rate
+PL_LIVE_KEYS = 8                # keys a live client overwrites in turn
+PL_SAMPLE = 8                   # migrated 16 MiB objects recomputed
+PL_WALK_WORKERS = "4"           # MTPU_REBALANCE_WORKERS of the servers
+PL_K, PL_M = 12, 4              # pool 2's geometry
+
+
+def fleet_stop(p: "ServerProc") -> dict:
+    """SIGTERM to a fleet's parent: every worker drains and prints its
+    launches; their sum, gf_apply also by "k,r"."""
+    import signal
+    p.proc.send_signal(signal.SIGTERM)
+    try:
+        rc = p.proc.wait(timeout=60)
+    finally:
+        p.kill()
+    p.reader.join(30)
+    lines = [ln for ln in p.lines if ln.startswith("worker ")
+             and " kernel launches while serving: " in ln]
+    check(rc == 0 and len(lines) == PL_WORKERS,
+          f"the fleet's drain: exit {rc}, {len(lines)} launch lines: "
+          f"{p.lines[-10:]}")
+    out = {"gf_apply": 0, "highwayhash256": 0, "gf_apply_by_kr": {}}
+    for ln in lines:
+        n = json.loads(ln.split(": ", 1)[1])
+        out["gf_apply"] += n["gf_apply"]
+        out["highwayhash256"] += n["highwayhash256"]
+        for kr, v in n["gf_apply_by_kr"].items():
+            out["gf_apply_by_kr"][kr] = out["gf_apply_by_kr"].get(kr, 0) + v
+    return out
+
+
+def journals(drive: str) -> list[str]:
+    """Every key's journal on a drive (the system volume left out)."""
+    return [os.path.relpath(dp, drive) for dp, _, fs in os.walk(drive)
+            if "xl.meta" in fs
+            and os.path.relpath(dp, drive).split(os.sep)[0] != ".mtpu.sys"]
+
+
+def plain_shard_files(objs: dict) -> dict:
+    """key -> the 12+4 shard files (`digest || block` of every erasure
+    block, by shard index) of each object's bytes, from the port's plain
+    PyTorch GF apply and HighwayHash on the CPU."""
+    import torch
+    from minio_tpu_torch.erasure.codec import Erasure
+    from minio_tpu_torch.ops import gf256, hh_device, rs_device
+    from minio_tpu_torch.utils.highwayhash import MAGIC_KEY
+    # Two of the host's cores: the servers beside it are the phase.
+    torch.set_num_threads(2)
+    e = Erasure(PL_K, PL_M, MIB)
+    pm = gf256.parity_matrix(PL_K, PL_M)
+    rows = PL_K + PL_M
+    out = {}
+    for key, data in objs.items():
+        blocks = [data[o:o + MIB] for o in range(0, len(data), MIB)]
+        frames: list[list] = [[] for _ in range(rows)]
+        for g in range(0, len(blocks), 16):      # 256 hashed rows a call
+            group = blocks[g:g + 16]
+            sizes = {len(b) for b in group}
+            for size in sorted(sizes, reverse=True):
+                same = [b for b in group if len(b) == size]
+                shards = torch.from_numpy(np.stack([e.split(b)
+                                                    for b in same]))
+                full = torch.cat([shards, rs_device.gf_apply(pm, shards)], 1)
+                digs = hh_device.hash_blocks_device(
+                    MAGIC_KEY, full.reshape(-1, full.shape[-1]))
+                digs = digs.reshape(len(same), rows, 32)
+                for b in range(len(same)):
+                    for j in range(rows):
+                        frames[j].append(bytes(digs[b, j].numpy())
+                                         + bytes(full[b, j].numpy()))
+        out[key] = [b"".join(f) for f in frames]
+    return out
+
+
+def phase_pools(rng, root: str, device: str = "cuda") -> dict:
+    """Pools on the card (phase 4g): load a 2 x 12 pool, expand with a
+    1 x 16 pool at EC 12+4, rebalance, decommission the first pool and
+    restart without it, all under live clients; returns the launches
+    the fleets' workers printed."""
+    import uuid
+    from minio_tpu_torch.object.erasure_object import hash_order
+    from minio_tpu_torch.utils.siphash import sip_hash_mod
+    import torch
+    t_phase = time.perf_counter()
+    threads = torch.get_num_threads()
+    env = {"MTPU_FILEINFO_CACHE": "on", "MTPU_HOT_CACHE": "on",
+           "MTPU_REBALANCE_WORKERS": PL_WALK_WORKERS}
+    extra = ("--scanner-interval", "0")
+    p1 = [os.path.join(root, "p1", f"d{i}") for i in range(1, 25)]
+    p2 = [os.path.join(root, "p2", f"d{i}") for i in range(1, 17)]
+    arg1 = os.path.join(root, "p1", "d{1...24}")
+    arg2 = os.path.join(root, "p2", "d{1...16}")
+    launches = {"gf_apply": 0, "highwayhash256": 0, "gf_apply_by_kr": {}}
+
+    def add(n: dict) -> None:
+        launches["gf_apply"] += n["gf_apply"]
+        launches["highwayhash256"] += n["highwayhash256"]
+        for kr, v in n["gf_apply_by_kr"].items():
+            launches["gf_apply_by_kr"][kr] = \
+                launches["gf_apply_by_kr"].get(kr, 0) + v
+
+    # What the phase wrote: (bucket, key) -> bytes; versions apart.
+    pool = rng.bytes(PL_N_BIG * PL_BIG + PL_RAGGED + PL_MP_PARTS * AWS_PART)
+    view = memoryview(pool)
+    objs = {("g4b", f"big/{i:03d}"): view[i * PL_BIG:(i + 1) * PL_BIG]
+            for i in range(PL_N_BIG)}
+    o = PL_N_BIG * PL_BIG
+    objs["g4b", "ragged"] = view[o:o + PL_RAGGED]
+    o += PL_RAGGED
+    parts = [bytes(view[o + n * AWS_PART:o + (n + 1) * AWS_PART])
+             for n in range(PL_MP_PARTS)]
+    small = rng.bytes(PL_SMALL * 1024)
+    for i in range(PL_SMALL):
+        objs["g4b", f"small/{i:04d}"] = small[i * 1024:(i + 1) * 1024]
+    etags: dict = {}
+    versions: dict = {}             # key -> [(version id, etag or marker)]
+    sample = sorted(k for b, k in objs if k.startswith("big/"))[::6]
+    sample = sample[:PL_SAMPLE] + ["ragged"]
+    want_files: dict = {}
+    plain = threading.Thread(target=lambda: want_files.update(
+        plain_shard_files({k: bytes(objs["g4b", k]) for k in sample})),
+        daemon=True, name="plain-shards")
+    plain.start()
+
+    def rate(c: "Client", tag: str) -> float:
+        """1 KiB PUT keys/s from 16 clients; the keys are deleted after
+        (DeleteObjects), so that no walk moves them."""
+        bodies = rng.bytes(PL_CLIENTS * PL_RATE_KEYS * 1024)
+        keys = [f"{tag}/c{t:02d}/k{i:03d}" for t in range(PL_CLIENTS)
+                for i in range(PL_RATE_KEYS)]
+
+        def put(t: int, i: int) -> None:
+            key = keys[t * PL_RATE_KEYS + i]
+            b = bodies[(t * PL_RATE_KEYS + i) * 1024:][:1024]
+            st, _ = c("PUT", f"/g4r/{key}", b)
+            check(st == 200, f"rate PUT {key}: {st}")
+        wall = run_clients(put, [range(PL_RATE_KEYS)] * PL_CLIENTS)
+        delete_objects(c, "g4r", [(k, "") for k in keys])
+        return PL_CLIENTS * PL_RATE_KEYS / wall
+
+    def read_all(c: "Client", what: str) -> float:
+        def get(_t: int, bk) -> None:
+            st, body, h = c.send("GET", f"/{bk[0]}/{bk[1]}")
+            check(st == 200 and body == objs[bk],
+                  f"{what}: GET {bk[0]}/{bk[1]}: {st}")
+            if bk in etags:
+                check(h["etag"] == etags[bk], f"{what}: ETag of {bk}")
+        items = sorted(objs)
+        wall = run_clients(get, [items[t::PL_CLIENTS]
+                                 for t in range(PL_CLIENTS)])
+        listed = []
+        marker = ""
+        while True:
+            st, body, _ = c.send("GET", "/g4v", query={
+                "versions": "", "key-marker": marker,
+                **({"version-id-marker": vm} if marker else {})})
+            check(st == 200, f"{what}: list versions {st}")
+            for e in xml_entries(body, "Version") + \
+                    xml_entries(body, "DeleteMarker"):
+                listed.append((e["Key"], e["VersionId"],
+                               e.get("ETag", "marker")))
+            if xml_tag(body, "IsTruncated") != "true":
+                break
+            marker = xml_tag(body, "NextKeyMarker")
+            vm = xml_tag(body, "NextVersionIdMarker")
+        want = sorted((k, vid, tag) for k, vs in versions.items()
+                      for vid, tag in vs)
+        check(sorted(listed) == want, f"{what}: the version listing "
+              f"differs: {len(listed)} entries against {len(want)}")
+        for k, vs in versions.items():
+            for vid, tag in vs:
+                if tag != "marker":
+                    st, body, h = c.send("GET", f"/g4v/{k}",
+                                         query={"versionId": vid})
+                    check(st == 200 and h["etag"] == tag,
+                          f"{what}: GET {k}?versionId={vid}: {st}")
+        return wall
+
+    # -- 1. one pool of 2 x 12 at EC 8+4, loaded ------------------------
+    p = ServerProc([arg1], extra, device, workers=PL_WORKERS, env=env)
+    try:
+        c = p.client
+        boot_s = p.t_serving - p.t_start
+        check("2 sets x 12, EC 8+4" in p.line("serving S3 on"),
+              f"pool 1's layout: {p.line('serving S3 on')}")
+        for b in ("g4b", "g4v", "g4r", "g4l"):
+            check(c("PUT", f"/{b}")[0] == 200, f"make bucket {b}")
+        check(c.send("PUT", "/g4v", VERSIONING.format("Enabled").encode(),
+                     query={"versioning": ""})[0] == 200, "versioning")
+        t0 = time.perf_counter()
+
+        def put(_t: int, bk) -> None:
+            st, err, h = c.send("PUT", f"/{bk[0]}/{bk[1]}", bytes(objs[bk]))
+            check(st == 200, f"PUT {bk}: {st} {err[:200]!r}")
+            etags[bk] = h["etag"]
+        items = sorted(objs)
+        run_clients(put, [items[t::PL_CLIENTS] for t in range(PL_CLIENTS)])
+        objs["g4b", "mp"] = b"".join(parts)
+        etags["g4b", "mp"] = mp_upload(c, "/g4b/mp", parts, PL_MP_PARTS)
+        vbody = rng.bytes(PL_VKEYS * PL_VERSIONS * PL_VBODY)
+
+        def put_versions(_t: int, k: int) -> None:
+            key, got = f"v{k:03d}", []
+            for v in range(PL_VERSIONS):
+                o = (k * PL_VERSIONS + v) * PL_VBODY
+                st, _, h = c.send("PUT", f"/g4v/{key}",
+                                  vbody[o:o + PL_VBODY])
+                check(st == 200, f"PUT {key} #{v}: {st}")
+                got.append((h["x-amz-version-id"], h["etag"]))
+            if k < PL_MARKERS:
+                st, _, h = c.send("DELETE", f"/g4v/{key}")
+                check(st == 204 and h.get("x-amz-delete-marker") == "true",
+                      f"marker on {key}: {st}")
+                got.append((h["x-amz-version-id"], "marker"))
+            versions[key] = got
+        run_clients(put_versions, [range(t, PL_VKEYS, PL_CLIENTS)
+                                   for t in range(PL_CLIENTS)])
+        wall_load = time.perf_counter() - t0
+        rate1 = rate(c, "one")
+        dep = json.load(open(os.path.join(p1[0], ".mtpu.sys",
+                                          "format.json")))["id"]
+        dep_bytes = uuid.UUID(dep).bytes
+        per_set = [0, 0]
+        for b, k in [*objs, *[("g4v", k) for k in versions]]:
+            s = sip_hash_mod(k, 2, dep_bytes)
+            held = [i for i, d in enumerate(p1)
+                    if os.path.exists(os.path.join(d, b, k, "xl.meta"))]
+            check(held == list(range(12 * s, 12 * s + 12)),
+                  f"{b}/{k}: journals on drives {held}, SipHash names "
+                  f"set {s}")
+            per_set[s] += 1
+        loaded = sum(map(len, objs.values())) + len(vbody)
+        log(f"pools: pool 1 (2 x 12, EC 8+4, {PL_WORKERS} workers) up in "
+            f"{boot_s:.2f} s; {PL_CLIENTS} clients loaded "
+            f"{loaded / MIB:.1f} MiB in {wall_load:.2f} s ({PL_N_BIG} x 16 "
+            f"MiB, 64 MiB + 1 B, a multipart of {PL_MP_PARTS} x 8 MiB, "
+            f"{PL_SMALL} x 1 KiB, {PL_VKEYS} keys x {PL_VERSIONS} versions "
+            f"and {PL_MARKERS} markers); every journal on the 12 drives "
+            f"of the set sip_hash_mod names: {per_set[0]} keys in set 0, "
+            f"{per_set[1]} in set 1")
+    finally:
+        n1 = fleet_stop(p)
+        add(n1)
+
+    # -- 2. expanded by a pool of 1 x 16 at EC 12+4 ---------------------
+    live_keys: dict = {}
+    small_keys = [k for b, k in objs if k.startswith("small/")]
+
+    def walk(c: "Client", start: str, query: dict, status: str) -> dict:
+        """The walk under 4e's live clients, started 1 s before it: each
+        makes DP_LIVE_KEYS PUT-then-GET pairs of 1 MiB, DP_LIVE_PAUSE
+        apart, overwriting its PL_LIVE_KEYS keys in turn, and reads a
+        preloaded 1 KiB key after each; returns the walk's final status
+        with the clients' counts and how long they ran."""
+        failed, stale, pairs, ran = [], [], [0], []
+        live_pool = rng.bytes(64 * MIB)
+
+        def client(t: int) -> None:
+            t0 = time.time()
+            for i in range(DP_LIVE_KEYS):
+                key = f"t{t:02d}/k{i % PL_LIVE_KEYS}"
+                o = (t * 7919 + i * 104729) % (63 * MIB)
+                body = live_pool[o:o + MIB]
+                small_k = small_keys[(t * 31 + i) % len(small_keys)]
+                try:
+                    before = live_keys.get(("g4l", key))
+                    st, _ = c("PUT", f"/g4l/{key}", body)
+                    if st != 200:
+                        failed.append(f"PUT {key}: {st}")
+                        continue
+                    live_keys["g4l", key] = body
+                    st, got, h = c.send("GET", f"/g4l/{key}")
+                    if st != 200:
+                        failed.append(f"GET {key}: {st}")
+                    elif got != body:
+                        stale.append(
+                            f"GET {key} at pair {i}, {time.time() - t0:.2f} "
+                            f"s in: {'the previous body' if got == before else 'an unknown body'}, "
+                            f"ETag {h.get('etag')}, {h.get('last-modified')}")
+                    st, got = c("GET", f"/g4b/{small_k}")
+                    if st != 200:
+                        failed.append(f"GET {small_k}: {st}")
+                    elif got != objs["g4b", small_k]:
+                        stale.append(f"GET {small_k}")
+                    pairs[0] += 1
+                except (OSError, http.client.HTTPException) as e:
+                    failed.append(f"{key}: {e!r}")
+                time.sleep(DP_LIVE_PAUSE)
+            ran.append(time.time() - t0)
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(PL_CLIENTS)]
+        for th in threads:
+            th.start()
+        try:
+            time.sleep(1.0)
+            st, err, _ = c.send("POST", f"/minio/admin/v3/{start}",
+                                query=query)
+            check(st == 200, f"{start}: {st} {err[:300]!r}")
+            t0 = time.perf_counter()
+            while True:
+                st, body, _ = c.send("GET", f"/minio/admin/v3/{status}")
+                doc = json.loads(body) if body else {}
+                if st == 200 and doc.get("status") in ("complete",
+                                                       "failed"):
+                    break
+                check(time.perf_counter() - t0 < 600,
+                      f"{status} after 600 s: {st} {body[:300]!r}")
+                time.sleep(0.2)
+        finally:
+            for th in threads:
+                th.join(600)
+        check(not any(th.is_alive() for th in threads), "a live client hung")
+        check(doc["status"] == "complete", f"{start} ended {doc}")
+        check(not failed and not stale, f"client reads during {start}: "
+              f"failed {failed[:5]}, stale {stale[:5]}")
+        doc["client_pairs"] = pairs[0]
+        doc["client_s"] = (min(ran), max(ran))
+        return doc
+
+    card = smi("--query-gpu=name,power.limit")
+
+    def report(what: str, doc: dict, rec: dict, n: dict) -> None:
+        wall = (doc["finished_ns"] - doc["started_ns"]) / 1e9
+        moved = rec.get("bytes_moved", 0)
+        log(f"pools: {what}: {rec['migrated']} keys and {moved} B moved "
+            f"in {wall:.2f} s ({rec['migrated'] / wall:.1f} keys/s, "
+            f"{moved / MIB / wall:.1f} MiB/s), {doc.get('yields', 0)} "
+            f"yields to clients; {PL_CLIENTS} live clients' "
+            f"{doc['client_pairs']} PUT+GET pairs (each client ran "
+            f"{doc['client_s'][0]:.2f}-{doc['client_s'][1]:.2f} s from 1 s "
+            f"before the walk): 0 failed, 0 stale reads; gf_apply launches "
+            f"by k,r {n['gf_apply_by_kr']}, "
+            f"highwayhash256 {n['highwayhash256']} ({card}; drives on one "
+            "filesystem: every drive reports its free and total bytes, so "
+            "placement and capacity favour the pool with more drives)")
+
+    p = ServerProc([arg1, arg2], extra, device, workers=PL_WORKERS, env=env)
+    try:
+        c = p.client
+        check("pool 1: EC 12+4" in p.line("serving S3 on"),
+              f"the expanded layout: {p.line('serving S3 on')}")
+        ids = {json.load(open(os.path.join(d, ".mtpu.sys",
+                                           "format.json")))["id"]
+               for d in p2}
+        check(ids == {dep}, f"pool 2 formatted under {ids}, not {dep}")
+        wall_read = read_all(c, "expanded")
+        rate2 = rate(c, "two")
+        log(f"pools: restarted with pool 2 (1 x 16, EC 12+4) under "
+            f"deployment {dep}; every key and version read back in "
+            f"{wall_read:.2f} s; 1 KiB PUTs from {PL_CLIENTS} clients: "
+            f"{rate1:.1f} keys/s on 1 pool, {rate2:.1f} on 2 ({card})")
+        rb = walk(c, "rebalance-start", {}, "rebalance-status")
+    finally:
+        n2 = fleet_stop(p)
+        add(n2)
+    objs.update(live_keys)
+    report("rebalance", rb, rb["pools"]["0"], n2)
+
+    p = ServerProc([arg1, arg2], extra, device, workers=PL_WORKERS, env=env)
+    try:
+        dc = walk(p.client, "decommission", {"pool": "0"},
+                  "decommission-status")
+    finally:
+        n3 = fleet_stop(p)
+        add(n3)
+    objs.update(live_keys)
+    report("decommission of pool 1", dc, dc, n3)
+    left = [j for d in p1 for j in journals(d)]
+    check(not left, f"journals left on pool 1: {left[:5]}")
+    k12 = n2["gf_apply_by_kr"].get(f"{PL_K},{PL_M}", 0) + \
+        n3["gf_apply_by_kr"].get(f"{PL_K},{PL_M}", 0)
+    check(k12 > 0, "gf_apply never launched at k = 12")
+
+    # -- 4. pool 2 alone -------------------------------------------------
+    p = ServerProc([arg2], extra, device, workers=PL_WORKERS, env=env)
+    try:
+        wall_read = read_all(p.client, "pool 2 alone")
+    finally:
+        add(fleet_stop(p))
+    log(f"pools: restarted on pool 2 alone: {len(objs)} keys (the live "
+        f"clients' {len(live_keys)} acknowledged ones among them) and "
+        f"{sum(map(len, versions.values()))} versions and markers read "
+        f"back byte for byte with their version ids and ETags in "
+        f"{wall_read:.2f} s")
+
+    # -- 5. the shard files against the plain path -----------------------
+    t0 = time.perf_counter()
+    plain.join(600)
+    wait_plain = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    check(sorted(want_files) == sorted(sample),
+          "the plain shard files were not computed")
+    for key in sample:
+        dist = hash_order(f"g4b/{key}", PL_K + PL_M)
+        for i, d in enumerate(p2):
+            kdir = os.path.join(d, "g4b", key)
+            got = [os.path.join(kdir, s, "part.1") for s in os.listdir(kdir)
+                   if os.path.exists(os.path.join(kdir, s, "part.1"))]
+            check(len(got) == 1 and open(got[0], "rb").read()
+                  == want_files[key][dist[i] - 1],
+                  f"{key}: drive {i}'s shard file differs from the plain "
+                  "path's")
+    log(f"pools: the shard files of {len(sample)} migrated objects "
+        f"({PL_SAMPLE} x 16 MiB and 64 MiB + 1 B) on pool 2's 16 drives "
+        "equal the plain PyTorch path's 12+4 encode and digests on the "
+        f"CPU ({wait_plain:.1f} s waited for it at the end); launches "
+        f"{launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_b5_entry_point(torch):
     """python -m minio_tpu_torch.experiments.rs_i8_kernel, in process."""
     from minio_tpu_torch.experiments import rs_i8_kernel
@@ -2764,6 +3209,44 @@ def phase_times(torch, dev, rng):
                 f"bound ({bms / queued * 100:.2f}% queued)")
         del bufs
         torch.cuda.empty_cache()
+
+    # Pool 2's geometry in phase 4g, EC 12+4: shards of ceil(1 MiB / 12)
+    # = 87,382 B, not a multiple of 16, so the kernel's unvectorized
+    # loads; k = 12 > 8 runs its second group of shard loads.
+    pm12 = gf256.parity_matrix(PL_K, PL_M)
+    l12 = -(-MIB // PL_K)
+    for b, nbuf in ((32, 4), (256, 2)):
+        bufs = [torch.from_numpy(rng.integers(0, 256, size=(b, PL_K, l12),
+                                              dtype=np.uint8)).to(dev)
+                for _ in range(nbuf)]
+
+        def launch(i):
+            return rs_device.gf_apply(pm12, bufs[i % nbuf])
+        ms, queued = timer(launch, 40), timer(launch, 40, queued=True)
+        plain = timer(lambda i: rs_device.gf_apply_plain(pm12, bufs[i % nbuf]),
+                      iters=2, warmup=1)
+        bms, by = bound(b * (PL_K + PL_M) * l12 + PL_M * PL_K * 256,
+                        2 * b * PL_M * PL_K * l12, INT32_OPS_PER_S)
+        log(f"time gf_apply 12+4 parity rows (k = {PL_K}, r = {PL_M}) at "
+            f"{b} x {PL_K} x {l12} B: {ms:.4f} ms ({queued:.4f} ms queued "
+            f"behind a spin kernel), plain {plain:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), {bms / ms * 100:.2f}% of bound "
+            f"({bms / queued * 100:.2f}% queued)")
+        del bufs
+    pool = torch.from_numpy(rng.integers(0, 256, size=(4096, l12),
+                                         dtype=np.uint8)).to(dev)
+    for st in (PL_K + PL_M, 32 * (PL_K + PL_M)):
+        def launch(i, st=st):
+            o = i * st % (4097 - st)
+            return hh_device.hash_rows(pool[o:o + st])
+        ms = timer(launch, iters=20)
+        bms, by = bound(st * l12 + st * 32, 104 * st * (-(-l12 // 32) + 10),
+                        INT32_OPS_PER_S)
+        log(f"time highwayhash256 at {st} streams x {l12} B (12+4 blocks): "
+            f"{ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+            f"{bms / ms * 100:.2f}% of bound")
+    del pool
+    torch.cuda.empty_cache()
 
     # highwayhash256 at 1, 12, 96, 384 and 3,072 streams x 128 KiB. Call i
     # hashes rows [o_i, o_i + S) of a 512 MiB pool, o_i walking the pool,
@@ -2863,6 +3346,9 @@ def main() -> int:
         for done in os.listdir(root):
             shutil.rmtree(os.path.join(root, done), ignore_errors=True)
         fleet = timed("4f", phase_fleet, rng, root)
+        for done in os.listdir(root):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        pools = timed("4g", phase_pools, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed("4 (solo dispatch)", solo_dispatch_ms, torch, rng, conc_stats)
@@ -2870,7 +3356,7 @@ def main() -> int:
     times = timed("6", phase_times, torch, dev, rng)
 
     launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
-                + fleet[k] for k in ("gf_apply", "highwayhash256")}
+                + fleet[k] + pools[k] for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {
         "gf_apply": ("minio_tpu_torch/ops/csrc/gf_apply.cu",

@@ -50,6 +50,7 @@ import zlib
 from contextlib import contextmanager
 
 from minio_tpu_torch.object.nslock import LockTimeout, NSLockMap
+from minio_tpu_torch.object.pools import layer_sets
 
 _NS_STRIPES = 128
 _READY_TIMEOUT = 180.0          # worker 0's boot: self-tests on its card
@@ -311,10 +312,17 @@ class WorkerContext:
         server.admission = server.admission.divided(self.total)
         shared = os.path.join(server.drives[0].root, ".mtpu.sys", "workers")
         list_path = os.path.join(shared, "list.gen")
-        _wire_set(server.objects, shared, SharedGen(list_path),
-                  SharedGen(os.path.join(shared, "meta.gen"),
-                            poll_interval=0.25))
+        # Every set of every pool, each with observers of its own:
+        # changed() is stateful per observer, and one shared among sets
+        # would let the first set's check hide a bump from the rest.
+        for s in layer_sets(server.objects):
+            _wire_set(s, shared, SharedGen(list_path),
+                      SharedGen(os.path.join(shared, "meta.gen"),
+                                poll_interval=0.25))
         server.hot_cache.shared_gen = SharedGen(list_path)
+        # A drain started in one worker leaves placement in all.
+        server.objects.decom_gen = SharedGen(
+            os.path.join(shared, "decom.gen"))
 
         def drain(signum, frame):
             signal.signal(signal.SIGTERM, signal.SIG_IGN)

@@ -79,6 +79,7 @@ identical to the TPU package's for the same objects.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import functools
 import hashlib
 import heapq
@@ -308,6 +309,11 @@ def _reconstruct_batcher_for(k: int, m: int, use: tuple, missing: tuple,
         concat_fn=lambda a, b: np.concatenate([a, b]))
 
 
+def _first(errors: list):
+    """The first drive error of a fan-out, for a quorum error's text."""
+    return next((e for e in errors if e is not None), None)
+
+
 def _quiet(fn) -> None:
     try:
         fn()
@@ -339,6 +345,30 @@ def hash_order(key: str, cardinality: int) -> list[int]:
         return []
     start = zlib.crc32(key.encode()) % cardinality
     return [1 + (start + i) % cardinality for i in range(cardinality)]
+
+
+def object_info(bucket: str, object_: str, fi: FileInfo) -> ObjectInfo:
+    """A version's FileInfo as the object layer answers it."""
+    meta = dict(fi.metadata)
+    etag = meta.pop("etag", "")
+    ctype = meta.pop("content-type", "")
+    internal = {k: meta.pop(k) for k in list(meta)
+                if k.startswith("x-internal-")}
+    return ObjectInfo(bucket=bucket, name=object_, mod_time=fi.mod_time,
+                      size=fi.size, etag=etag, content_type=ctype,
+                      version_id=fi.version_id, is_latest=fi.is_latest,
+                      delete_marker=fi.deleted, user_metadata=meta,
+                      internal_metadata=internal, parts=list(fi.parts))
+
+
+def versioning_state_of(meta: dict) -> str:
+    """A bucket metadata record's versioning state: "" (never enabled),
+    "Enabled" or "Suspended" (minio_tpu/s3/server.py `_versioning_state`)."""
+    if meta.get("versioning"):
+        return "Enabled"
+    if meta.get("versioning-suspended"):
+        return "Suspended"
+    return ""
 
 
 class ErasureSet:
@@ -655,14 +685,7 @@ class ErasureSet:
         return bool(self.get_bucket_meta(bucket).get("versioning"))
 
     def versioning_state(self, bucket: str) -> str:
-        """"" (never enabled), "Enabled" or "Suspended"
-        (minio_tpu/s3/server.py `_versioning_state`)."""
-        meta = self.get_bucket_meta(bucket)
-        if meta.get("versioning"):
-            return "Enabled"
-        if meta.get("versioning-suspended"):
-            return "Suspended"
-        return ""
+        return versioning_state_of(self.get_bucket_meta(bucket))
 
     def set_bucket_versioning(self, bucket: str, status) -> None:
         """status: True or "Enabled", "Suspended", or False (off). A
@@ -1051,7 +1074,7 @@ class ErasureSet:
             raise stream_error
         if n - sum(dead) < write_quorum:
             raise WriteQuorumError("", "", f"{sum(dead)}/{n} shard writers "
-                                   "failed")
+                                   f"failed, first {_first(errors)!r}")
         return md5.hexdigest()
 
     def _write_one_window(self, payload: Payload, e: Erasure,
@@ -1084,7 +1107,7 @@ class ErasureSet:
         failed = sum(err is not None for err in errors)
         if n - failed < write_quorum:
             raise WriteQuorumError("", "", f"{failed}/{n} shard writers "
-                                   "failed")
+                                   f"failed, first {_first(errors)!r}")
         return etag
 
     # ------------------------------------------------------------------
@@ -1189,25 +1212,12 @@ class ErasureSet:
                                  version_id=fi.version_id or "null")
         return fi, fis, errors
 
-    @staticmethod
-    def _to_info(bucket: str, object_: str, fi: FileInfo) -> ObjectInfo:
-        meta = dict(fi.metadata)
-        etag = meta.pop("etag", "")
-        ctype = meta.pop("content-type", "")
-        internal = {k: meta.pop(k) for k in list(meta)
-                    if k.startswith("x-internal-")}
-        return ObjectInfo(bucket=bucket, name=object_, mod_time=fi.mod_time,
-                          size=fi.size, etag=etag, content_type=ctype,
-                          version_id=fi.version_id, is_latest=fi.is_latest,
-                          delete_marker=fi.deleted, user_metadata=meta,
-                          internal_metadata=internal, parts=list(fi.parts))
-
     def get_object_info(self, bucket: str, object_: str,
                         opts: Optional[GetOptions] = None) -> ObjectInfo:
         opts = opts or GetOptions()
         fi, _, _ = self._read_fileinfo(bucket, object_, False,
                                        opts.version_id, stat_only=True)
-        return self._to_info(bucket, object_, fi)
+        return object_info(bucket, object_, fi)
 
     # ------------------------------------------------------------------
     # GetObject
@@ -1322,7 +1332,7 @@ class ErasureSet:
                 cm.__exit__(None, None, None)
         g = gen()
         next(g)
-        return self._to_info(bucket, object_, fi), g
+        return object_info(bucket, object_, fi), g
 
     @staticmethod
     def _window_descs(fi: FileInfo, offset: int, end: int) -> list[tuple]:
@@ -1584,28 +1594,35 @@ class ErasureSet:
 
     def delete_object(self, bucket: str, object_: str,
                       opts: Optional[DeleteOptions] = None) -> DeletedObject:
-        """minio_tpu/object/erasure_object.py `_delete_object_locked`
-        (reference DeleteObject, cmd/erasure-object.go): with no version
+        """minio_tpu/object/erasure_object.py `delete_object` (reference
+        DeleteObject, cmd/erasure-object.go): `_delete_object_locked`
+        under the key's write lock."""
+        opts = opts or DeleteOptions()
+        self._check_bucket(bucket)
+        with self.ns.write(bucket, object_):
+            return self._delete_object_locked(bucket, object_, opts)
+
+    def _delete_object_locked(self, bucket: str, object_: str,
+                              opts: DeleteOptions) -> DeletedObject:
+        """The delete, for a caller holding the key's write lock (a pool
+        migration's clean-up, object/decom.migrate_key): with no version
         named, a versioned bucket gets a delete marker and a suspended
         one a null marker that replaces the null version; otherwise the
         named (or null) version is removed. Write quorum is a majority
         of the set, and a drive that no longer holds the version counts
         as done; when some drive missed the removal the key goes on the
         MRF, so no stale copy can bring the version back."""
-        opts = opts or DeleteOptions()
-        self._check_bucket(bucket)
         n = len(self.disks)
         write_quorum = n // 2 + 1
-        with self.ns.write(bucket, object_):
-            if (opts.versioned or opts.null_marker) and not opts.version_id:
-                return self._write_delete_marker(bucket, object_, opts)
-            try:
-                _, errors = self._fanout([
-                    lambda d=d: d.delete_version(bucket, object_,
-                                                 opts.version_id)
-                    for d in self.disks])
-            finally:
-                self.metacache.bump(bucket)
+        if (opts.versioned or opts.null_marker) and not opts.version_id:
+            return self._write_delete_marker(bucket, object_, opts)
+        try:
+            _, errors = self._fanout([
+                lambda d=d: d.delete_version(bucket, object_,
+                                             opts.version_id)
+                for d in self.disks])
+        finally:
+            self.metacache.bump(bucket)
         ok = sum(e is None for e in errors)
         missing = sum(isinstance(e, (FileNotFoundErr, VersionNotFoundErr))
                       for e in errors)
@@ -1870,7 +1887,7 @@ class ErasureSet:
                     info.next_marker = last_added
                     complete = True
                     break
-                info.objects += [self._to_info(bucket, path, v) for v in
+                info.objects += [object_info(bucket, path, v) for v in
                                  (fis if include_versions else fis[:1])]
                 last_added = path
             if complete or done:
@@ -1890,6 +1907,118 @@ class ErasureSet:
             # Not deep enough to fill the page yet (collapsing can use
             # many entries a prefix): wait for more.
             need *= 2
+
+    # ------------------------------------------------------------------
+    # pool migrations
+    # ------------------------------------------------------------------
+
+    def restore_version(self, bucket: str, object_: str, src_fi: FileInfo,
+                        data, skip_if_newer_null: bool = False) -> None:
+        """Write one version copied from another erasure set into this
+        set's geometry: the transfer primitive of a pool decommission or
+        rebalance (minio_tpu/object/erasure_object.py `restore_version`;
+        reference decommissionObject, cmd/erasure-server-pool-decom.go).
+
+        `src_fi` keeps its version id, mod time, metadata (the ETag
+        among it) and part boundaries verbatim; `data` (None for a delete
+        marker or a version whose data lives in a warm tier) is the
+        whole stored byte stream, re-encoded here at this
+        set's (k, m): each part streams through the PUT framer into its
+        own `part.N` data file, as the JAX package writes it (never
+        inline), and the version commits under the key's lock. With
+        `skip_if_newer_null`, a null version already here at least as
+        new as the one restored wins (one null slot a key: restoring an
+        old null over a newer one would lose an acknowledged write)."""
+        self._check_bucket(bucket)
+        n = len(self.disks)
+
+        def newer_null_exists() -> bool:
+            if not skip_if_newer_null or src_fi.version_id:
+                return False
+            try:
+                return any(v.version_id == "" and
+                           v.mod_time >= src_fi.mod_time
+                           for v in self.list_versions_all(bucket, object_))
+            except ObjectNotFound:
+                return False
+
+        if src_fi.deleted or data is None:
+            # A delete marker, or a version whose data lives in a warm
+            # tier: its metadata alone moves.
+            fi = FileInfo(volume=bucket, name=object_,
+                          version_id=src_fi.version_id,
+                          deleted=src_fi.deleted, mod_time=src_fi.mod_time)
+            if not src_fi.deleted:
+                fi.size = src_fi.size
+                fi.metadata = dict(src_fi.metadata)
+                fi.parts = [dataclasses.replace(p) for p in src_fi.parts]
+            with self.ns.write(bucket, object_):
+                if newer_null_exists():
+                    return
+                _, errors = self._fanout(
+                    [lambda d=d: d.write_metadata(bucket, object_, fi)
+                     for d in self.disks])
+            self.metacache.bump(bucket)
+            if sum(e is None for e in errors) < n // 2 + 1:
+                raise WriteQuorumError(bucket, object_)
+            return
+        m = self.default_parity
+        k = n - m
+        write_quorum = k + (1 if k == m else 0)
+        distribution = hash_order(f"{bucket}/{object_}", n)
+        e = Erasure(k, m, BLOCK_SIZE, backend=self.backend)
+        parts = list(src_fi.parts) or [
+            ObjectPartInfo(number=1, size=len(data), actual_size=len(data))]
+        data_dir = new_uuid()
+        staging = f"{STAGING_PREFIX}/p{os.getpid()}-{new_uuid()}"
+        errors: list = [None] * n
+        view = memoryview(data)
+        try:
+            off = 0
+            for p in parts:
+                self._stream_framed_writes(
+                    Payload.wrap(view[off:off + p.size]), e, distribution,
+                    f"{staging}/{data_dir}/part.{p.number}", write_quorum,
+                    errors)
+                off += p.size
+
+            def staged_fi(i: int) -> FileInfo:
+                return FileInfo(
+                    volume=bucket, name=object_,
+                    version_id=src_fi.version_id, data_dir=data_dir,
+                    mod_time=src_fi.mod_time, size=src_fi.size,
+                    metadata=dict(src_fi.metadata),
+                    parts=[dataclasses.replace(p) for p in parts],
+                    erasure=ErasureInfo(
+                        data_blocks=k, parity_blocks=m,
+                        block_size=BLOCK_SIZE,
+                        index=distribution[i], distribution=tuple(
+                            distribution)))
+            with self.ns.write(bucket, object_):
+                if newer_null_exists():
+                    return
+                _, cerrs = self._fanout([
+                    (lambda i=i: self.disks[i].rename_data(
+                        SYS_VOL, staging, staged_fi(i), bucket, object_))
+                    if errors[i] is None else None for i in range(n)])
+                for i, err in enumerate(cerrs):
+                    errors[i] = errors[i] or err
+                ok = sum(err is None for err in errors)
+                if ok < write_quorum:
+                    self._fanout([lambda d=d: d.delete_version(
+                        bucket, object_, src_fi.version_id)
+                        if err is None else None
+                        for d, err in zip(self.disks, errors)])
+            self.metacache.bump(bucket)
+        finally:
+            self._fanout([functools.partial(_quiet, functools.partial(
+                d.delete, SYS_VOL, staging, recursive=True))
+                for d in self.disks])
+        if ok < write_quorum:
+            raise WriteQuorumError(bucket, object_,
+                                   f"restored {ok}/{n}, need {write_quorum}")
+        if ok < n:
+            self.mrf.enqueue(bucket, object_, src_fi.version_id)
 
     def list_versions_all(self, bucket: str, object_: str) -> list[FileInfo]:
         """Every version of one key, latest first, from the first drive

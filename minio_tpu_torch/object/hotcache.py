@@ -49,6 +49,7 @@ from collections import OrderedDict
 from typing import Any, Optional
 
 from minio_tpu_torch.object.fi_cache import cache_enabled
+from minio_tpu_torch.object.pools import layer_sets
 
 
 def _env_int(key: str, default: int) -> int:
@@ -210,9 +211,11 @@ class HotObjectCache:
         self.invalidations = 0
 
     def attach_layer(self, layer: Any) -> None:
-        """Front the given erasure set: subscribe to its metacache bump
-        funnel, so every mutation of a bucket drops its entries."""
-        layer.metacache.listeners.append(self.invalidate_bucket)
+        """Front the given object layer: subscribe to the metacache bump
+        funnel of every set of every pool, so every mutation of a bucket
+        (a pool migration's included) drops its entries."""
+        for s in layer_sets(layer):
+            s.metacache.listeners.append(self.invalidate_bucket)
 
     def maybe_flush(self) -> None:
         """Flush wholesale when a sibling worker process bumped the
@@ -295,9 +298,10 @@ class HotObjectCache:
     def put(self, bucket: str, object_: str, info: Any, body: bytes,
             head: Optional[bytes], token: int) -> bool:
         """Insert a served object. Refused when the bucket generation
-        moved since token()."""
+        moved since token(), a sibling's bump included."""
         if not self.enabled or len(body) > self.obj_max:
             return False
+        self.maybe_flush()
         with self._mu:
             if self._gens.get(bucket, 0) != token:
                 return False

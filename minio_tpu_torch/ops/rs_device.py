@@ -36,20 +36,23 @@ from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.ops import _build, gf256
 
 # Kernel launches since the last reset (plain-version calls never count),
-# in all and by the number of matrix rows r (r = 1: the rebuild of one
-# lost shard, as a replaced drive's bulk heal launches it).
+# in all, by the number of matrix rows r (r = 1: the rebuild of one
+# lost shard, as a replaced drive's bulk heal launches it) and by the
+# geometry (k, r) (k = 12: a 16-drive set's EC 12+4).
 LAUNCHES = 0
 LAUNCHES_BY_R: dict[int, int] = {}
+LAUNCHES_BY_KR: dict[tuple, int] = {}
 _count_lock = threading.Lock()
 
 _MAX_BATCH = 65535          # grid.y limit of the kernel launch
 
 
-def _count(r: int) -> None:
+def _count(k: int, r: int) -> None:
     global LAUNCHES
     with _count_lock:
         LAUNCHES += 1
         LAUNCHES_BY_R[r] = LAUNCHES_BY_R.get(r, 0) + 1
+        LAUNCHES_BY_KR[k, r] = LAUNCHES_BY_KR.get((k, r), 0) + 1
 
 
 @functools.lru_cache(maxsize=1)
@@ -182,7 +185,7 @@ def gf_apply(matrix, data: torch.Tensor,
                    out.data_ptr(), out.stride(0), b, length, int(vec),
                    stream)
     _build.check(rc, "gf_apply launch")
-    _count(r)
+    _count(k, r)
     return out
 
 

@@ -1,4 +1,7 @@
-"""A minimal S3 front end over one ErasureSet.
+"""A minimal S3 front end over the object layer.
+
+The layer is object/pools.ServerPools (pools of erasure sets, as the
+server boots it), or one pool's ErasureSets, or a lone ErasureSet.
 
 `http.server.ThreadingHTTPServer`, one thread per connection, HTTP/1.1
 keep-alive. It serves PUT/HEAD/DELETE bucket and PUT/GET/HEAD/DELETE
@@ -30,13 +33,19 @@ uploads a part (streamed and checked as an object PUT is), `POST
 ?uploadId` completes from the XML part list, `DELETE ?uploadId` aborts,
 `GET ?uploadId` lists the parts and `GET /<bucket>?uploads` the uploads.
 The admin heal, `POST /minio/admin/v3/heal[?deep=true]`, starts a sweep of
-the set (object/scanner.heal_set) in the background and `GET` on the same
-path polls it, with the bulk heals of replaced drives under `drive_heal`;
-both are SigV4-signed by the root credential. The health probes are not
-signed: `/minio/health/live` answers 200 while the server serves, and
-`/minio/health/ready` 200, or 503 with the set's `degraded_sets` entry
-(drives online, write quorum, healing drives) while fewer drives answer
-than write quorum or a replaced drive is still being refilled.
+every set (object/scanner.heal_set) in the background and `GET` on the
+same path polls it, with the bulk heals of replaced drives under
+`drive_heal`. The pool verbs of minio_tpu/s3/server.py drive
+object/decom.py and object/rebalance.py: `POST decommission?pool=N`,
+`GET decommission-status`, `POST decommission-cancel`, `POST
+rebalance-start`, `GET rebalance-status`, `POST rebalance-stop` (400
+InvalidArgument for a refused start, 501 on a layer of one pool). All
+admin calls are SigV4-signed by the root credential. The health probes
+are not signed: `/minio/health/live` answers 200 while the server
+serves, and `/minio/health/ready` 200, or 503 with one `degraded_sets`
+entry (set, drives online, write quorum, healing drives) for each set
+where fewer drives answer than its write quorum or a replaced drive is
+still being refilled.
 
 The bucket namespace, as minio_tpu/s3/server.py serves it: `GET /` lists
 the buckets; `GET /<bucket>` is ListObjects V1, or V2 with
@@ -81,9 +90,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from xml.sax.saxutils import escape
 
 from minio_tpu_torch.object import types as ot
-from minio_tpu_torch.object.erasure_object import _resolve_range
+from minio_tpu_torch.object.decom import DecomError
+from minio_tpu_torch.object.erasure_object import _resolve_range, object_info
 from minio_tpu_torch.object.hotcache import HotObjectCache
 from minio_tpu_torch.object.nslock import LockTimeout
+from minio_tpu_torch.object.pools import layer_sets
+from minio_tpu_torch.object.rebalance import RebalanceError
 from minio_tpu_torch.s3 import checksum as ck
 from minio_tpu_torch.s3 import sigv4
 from minio_tpu_torch.s3.admission import (AdmissionController, AdmissionShed,
@@ -253,7 +265,7 @@ class _ReusePortHTTPServer(_HTTPServer):
 
 
 class S3Server:
-    """S3 over HTTP for one object layer (an ErasureSet). With
+    """S3 over HTTP for one object layer (see the module docstring). With
     MTPU_REUSE_PORT=1, which the pre-forked fleet sets in each worker,
     it binds its address in an SO_REUSEPORT group."""
 
@@ -281,7 +293,7 @@ class S3Server:
         self._inflight = 0
         self._inflight_mu = threading.Lock()
         # Hot-object read tier (object/hotcache.py), invalidated through
-        # the set's bump funnel; MTPU_HOT_CACHE=off disables it.
+        # every set's bump funnel; MTPU_HOT_CACHE=off disables it.
         self.hot_cache = HotObjectCache()
         self.hot_cache.attach_layer(objects)
         self._thread: threading.Thread | None = None
@@ -344,33 +356,41 @@ class S3Server:
 
     def readiness(self) -> tuple[int, dict]:
         """/minio/health/ready (minio_tpu/s3/server.py `_health_ready`;
-        reference ClusterCheckHandler): 503 naming the set when fewer
-        drives answer than its write quorum or a drive is still healing
-        (a replaced drive's bulk heal), else 200."""
-        es = self.objects
-        infos, _ = es._fanout([d.disk_info for d in es.disks])
-        ok = sum(di is not None for di in infos)
-        healing = sum(di is not None and di.healing for di in infos)
-        n = len(es.disks)
-        parity = es.default_parity
-        k = n - parity
-        write_quorum = max(k + (1 if k == parity else 0),
-                           n // 2 + (1 if n > 1 else 0))
-        if ok < write_quorum or healing:
-            return 503, {"ready": False, "degraded_sets": [{
-                "set": 0, "drives_online": ok, "drives": n,
-                "write_quorum": write_quorum, "healing_drives": healing}]}
+        reference ClusterCheckHandler): 503 with an entry for each set
+        (numbered across pools) where fewer drives answer than its write
+        quorum or a drive is still healing (a replaced drive's bulk
+        heal), else 200."""
+        degraded = []
+        for si, es in enumerate(layer_sets(self.objects)):
+            infos, _ = es._fanout([d.disk_info for d in es.disks])
+            ok = sum(di is not None for di in infos)
+            healing = sum(di is not None and di.healing for di in infos)
+            n = len(es.disks)
+            parity = es.default_parity
+            k = n - parity
+            write_quorum = max(k + (1 if k == parity else 0),
+                               n // 2 + (1 if n > 1 else 0))
+            if ok < write_quorum or healing:
+                degraded.append({
+                    "set": si, "drives_online": ok, "drives": n,
+                    "write_quorum": write_quorum, "healing_drives": healing})
+        if degraded:
+            return 503, {"ready": False, "degraded_sets": degraded}
         return 200, {"ready": True}
 
     def start_heal(self, deep: bool) -> dict:
-        """Start a heal sweep of the set in the background unless one is
-        running (minio_tpu/s3/server.py `_admin_heal`); its status."""
+        """Start a heal sweep of every set in the background unless one
+        is running (minio_tpu/s3/server.py `_admin_heal`); its status:
+        the sets' counts summed."""
         from minio_tpu_torch.object.scanner import heal_set
 
         def run():
             try:
-                self.heal_status = {"state": "done", "deep": deep,
-                                    **heal_set(self.objects, deep=deep)}
+                total: dict = {}
+                for es in layer_sets(self.objects):
+                    for k, v in heal_set(es, deep=deep).items():
+                        total[k] = total.get(k, 0) + v
+                self.heal_status = {"state": "done", "deep": deep, **total}
             except Exception as e:  # noqa: BLE001 - surfaced in the status
                 self.heal_status = {"state": "failed", "deep": deep,
                                     "error": str(e)[:300]}
@@ -772,8 +792,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._send(200, {"Location": f"/{bucket}"})
 
     def _head_bucket(self, bucket, _key, _body, _headers):
-        if not self.s3.objects.bucket_exists(bucket):
-            raise ot.BucketNotFound(bucket)
+        self._check_bucket(bucket)
         self._send(200, {})
 
     def _delete_bucket(self, bucket, _key, _body, _headers):
@@ -861,7 +880,7 @@ class _Handler(BaseHTTPRequestHandler):
             emit = False
             for v in versions:                   # latest first
                 if emit:
-                    entries.append(objects._to_info(bucket, key_marker, v))
+                    entries.append(object_info(bucket, key_marker, v))
                 elif (v.version_id or "null") == vid_marker:
                     emit = True
         info = objects.list_objects(bucket, prefix=prefix, marker=key_marker,
@@ -897,8 +916,12 @@ class _Handler(BaseHTTPRequestHandler):
             _el(_el(root, "CommonPrefixes"), "Prefix", p)
         self._send_xml(root)
 
+    def _check_bucket(self, bucket):
+        if not self.s3.objects.bucket_exists(bucket):
+            raise ot.BucketNotFound(bucket)
+
     def _get_versioning(self, bucket):
-        self.s3.objects._check_bucket(bucket)
+        self._check_bucket(bucket)
         root = ET.Element("VersioningConfiguration", xmlns=XMLNS)
         state = self.s3.objects.versioning_state(bucket)
         if state:
@@ -906,7 +929,7 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_xml(root)
 
     def _put_versioning(self, bucket, body):
-        self.s3.objects._check_bucket(bucket)
+        self._check_bucket(bucket)
         try:
             tree = ET.fromstring(body)
         except ET.ParseError:
@@ -985,9 +1008,23 @@ class _Handler(BaseHTTPRequestHandler):
 
     # -- admin ------------------------------------------------------------
 
+    # The pool verbs (minio_tpu/s3/server.py `_admin_op`): (method, op)
+    # -> the object layer's call.
+    _POOL_VERBS = {
+        ("POST", "decommission"): "start_decommission",
+        ("GET", "decommission-status"): "decommission_status",
+        ("POST", "decommission-cancel"): "cancel_decommission",
+        ("POST", "rebalance-start"): "start_rebalance",
+        ("GET", "rebalance-status"): "rebalance_status",
+        ("POST", "rebalance-stop"): "stop_rebalance",
+    }
+
     def _admin(self, method: str, op: str) -> None:
-        """The admin API's heal (minio_tpu/s3/server.py `_admin_op`): POST
-        starts a sweep, GET polls it."""
+        """The admin API (minio_tpu/s3/server.py `_admin_op`): the heal
+        (POST starts a sweep, GET polls it) and the pool verbs."""
+        verb = self._POOL_VERBS.get((method, op))
+        if verb is not None:
+            return self._admin_pools(verb)
         if op != "heal" or method not in ("POST", "GET"):
             raise S3Error("NotImplemented", f"admin {method} {op}")
         if method == "POST":
@@ -1001,6 +1038,22 @@ class _Handler(BaseHTTPRequestHandler):
                 status["drive_heal"] = self.s3.drive_heal.status()
         self._send(200, {"Content-Type": "application/json"},
                    json.dumps(status).encode())
+
+    def _admin_pools(self, verb: str) -> None:
+        """A decommission or rebalance verb: a start answers 200 once
+        its walk runs (400 InvalidArgument when refused), a status the
+        walk's state as JSON (an empty body before any), a stop 200."""
+        fn = getattr(self.s3.objects, verb, None)
+        if fn is None:
+            raise S3Error("NotImplemented", "a layout of one pool")
+        try:
+            result = fn(int(self._q("pool", "-1"))) \
+                if verb == "start_decommission" else fn()
+        except (DecomError, RebalanceError, ValueError) as e:
+            raise S3Error("InvalidArgument", str(e)) from None
+        body = json.dumps(result).encode() \
+            if verb.endswith("_status") and result is not None else b""
+        self._send(200, {"Content-Type": "application/json"}, body)
 
     # -- multipart --------------------------------------------------------
 

@@ -510,8 +510,18 @@ class LocalStorage:
         """Write (or with append=True, extend) a shard file from an
         iterable of bytes-like chunks; fdatasync when `sync`."""
         dest = self._obj_dir(volume, path)
-        os.makedirs(os.path.dirname(dest), exist_ok=True)
-        with open(dest, "ab" if append else "wb") as f:
+        for attempt in range(3):
+            try:
+                os.makedirs(os.path.dirname(dest), exist_ok=True)
+                f = open(dest, "ab" if append else "wb")
+                break
+            except FileNotFoundError:
+                # A concurrent delete pruned an empty parent between the
+                # two (another request's staging dir went, and with it
+                # the empty staging root): make the path again.
+                if attempt == 2:
+                    raise
+        with f:
             for c in chunks:
                 f.write(c)
             f.flush()

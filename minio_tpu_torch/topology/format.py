@@ -8,8 +8,9 @@ quorum-compared and the drives ordered into their format positions, so
 shuffled command-line arguments cannot scramble shard placement; a fresh
 drive is adopted into the slot of a missing UUID and marked healing (a
 replaced drive), and a drive carrying a foreign identity is refused.
-The port's server keeps one set of all its drives, so it writes a
-one-set layout; pools and multi-set layouts are not ported yet.
+The server boots each pool apart: its layout is that pool's sets (a
+matrix of set size columns), and a pool formatted fresh beside an
+existing one takes that pool's deployment id (`boot`'s deployment_id).
 """
 
 from __future__ import annotations

@@ -51,7 +51,7 @@ def servers(tmp_path_factory):
     root = tmp_path_factory.mktemp("s3copy")
     port = server.boot(["--device", "cpu", "--address", "127.0.0.1:0",
                         *[str(root / "p" / f"d{i}") for i in range(12)]])
-    port.objects._mrf_closed = True
+    port.objects.sets[0]._mrf_closed = True
     thread = threading.Thread(target=port.serve_forever, daemon=True)
     thread.start()
     ref = S3Server(ErasureSet([LocalStorage(str(root / "r" / f"d{i}"))

@@ -155,11 +155,11 @@ def test_server_boots_with_slot_zero_refused(tmp_path):
                 tmp_path / "d0" / SYS_VOL / "format.json")
     srv = server.boot(["--device", "cpu", "--address", "127.0.0.1:0",
                        "--scanner-interval", "0", *drives])
-    srv.objects._mrf_closed = True
+    srv.objects.sets[0]._mrf_closed = True
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     try:
-        es = srv.objects
+        es = srv.objects.sets[0]
         assert isinstance(es.disks[0], OfflineDisk)
         assert es.metacache.persist_drive.root == \
             os.path.abspath(drives[1])

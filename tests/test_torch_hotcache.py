@@ -137,7 +137,7 @@ def _boot(root, monkeypatch, hot: str):
     srv = server.boot(["--device", "cpu", "--address", "127.0.0.1:0",
                        "--scanner-interval", "0",
                        *[str(root / f"d{i}") for i in range(4)]])
-    srv.objects._mrf_closed = True
+    srv.objects.sets[0]._mrf_closed = True
     srv.start()
     return srv
 

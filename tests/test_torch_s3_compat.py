@@ -72,7 +72,7 @@ def servers(tmp_path_factory):
     # which a scanner cycle in between would heal over.
     port = server.boot(["--device", "cpu", "--address", "127.0.0.1:0",
                         "--scanner-interval", "0", *drives])
-    port.objects._mrf_closed = True
+    port.objects.sets[0]._mrf_closed = True
     thread = threading.Thread(target=port.serve_forever, daemon=True)
     thread.start()
     ref = S3Server(ErasureSet([LocalStorage(str(root / "ref" / f"d{i}"))

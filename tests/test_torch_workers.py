@@ -22,6 +22,7 @@ a SIGKILLed worker respawned, and SIGTERM draining every worker to exit
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import signal
@@ -208,7 +209,8 @@ class Fleet:
             argv, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, start_new_session=True)
         self.lines: list[str] = []
-        threading.Thread(target=self._read, daemon=True).start()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
 
     def _read(self) -> None:
         for line in self.proc.stdout:
@@ -501,7 +503,7 @@ def test_fleet_lifecycle_admission_respawn_drain(tmp_path):
 
         fl.proc.send_signal(signal.SIGTERM)
         assert fl.proc.wait(timeout=30) == 0
-        time.sleep(0.2)
+        fl.reader.join(10)              # every line the fleet printed
         done = [ln for ln in fl.lines
                 if re.match(r"worker \d kernel launches while serving: ", ln)]
         assert sorted(ln.split()[1] for ln in done) == ["0", "1"], fl.lines
@@ -510,3 +512,61 @@ def test_fleet_lifecycle_admission_respawn_drain(tmp_path):
                                                CLEAN_SHUTDOWN_FILE)), d
     finally:
         fl.kill()
+
+
+def test_fleet_pools_background_by_set_and_migration_coherence(tmp_path):
+    """Two workers over three sets (pool 0: 8 drives in sets of 4, pool
+    1: 4 drives): worker 0 scans sets 0 and 2, worker 1 set 1. A key
+    both workers have read (and cached) is decommissioned out of pool 0
+    by whichever worker takes the admin call: every later read on fresh
+    connections returns its bytes, an overwrite lands in pool 1 and is
+    what every worker then serves, and a delete is seen by both."""
+    port = _free_port()
+    fl = Fleet([sys.executable, "-c", PORT_MAIN, "--device", "cpu",
+                "--address", f"127.0.0.1:{port}", "--scanner-interval", "0",
+                "--set-size", "4", str(tmp_path / "d{1...8}"),
+                str(tmp_path / "e{1...4}")],
+               dict(os.environ, PYTHONPATH=str(REPO), MTPU_HTTP_WORKERS="2"),
+               port)
+    try:
+        fl.wait_for(lambda: len(fl.serving()) == 2, "the fleet did not boot")
+        fl.wait_live()
+        scanning = {int(m.group(1)): int(m.group(2)) for ln in fl.lines
+                    for m in [re.search(r"worker (\d+) of 2, pid \d+, "
+                                        r"scanning (\d+) sets", ln)] if m}
+        assert scanning == {0: 2, 1: 1}, fl.lines
+        addr = fl.address
+
+        def get(key: str) -> list:
+            return [S3Client(addr).request("GET", f"/mig/{key}")[::2]
+                    for _ in range(8)]
+        assert S3Client(addr).request("PUT", "/mig")[0] == 200
+        old, new = os.urandom(2000), os.urandom(3000)
+        assert S3Client(addr).request("PUT", "/mig/k", body=old)[0] == 200
+        assert get("k") == [(200, old)] * 8
+        pool0 = [tmp_path / f"d{i}" for i in range(1, 9)]
+        assert any((d / "mig" / "k").exists() for d in pool0)
+
+        assert S3Client(addr).request(
+            "POST", "/minio/admin/v3/decommission",
+            query={"pool": "0"})[0] == 200
+        deadline = time.monotonic() + 60
+        while True:
+            st, _, body = S3Client(addr).request(
+                "GET", "/minio/admin/v3/decommission-status")
+            doc = json.loads(body) if body else {}
+            if st == 200 and doc.get("status") == "complete":
+                break
+            assert time.monotonic() < deadline, (st, body)
+            time.sleep(0.1)
+        assert doc["migrated"] == 1 and doc["failed"] == 0
+        assert not any((d / "mig" / "k").exists() for d in pool0)
+        assert get("k") == [(200, old)] * 8
+        assert S3Client(addr).request("PUT", "/mig/k", body=new)[0] == 200
+        assert get("k") == [(200, new)] * 8
+        assert not any((d / "mig" / "k").exists() for d in pool0)
+        assert S3Client(addr).request("DELETE", "/mig/k")[0] == 204
+        assert [st for st, _ in get("k")] == [404] * 8
+    finally:
+        fl.kill()
+
