@@ -84,8 +84,8 @@ and prints no result line):
    heal_object of each copy finding every shard good; an UploadPartCopy
    upload of the first 64 MiB, 40 MiB across two 32 MiB windows and the
    last 5 MiB + 777 B of the single-part object beside an uploaded 5 MiB
-   part, exact. 16 clients PUT 5,000 keys of 1 KiB
-   (dir00..49/obj000..099) into an unversioned bucket, their commits
+   part, exact. 16 clients PUT 3,000 keys of 1 KiB
+   (dir00..49/obj000..059) into an unversioned bucket, their commits
    coalescing in the group-commit lanes (at least one batch of 2 or
    more members, no demotion, no deadline cull; batches, members a
    batch, solo bypasses, demotions and fsyncs saved printed);
@@ -96,10 +96,10 @@ and prints no result line):
    dir07/, and ListObjectVersions of the versioned bucket in pages of 2
    equal what was written; the metacache stats and the journal-summary
    counters are printed. The deep listing again with one drive away,
-   and after 3 drives missed a DeleteObjects of 1000 keys it lists none
-   of them (each of these listings bumps the bucket first: drives moved
-   by hand are no mutation the set sees, and a fresh walk meets the
-   next rotation of walked drives). DeleteBucket refuses both buckets
+   and after 3 drives missed a DeleteObjects of a tenth of the keys it
+   lists none of them (each of these listings bumps the bucket first:
+   drives moved by hand are no mutation the set sees, and a fresh walk
+   meets the next rotation of walked drives). DeleteBucket refuses both buckets
    (409) until every version, marker and key is deleted; then no file
    of theirs is left on any drive. MiB/s of the versioned PUTs, GETs by
    version id and copies, keys/s of the PUTs, the deep listing (first
@@ -172,8 +172,8 @@ and prints no result line):
 4g. Pools of erasure sets: `python -m minio_tpu_torch.server` with
    MTPU_HTTP_WORKERS=2, both caches on and MTPU_REBALANCE_WORKERS=4, on
    `ROOT/p1/d{1...24}`: one pool of 2 sets x 12 at EC 8+4. 16 clients
-   load 48 objects of 16 MiB (4e's size), 64 MiB + 1 B, a multipart of
-   8 x 8 MiB, 500 keys of 1 KiB, and 100 keys x 3 versions with 50 delete
+   load 24 objects of 16 MiB (4e's size), 64 MiB + 1 B, a multipart of
+   8 x 8 MiB, 50 keys of 1 KiB, and 50 keys x 3 versions with 25 delete
    markers in a versioned bucket; every key's journal must lie on the
    12 drives of the set the port's sip_hash_mod names under the
    deployment id; 16 clients' 1 KiB PUT keys/s. SIGTERM; restarted with
@@ -182,7 +182,7 @@ and prints no result line):
    reads back, and the 1 KiB PUT rate on 2 pools is printed beside the
    one on 1. `rebalance-start` until complete, then (after a restart on
    the same pools) `decommission?pool=0` until complete, each while 16
-   clients overwrite 8 keys each with 1 MiB PUT+GET pairs 0.25 s apart
+   clients overwrite 4 keys each with 1 MiB PUT+GET pairs 0.25 s apart
    and read a preloaded 1 KiB key: 0 failed and 0 stale reads; each
    walk's keys and bytes moved, wall, keys/s and MiB/s, and its server's
    gf_apply launches by (k, r), which must include k = 12. No journal
@@ -193,17 +193,46 @@ and prints no result line):
    the 12+4 encode and digests of the plain PyTorch path on the CPU
    (computed on a thread while the servers run). The phase's drives are
    removed afterwards.
+4h. Four nodes, one set (MinIO's "Deploy MinIO: Multi-Node Multi-Drive",
+   `minio server https://minio{1...4}.example.net:9000/mnt/disk{1...4}/minio`):
+   four `python -m minio_tpu_torch.server` processes on 127.0.0.1
+   (ports P0-P3, grid ports +1000), each given the same 16 explicit
+   http:// endpoints ROOT/h/n<i>/d<j>, boot one set of 16 at EC 12+4;
+   node 0 with MTPU_HTTP_WORKERS=2, the others 1; both caches on (their
+   remote gates keep them empty). 16 clients, client t through node t mod
+   4, load 32 x 16 MiB, 64 MiB + 1 B, a 4 x 8 MiB multipart and 250
+   keys of 1 KiB; every key is read back through the node after its
+   writer: 0 lost, 0 differing. 16 clients overwrite 8 keys of 64 KiB
+   through all four nodes for 10 s: each key then reads as one whole
+   written body, the same from every node. Node 3 is SIGKILLed under 16
+   clients' paced 1 MiB PUT+GET pairs on nodes 0-2: no request fails;
+   the pairs' p50/p99 before and after the kill and the GET p50/p99
+   with node 3 down are printed, and every key reads back through
+   nodes 0-2 (decode rows). Node 2 SIGKILLed too: a PUT and a GET
+   answer 503 within the 10 s drive deadline. Nodes 2 and 3 restart
+   (time until they serve), an admin heal through node 3 brings every
+   key written while node 3 was down to its drives; node 0 SIGKILLed,
+   every key reads back byte for byte through nodes 1-3. Nodes 1-3
+   stop cleanly and print their launches, their dsync locks (taken,
+   refused, acquire histogram) and their grid peers' breakers: node 1's
+   breaker to node 3 must have opened after the kill, and the time from
+   the kill to its opening and the calls it failed fast are printed.
+   The same load on one node of 16 local drives at EC 12+4, served by
+   5 workers as the four nodes serve from 5 processes, gives the PUT
+   and GET MiB/s the distributed ones are printed against. gf_apply must have launched
+   at k = 12 with parity rows and with decode rows on the nodes.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
-   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f, 4g and 5
-   every kernel's launch count is set to 0 just before the phase and
-   read just after (4e's servers and 4f's and 4g's workers count from
-   their start, less their boot self-tests); each kernel of the phase's
-   path must have launched, in 4e gf_apply with one row (r = 1), in 4f
-   in every worker, in 4g at k = 12. Each phase's wall time is printed on a line of its
-   own.
+   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f, 4g, 4h
+   and 5 every kernel's launch count is set to 0 just before the phase
+   and read just after (4e's servers, 4f's and 4g's workers and 4h's
+   nodes count from their start, less their boot self-tests; a
+   SIGKILLed node's are not counted); each kernel of the phase's path
+   must have launched, in 4e gf_apply with one row (r = 1), in 4f in
+   every worker, in 4g and 4h at k = 12. Each phase's wall time is
+   printed on a line of its own.
 6. Times: each kernel at the main path's shapes with CUDA events (inputs
    rotated over buffers larger than L2), its plain version's time and
    its bound; gf_apply at 8, 32 and 256 blocks (parity rows) and at 32
@@ -1229,9 +1258,11 @@ def phase_multipart_heal(torch, rng, s: "Server", root: str):
 
 # Phase 4c: the bucket namespace.
 NS_BIG = 256 * MIB          # each versioned PUT, as phase 4b's objects
-# 5,000 keys of 1 KiB for the listing: with 10,000 and phase 4g the
-# script ran 1155.4 s on an H100, against a 1,200 s limit.
-NS_DIRS, NS_PER_DIR = 50, 100
+# 3,000 keys of 1 KiB for the listing: with 10,000 and phase 4g the
+# script ran 1155.4 s on an H100 against a 1,200 s limit; with phase 4h
+# and 5,000 keys 4c took 197.6 s, with 2,000 84.8 s and the script
+# 864.9 s.
+NS_DIRS, NS_PER_DIR = 50, 60
 NS_CLIENTS = 16
 # UploadPartCopy's ranges of the 256 MiB source, (offset, length): its
 # first 64 MiB, 40 MiB across the boundary of its 32 MiB windows 3 and 4,
@@ -1805,11 +1836,14 @@ class ServerProc:
 
     def __init__(self, drives: list, extra: tuple = (),
                  device: str = "cuda", workers: int = 1,
-                 env: dict | None = None):
+                 env: dict | None = None, port: int | None = None,
+                 wait: bool = True):
         import socket
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
+        if port is None:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+        self.workers = workers
         self.t_start = time.time()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "minio_tpu_torch.server", "--device",
@@ -1822,9 +1856,16 @@ class ServerProc:
         self.lines: list[str] = []
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
+        self.client = Client(f"127.0.0.1:{port}")
+        if wait:
+            self.wait_serving()
+
+    def wait_serving(self) -> None:
+        """Until every worker printed its serving line (at most 240 s)."""
         t0 = time.perf_counter()
         try:
-            while sum("serving S3 on" in ln for ln in self.lines) < workers:
+            while sum("serving S3 on" in ln for ln in self.lines) \
+                    < self.workers:
                 check(self.proc.poll() is None
                       and time.perf_counter() - t0 < 240,
                       f"the server did not boot: {self.lines[-20:]}")
@@ -1833,7 +1874,6 @@ class ServerProc:
             self.kill()
             raise
         self.t_serving = time.time()
-        self.client = Client(f"127.0.0.1:{port}")
 
     def kill(self) -> None:
         """SIGKILL the whole process group; reap the server."""
@@ -2713,14 +2753,14 @@ def solo_dispatch_ms(torch, rng, stats: dict, runs: int = 5) -> dict:
 
 PL_WORKERS = 2                  # the fleet of the phase's servers
 PL_CLIENTS = 16
-PL_BIG, PL_N_BIG = 16 * MIB, 48  # MinIO's object size in 4e
+PL_BIG, PL_N_BIG = 16 * MIB, 24  # MinIO's object size in 4e
 PL_RAGGED = 64 * MIB + 1
 PL_MP_PARTS = 8                 # a multipart of 8 x AWS_PART
-PL_SMALL = 500                  # keys of 1 KiB
-PL_VKEYS, PL_VERSIONS, PL_MARKERS = 100, 3, 50
+PL_SMALL = 50                   # keys of 1 KiB
+PL_VKEYS, PL_VERSIONS, PL_MARKERS = 50, 3, 25
 PL_VBODY = 4 * 1024
 PL_RATE_KEYS = 16               # 1 KiB PUTs a client for each rate
-PL_LIVE_KEYS = 8                # keys a live client overwrites in turn
+PL_LIVE_KEYS = 4                # keys a live client overwrites in turn
 PL_SAMPLE = 8                   # migrated 16 MiB objects recomputed
 PL_WALK_WORKERS = "4"           # MTPU_REBALANCE_WORKERS of the servers
 PL_K, PL_M = 12, 4              # pool 2's geometry
@@ -3130,6 +3170,432 @@ def phase_pools(rng, root: str, device: str = "cuda") -> dict:
     return launches
 
 
+DI_NODES, DI_DRIVES = 4, 4       # MinIO's multi-node multi-drive guide
+DI_HTTP_WORKERS = (2, 1, 1, 1)   # MTPU_HTTP_WORKERS of each node
+DI_CLIENTS = 16
+DI_BIG, DI_N_BIG = 16 * MIB, 32
+DI_RAGGED = 64 * MIB + 1
+DI_MP_PARTS = 4                 # a multipart of 4 x AWS_PART
+DI_SMALL = 250                  # keys of 1 KiB
+DI_LOCK_KEYS, DI_LOCK_S = 8, 10.0   # keys 16 clients overwrite, seconds
+DI_LOCK_BODY = 64 * 1024
+DI_LIVE_SIZE = MIB              # the paced clients' PUT+GET pairs
+DI_LIVE_PAUSE = 0.25            # seconds between a client's pairs
+DI_LIVE_BEFORE, DI_LIVE_AFTER = 2.0, 7.0   # seconds around the kill
+DI_DRIVE_TIMEOUT = 10.0         # the nodes' --drive-timeout (default)
+GRID_PORT_OFFSET = 1000         # minio_tpu_torch.server's
+
+
+def bindable(port: int) -> bool:
+    import socket
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind(("127.0.0.1", port))
+            return True
+        except OSError:
+            return False
+
+
+def node_ports(n: int) -> list[int]:
+    """n S3 ports whose grid ports (+1000) are free too, below the
+    kernel's ephemeral range where it leaves room (a restarted node
+    binds its ports again, and an outgoing connection may hold a port
+    of that range meanwhile)."""
+    import random
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        lo, hi = (int(x) for x in f.read().split())
+    top = lo - GRID_PORT_OFFSET - n if lo > 12000 else 28000
+    log(f"4h: ephemeral ports {lo}-{hi}; node ports under {top}")
+    for _ in range(200):
+        base = random.randrange(10000, top)
+        ports = [base + i for i in range(n)]
+        if all(bindable(p) and bindable(p + GRID_PORT_OFFSET)
+               for p in ports):
+            return ports
+    raise RuntimeError("no free ports for the nodes")
+
+
+def clean_stop(p: "ServerProc") -> None:
+    """SIGINT to one process, SIGTERM to a fleet's parent."""
+    import signal
+    p.proc.send_signal(signal.SIGTERM if p.workers > 1 else signal.SIGINT)
+
+
+def summaries(p: "ServerProc") -> dict:
+    """Once a clean stop was sent: the sums of what the node's workers
+    printed at their drain: launches, gf_apply's by "k,r", and the
+    dsync locks taken, refused and their acquire histogram, and the
+    grid peers' breaker stats ("peers", of the last worker printing
+    them)."""
+    from minio_tpu_torch.utils.latency import Histogram
+    try:
+        rc = p.proc.wait(timeout=120)
+    finally:
+        p.kill()
+    p.reader.join(30)
+    check(rc == 0, f"the node's clean stop exited {rc}: {p.lines[-20:]}")
+    out = {"gf_apply": 0, "highwayhash256": 0, "gf_apply_by_kr": {},
+           "locks": 0, "refused": 0, "hists": [], "peers": []}
+    runs = [ln for ln in p.lines
+            if "kernel launches while serving: " in ln]
+    check(len(runs) == p.workers, f"{len(runs)} launch lines from "
+          f"{p.workers} workers: {p.lines[-10:]}")
+    for ln in runs:
+        n = json.loads(ln.split(": ", 1)[1])
+        out["gf_apply"] += n["gf_apply"]
+        out["highwayhash256"] += n["highwayhash256"]
+        for kr, v in n["gf_apply_by_kr"].items():
+            out["gf_apply_by_kr"][kr] = out["gf_apply_by_kr"].get(kr, 0) + v
+    for ln in p.lines:
+        if "dsync locks while serving: " in ln:
+            n = json.loads(ln.split(": ", 1)[1])
+            out["locks"] += n["taken"]
+            out["refused"] += n["refused"]
+            out["hists"].append(n["acquire_hist"])
+        if "grid peers: " in ln:
+            out["peers"] = json.loads(ln.split(": ", 1)[1])
+    out["acquire"] = Histogram.merge(out["hists"])
+    return out
+
+
+def di_load(nodes: list, objs: dict, parts: list, what: str) -> tuple:
+    """16 clients load `objs` (bucket "g4h") and the multipart object,
+    client t through node t mod the node count; every key is read back
+    through the node after its writer. (PUT MiB/s, GET MiB/s, lost,
+    differing)."""
+    n = len(nodes)
+    keys = sorted(objs)
+    st, _ = nodes[0].client("PUT", "/g4h")
+    check(st == 200, f"{what}: make bucket: {st}")
+    writer: dict = {}
+
+    def put(t: int, key: str) -> None:
+        writer[key] = t % n
+        st, body = nodes[t % n].client("PUT", f"/g4h/{key}", objs[key])
+        check(st == 200, f"{what}: PUT {key} through node {t % n}: {st} "
+              f"{body[:200]!r}")
+    t0 = time.perf_counter()
+    wall = run_clients(put, [keys[t::DI_CLIENTS] for t in range(DI_CLIENTS)])
+    mp = b"".join(parts)
+    mp_upload(nodes[1 % n].client, "/g4h/mp", parts, DI_MP_PARTS)
+    writer["mp"] = 1 % n
+    put_wall = time.perf_counter() - t0
+    total = sum(len(v) for v in objs.values()) + len(mp)
+    bad = {"lost": 0, "differing": 0}
+
+    def get(t: int, key: str) -> None:
+        node = (writer[key] + 1) % n
+        st, body, _ = nodes[node].client.send("GET", f"/g4h/{key}")
+        want = mp if key == "mp" else objs[key]
+        if st != 200:
+            bad["lost"] += 1
+            log(f"{what}: GET {key} through node {node}: {st}")
+        elif body != want:
+            bad["differing"] += 1
+    t0 = time.perf_counter()
+    run_clients(get, [(keys + ["mp"])[t::DI_CLIENTS]
+                      for t in range(DI_CLIENTS)])
+    get_wall = time.perf_counter() - t0
+    log(f"{what}: PUT {total / MIB:.1f} MiB ({len(objs) + 1} keys) in "
+        f"{put_wall:.2f} s ({wall:.2f} s without the multipart), "
+        f"{total / MIB / put_wall:.1f} MiB/s; GET through another node "
+        f"{get_wall:.2f} s, {total / MIB / get_wall:.1f} MiB/s; lost "
+        f"{bad['lost']}, differing {bad['differing']}")
+    check(bad["lost"] == 0 and bad["differing"] == 0,
+          f"{what}: {bad} after the load")
+    return total / MIB / put_wall, total / MIB / get_wall
+
+
+def read_back(nodes: list, objs: dict, what: str,
+              retry_s: float = 0.0) -> int:
+    """Every key of `objs` ({path: bytes}) read through `nodes` in turn
+    by 16 clients; a 503 is retried for up to `retry_s` seconds (and
+    counted). Raises on a lost or differing key; returns the retries."""
+    keys = sorted(objs)
+    retries = [0]
+
+    def get(t: int, key: str) -> None:
+        node = nodes[t % len(nodes)]
+        end = time.monotonic() + retry_s
+        while True:
+            st, body, _ = node.client.send("GET", key)
+            if st != 503 or time.monotonic() > end:
+                break
+            retries[0] += 1
+            time.sleep(0.5)
+        check(st == 200 and body == objs[key],
+              f"{what}: GET {key}: {st} ({len(body)} bytes, want "
+              f"{len(objs[key])})")
+    wall = run_clients(get, [keys[t::DI_CLIENTS] for t in range(DI_CLIENTS)])
+    log(f"{what}: {len(keys)} keys byte for byte in {wall:.2f} s "
+        f"({retries[0]} GETs retried after a 503)")
+    return retries[0]
+
+
+def lock_bodies(t: int, n: int) -> bytes:
+    """Client t's n-th body for the lock step: its id, then bytes made
+    from the id, so a torn or mixed body shows."""
+    head = f"{t:02d}:{n:06d}:".encode()
+    seed = int.from_bytes(hashlib.sha256(head).digest()[:8], "little")
+    return head + np.random.default_rng(seed).bytes(DI_LOCK_BODY - len(head))
+
+
+def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
+    """Four port nodes serving one EC 12+4 set (phase 4h); the launches
+    the surviving nodes and the one-node server printed at their clean
+    stops."""
+    t_phase = time.perf_counter()
+    ports = node_ports(DI_NODES)
+    eps = [f"http://127.0.0.1:{ports[i]}{root}/h/n{i}/d{j}"
+           for i in range(DI_NODES) for j in range(1, DI_DRIVES + 1)]
+    env = {"MTPU_FILEINFO_CACHE": "on", "MTPU_HOT_CACHE": "on"}
+    extra = ("--scanner-interval", "0", "--drive-timeout",
+             str(DI_DRIVE_TIMEOUT))
+
+    def spawn(i: int) -> "ServerProc":
+        return ServerProc(eps, extra, device, DI_HTTP_WORKERS[i], env,
+                          port=ports[i], wait=False)
+    launches = {"gf_apply": 0, "highwayhash256": 0, "gf_apply_by_kr": {}}
+    lock_hists: list = []
+    locks = refused = 0
+
+    def add(n: dict) -> None:
+        nonlocal locks, refused
+        launches["gf_apply"] += n["gf_apply"]
+        launches["highwayhash256"] += n["highwayhash256"]
+        for kr, v in n["gf_apply_by_kr"].items():
+            launches["gf_apply_by_kr"][kr] = \
+                launches["gf_apply_by_kr"].get(kr, 0) + v
+        lock_hists.extend(n["hists"])
+        locks += n["locks"]
+        refused += n["refused"]
+
+    pool = rng.bytes(DI_N_BIG * DI_BIG + DI_RAGGED + DI_MP_PARTS * AWS_PART
+                     + DI_SMALL * 1024)
+    view = memoryview(pool)
+    objs = {f"big/{i:03d}": view[i * DI_BIG:(i + 1) * DI_BIG]
+            for i in range(DI_N_BIG)}
+    o = DI_N_BIG * DI_BIG
+    objs["ragged"] = view[o:o + DI_RAGGED]
+    o += DI_RAGGED
+    parts = [bytes(view[o + n * AWS_PART:o + (n + 1) * AWS_PART])
+             for n in range(DI_MP_PARTS)]
+    o += DI_MP_PARTS * AWS_PART
+    for i in range(DI_SMALL):
+        objs[f"small/{i:04d}"] = view[o + i * 1024:o + (i + 1) * 1024]
+    every = {f"/g4h/{k}": v for k, v in objs.items()}
+    every["/g4h/mp"] = b"".join(parts)
+    nodes: list = []
+    one = None
+    try:
+        # -- boot: four nodes at once, each waiting for the others' grid
+        t0 = time.perf_counter()
+        nodes = [spawn(i) for i in range(DI_NODES)]
+        for p in nodes:
+            p.wait_serving()
+        boot_s = time.perf_counter() - t0
+        for p in nodes:
+            check(any("16 drives, EC 12+4; distributed over 4 nodes" in ln
+                      for ln in p.lines), f"node boot: {p.lines[-5:]}")
+        log(f"4h: 4 nodes x 4 drives, one set at EC 12+4, serving "
+            f"{boot_s:.2f} s after their start (node 0: "
+            f"{DI_HTTP_WORKERS[0]} workers)")
+
+        # -- 1. load through every node, read back through another ----
+        dist_put, dist_get = di_load(nodes, objs, parts, "4h load")
+
+        # -- 2. locks: 16 clients overwrite 8 keys through all nodes ---
+        written: dict = {}
+        fails = []
+        stop = time.monotonic() + DI_LOCK_S
+
+        def overwrite(t: int, _item) -> None:
+            n = 0
+            while time.monotonic() < stop:
+                key = f"lock/k{(t + n) % DI_LOCK_KEYS}"
+                st, body = nodes[t % DI_NODES].client(
+                    "PUT", f"/g4h/{key}", lock_bodies(t, n))
+                if st != 200:
+                    fails.append((key, st, body[:200]))
+                written.setdefault(key, set()).add((t, n))
+                n += 1
+        run_clients(overwrite, [[None]] * DI_CLIENTS)
+        check(not fails, f"4h locks: failed overwrites {fails[:3]}")
+        torn = stale = 0
+        for key in written:
+            got = [p.client.send("GET", f"/g4h/{key}")[:2] for p in nodes]
+            st, body = got[0]
+            t, n = (int(x) for x in body.split(b":")[:2]) \
+                if st == 200 else (-1, -1)
+            if st != 200 or (t, n) not in written[key] or \
+                    body != lock_bodies(t, n):
+                torn += 1
+            if any(g != got[0] for g in got):
+                stale += 1
+            every[f"/g4h/{key}"] = body
+        puts = sum(len(v) for v in written.values())
+        log(f"4h locks: {puts} overwrites of {DI_LOCK_KEYS} keys by "
+            f"{DI_CLIENTS} clients through 4 nodes in {DI_LOCK_S:.0f} s; "
+            f"torn or foreign bodies {torn}, nodes disagreeing {stale}")
+        check(torn == 0 and stale == 0, "4h locks: a body is not one "
+              "whole written body, or the nodes disagree")
+
+        # -- 3. one node lost under 16 paced clients on nodes 0-2 ------
+        pairs: list = []
+        live: dict = {}
+        body = rng.bytes(DI_LIVE_SIZE)
+        t_kill = [0.0, 0.0]         # monotonic, and wall for the nodes
+        end = time.monotonic() + DI_LIVE_BEFORE + DI_LIVE_AFTER
+
+        def paced(t: int, _item) -> None:
+            n = 0
+            c = nodes[t % 3].client
+            while time.monotonic() < end:
+                key = f"live/c{t:02d}/k{n:03d}"
+                b = body[n:] + body[:n]
+                t0 = time.monotonic()
+                st_put, err = c("PUT", f"/g4h/{key}", b)
+                t1 = time.monotonic()
+                st_get, got = c("GET", f"/g4h/{key}")
+                t2 = time.monotonic()
+                ok = st_put == 200 and st_get == 200 and got == b
+                pairs.append((t0, t1, t2, ok, st_put, st_get))
+                if st_put == 200:
+                    live[f"/g4h/{key}"] = b
+                n += 1
+                time.sleep(DI_LIVE_PAUSE)
+
+        def killer() -> None:
+            time.sleep(DI_LIVE_BEFORE)
+            t_kill[0], t_kill[1] = time.monotonic(), time.time()
+            nodes[3].kill()
+        kt = threading.Thread(target=killer)
+        kt.start()
+        run_clients(paced, [[None]] * DI_CLIENTS)
+        kt.join()
+        failed = [p for p in pairs if not p[3]]
+        before = sorted(p[2] - p[0] for p in pairs if p[2] < t_kill[0])
+        after = [p for p in pairs if p[0] >= t_kill[0]]
+        spans = sorted(p[2] - p[0] for p in after)
+        gets = sorted(p[2] - p[1] for p in after)
+
+        def ms(xs: list, q: float) -> str:
+            return f"{xs[int(len(xs) * q)] * 1e3:.1f}" if xs else "-"
+        log(f"4h node 3 SIGKILLed under {DI_CLIENTS} paced clients: "
+            f"{len(pairs)} {DI_LIVE_SIZE / MIB:g} MiB PUT+GET pairs, "
+            f"{len(failed)} failed; pair p50/p99 before the kill "
+            f"{ms(before, 0.5)}/{ms(before, 0.99)} ms (n={len(before)}), "
+            f"after it {ms(spans, 0.5)}/{ms(spans, 0.99)} ms "
+            f"(n={len(spans)}); GET with node 3 down p50 "
+            f"{ms(gets, 0.5)} ms, p99 {ms(gets, 0.99)} ms (n={len(gets)})")
+        check(not failed, f"4h: failed requests on live nodes: "
+              f"{[(p[4], p[5]) for p in failed[:5]]}")
+        every.update(live)
+        read_back(nodes[:3], every, "4h with node 3 down")
+
+        # -- 4. two nodes lost: 503, within the drive deadline ---------
+        nodes[2].kill()
+        for method, path, data in (("PUT", "/g4h/two-down", b"x" * MIB),
+                                   ("GET", "/g4h/big/000", b"")):
+            t0 = time.perf_counter()
+            st, _ = nodes[0].client(method, path, data)
+            dt = time.perf_counter() - t0
+            log(f"4h nodes 2 and 3 down: {method} {path} {st} in "
+                f"{dt:.3f} s")
+            check(st == 503 and dt < DI_DRIVE_TIMEOUT,
+                  f"4h two nodes down: {method} answered {st} in {dt:.2f} s")
+
+        # -- 5. nodes back, then the admin heal ------------------------
+        t0 = time.perf_counter()
+        for i in (2, 3):
+            while not (bindable(ports[i])
+                       and bindable(ports[i] + GRID_PORT_OFFSET)):
+                check(time.perf_counter() - t0 < 60,
+                      f"4h: node {i}'s ports stay taken")
+                time.sleep(0.2)
+        nodes[2], nodes[3] = spawn(2), spawn(3)
+        nodes[2].wait_serving()
+        nodes[3].wait_serving()
+        back_s = time.perf_counter() - t0
+        # Through a restarted node: the others' breakers may still hold
+        # node 3's drives out for a cooldown (up to 15 s), and a heal
+        # skips what it sees offline.
+        # The one-node server of step 7 boots meanwhile.
+        # Five workers: the four nodes serve from five processes.
+        one = ServerProc([os.path.join(root, "h1", "d{1...16}")], extra,
+                         device, sum(DI_HTTP_WORKERS), env, wait=False)
+        status, heal_s = admin_heal(nodes[3].client, deep=False)
+        missing = 0
+        for path in live:
+            key = path[len("/g4h/"):]
+            missing += sum(not os.path.exists(os.path.join(
+                root, "h", "n3", f"d{j}", "g4h", key, "xl.meta"))
+                for j in range(1, DI_DRIVES + 1))
+        log(f"4h nodes 2 and 3 restarted, serving in {back_s:.2f} s; admin "
+            f"heal through node 3 {heal_s:.2f} s ({status.get('healed')} "
+            f"healed); "
+            f"journals of the {len(live)} keys written with node 3 down "
+            f"missing from its drives: {missing}")
+        check(missing == 0, "4h: node 3's drives did not heal")
+
+        # -- 6. the heal's proof: node 0 lost, nodes 1-3 read all ------
+        # Node 1 reads node 3's drives again once its breaker's next
+        # half-open probe succeeds; a 503 until then is retried.
+        nodes[0].kill()
+        read_back(nodes[1:], every, "4h with node 0 down", retry_s=30.0)
+        for p in nodes[1:]:
+            clean_stop(p)
+        sums = [summaries(p) for p in nodes[1:]]
+        for n in sums:
+            add(n)
+        nodes = []
+        # The breaker's switch, from node 1 (the one node that served
+        # through node 3's SIGKILL and stopped cleanly).
+        peer3 = f"127.0.0.1:{ports[3] + GRID_PORT_OFFSET}"
+        st3 = next((c for c in sums[0]["peers"] if c["peer"] == peer3),
+                   None)
+        opened = [t - t_kill[1] for t in (st3 or {}).get("opened_at", [])
+                  if t >= t_kill[1]]
+        log(f"4h breakers on node 1: to node 3 opened "
+            f"{opened[0] if opened else float('nan'):.3f} s after its "
+            f"SIGKILL ({len(opened)} opening(s) after it); calls failed "
+            f"fast by peer: " + ", ".join(
+                f"{c['peer']} {c['fast_fails']} ({c['breaker_opens']} "
+                f"opens)" for c in sums[0]["peers"]))
+        check(bool(opened), f"4h: node 1's breaker to node 3 never opened "
+              f"after the kill: {st3}")
+
+        # -- 7. the same load on one node of 16 local drives -----------
+        one.wait_serving()
+        local_put, local_get = di_load([one], objs, parts, "4h one node")
+        clean_stop(one)
+        add(summaries(one))
+    finally:
+        for p in nodes + ([one] if one is not None else []):
+            p.kill()
+    shutil.rmtree(os.path.join(root, "h"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "h1"), ignore_errors=True)
+    from minio_tpu_torch.utils.latency import Histogram
+    log(f"4h grid cost: PUT {dist_put:.1f} MiB/s over 4 nodes against "
+        f"{local_put:.1f} on one, both served by {sum(DI_HTTP_WORKERS)} "
+        f"processes ({dist_put / local_put:.3f}x), GET "
+        f"{dist_get:.1f} against {local_get:.1f} "
+        f"({dist_get / local_get:.3f}x)")
+    log(f"4h dsync: {locks} locks taken on the nodes that stopped cleanly "
+        f"(1, 2 and 3 restarted), {refused} refused, acquire "
+        f"{summarize(Histogram.merge(lock_hists))}")
+    log(f"4h launches by k,r {launches['gf_apply_by_kr']}, highwayhash256 "
+        f"{launches['highwayhash256']}; phase {time.perf_counter() - t_phase:.1f} s")
+    kr = launches["gf_apply_by_kr"]
+    check(kr.get("12,4", 0) > 0 and any(kr.get(f"12,{r}", 0) > 0
+                                        for r in (1, 2, 3)),
+          f"4h: gf_apply at k = 12 with parity and decode rows: {kr}")
+    check(launches["highwayhash256"] > 0, "4h: highwayhash256 never "
+          "launched on the nodes")
+    return launches
+
+
 def phase_b5_entry_point(torch):
     """python -m minio_tpu_torch.experiments.rs_i8_kernel, in process."""
     from minio_tpu_torch.experiments import rs_i8_kernel
@@ -3349,6 +3815,9 @@ def main() -> int:
         for done in os.listdir(root):
             shutil.rmtree(os.path.join(root, done), ignore_errors=True)
         pools = timed("4g", phase_pools, rng, root)
+        for done in os.listdir(root):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        dist = timed("4h", phase_distributed, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed("4 (solo dispatch)", solo_dispatch_ms, torch, rng, conc_stats)
@@ -3356,7 +3825,8 @@ def main() -> int:
     times = timed("6", phase_times, torch, dev, rng)
 
     launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
-                + fleet[k] + pools[k] for k in ("gf_apply", "highwayhash256")}
+                + fleet[k] + pools[k] + dist[k]
+                for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {
         "gf_apply": ("minio_tpu_torch/ops/csrc/gf_apply.cu",

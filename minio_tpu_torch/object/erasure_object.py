@@ -118,6 +118,7 @@ from minio_tpu_torch.ops.batcher import StripeBatcher, merge_route_stats
 from minio_tpu_torch.storage import bitrot
 from minio_tpu_torch.storage import group_commit as gc_mod
 from minio_tpu_torch.storage.group_commit import GroupOp
+from minio_tpu_torch.storage.health import DiskHealthWrapper
 from minio_tpu_torch.storage.local import (SYS_VOL, FaultyDisk, StorageError,
                                            VolumeExists, VolumeNotEmpty,
                                            VolumeNotFound)
@@ -127,6 +128,7 @@ from minio_tpu_torch.storage.meta import (KIND_DELETE_MARKER,
                                           MetaError, ObjectPartInfo,
                                           VersionNotFoundErr, XLMeta,
                                           new_uuid, now_ns)
+from minio_tpu_torch.storage.remote import RemoteStorage
 from minio_tpu_torch.storage.meta_scan import (FLAG_DELETED, FLAG_INLINE,
                                                PREFIX_MARK,
                                                summary_sufficient)
@@ -361,6 +363,18 @@ def object_info(bucket: str, object_: str, fi: FileInfo) -> ObjectInfo:
                       internal_metadata=internal, parts=list(fi.parts))
 
 
+def _innermost(d):
+    """The drive behind a health wrapper."""
+    while isinstance(d, DiskHealthWrapper):
+        d = d._disk
+    return d
+
+
+def _deny() -> bool:
+    """The remote gate of a set without the cross-node protocol."""
+    return False
+
+
 def versioning_state_of(meta: dict) -> str:
     """A bucket metadata record's versioning state: "" (never enabled),
     "Enabled" or "Suspended" (minio_tpu/s3/server.py `_versioning_state`)."""
@@ -415,18 +429,27 @@ class ErasureSet:
         self.bucket_meta_lock = threading.Lock()
         # Which drives the next listing walk starts at (_walk_resolved).
         self._walk_rotor = 0
+        # A set with a drive on another node (storage/remote.py, found
+        # behind the health wrapper) runs without the cross-node cache
+        # protocol, as minio_tpu/object/erasure_object.py does then: its
+        # caches answer misses behind a deny-all gate, it has no
+        # group-commit lanes, and bucket metadata is cached 2 s.
+        self._remote_set = any(isinstance(_innermost(d), RemoteStorage)
+                               for d in self.disks)
         # The listing's shared walk streams, and the bump funnel every
         # namespace mutation of the set goes through (object/metacache).
         # Persisted runs go to the first drive with a root of its own
-        # (an OfflineDisk in slot 0 has none).
-        self.metacache = MetaCache(persist_drive=next(
+        # (an OfflineDisk in slot 0 has none); a remote set persists
+        # none.
+        self.metacache = MetaCache(persist_drive=None if self._remote_set
+                                   else next(
             (d for d in self.disks
              if isinstance(getattr(d, "root", None), str)), None))
         # Group-commit lanes (storage/group_commit): concurrent small
         # journal-only commits coalesce a drive into one WAL-backed
         # batch. Each batch bumps its buckets before any member acks.
         self.group_commit = None
-        if gc_mod.enabled() and self.disks and \
+        if gc_mod.enabled() and self.disks and not self._remote_set and \
                 all(hasattr(d, "commit_group") for d in self.disks):
             self.group_commit = gc_mod.GroupCommit(
                 self.disks, name=f"set:{id(self) & 0xffff:x}")
@@ -436,6 +459,9 @@ class ErasureSet:
         # from memory; every namespace mutation's bump invalidates it.
         self.fi_cache = FileInfoCache()
         self.metacache.listeners.append(self.fi_cache.invalidate_bucket)
+        if self._remote_set:
+            self.fi_cache.remote_gate = _deny
+            self.metacache.remote_gate = _deny
 
     def close(self) -> None:
         """Stop the MRF worker, the listing walks, the group-commit lanes
@@ -622,9 +648,12 @@ class ErasureSet:
     # -- bucket metadata: the versioning state, one JSON record a bucket
     #    on SYS_VOL, the JAX package's file and keys --------------------
 
-    # Seconds a bucket's record stays cached. The set is this process's
-    # own, and every write here invalidates it.
+    # Seconds a bucket's record stays cached. A local set is this
+    # process's own (pre-forked siblings bump the meta generation), and
+    # every write here invalidates it; a remote set's record may change
+    # on another node, which tells nobody, so its TTL is the bound.
     _BUCKET_META_TTL = 60.0
+    _REMOTE_BUCKET_META_TTL = 2.0
     # Seconds a bucket seen to exist is taken to exist (the JAX
     # package's TTL).
     _BUCKET_EXISTS_TTL = 2.0
@@ -635,11 +664,14 @@ class ErasureSet:
 
     def get_bucket_meta(self, bucket: str) -> dict:
         """The bucket's metadata record as most drives hold it, cached
-        for _BUCKET_META_TTL seconds ({} when there is none)."""
+        for _BUCKET_META_TTL seconds, a remote set's for
+        _REMOTE_BUCKET_META_TTL ({} when there is none)."""
         now = time.monotonic()
+        ttl = self._REMOTE_BUCKET_META_TTL if self._remote_set \
+            else self._BUCKET_META_TTL
         with self._bmeta_mu:
             hit = self._bmeta_cache.get(bucket)
-        if hit is not None and now - hit[0] < self._BUCKET_META_TTL:
+        if hit is not None and now - hit[0] < ttl:
             return dict(hit[1])
         meta = self._get_bucket_meta_uncached(bucket)
         with self._bmeta_mu:

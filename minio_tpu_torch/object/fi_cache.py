@@ -25,6 +25,9 @@ Coherence model (correctness first, three layers):
     worker's bump appends to; `maybe_flush()` runs at each lookup and
     at each token grab, clearing the whole cache when ANY worker
     mutated ANY namespace since we last looked.
+  * cross-node: a set with a drive on another node shuts `remote_gate`
+    (no invalidation from other nodes reaches this process), and its
+    lookups answer misses.
 
 Bounds: entry count AND resident bytes (inline objects carry their
 framed shard payloads in fis), both LRU-evicted. Cached entries keep
@@ -60,6 +63,17 @@ def cache_enabled(key: str) -> bool:
     return os.environ.get(key, "").lower() not in ("0", "off", "false")
 
 
+def gate_open(gate) -> bool:
+    """Whether a cache's remote gate lets it serve: no gate, or one that
+    answers true (a gate that raises counts as shut)."""
+    if gate is None:
+        return True
+    try:
+        return bool(gate())
+    except Exception:  # noqa: BLE001 - a broken gate fails closed
+        return False
+
+
 class FileInfoCache:
     """Thread-safe LRU of (bucket, object, version_id) -> (fi, fis)."""
 
@@ -83,6 +97,11 @@ class FileInfoCache:
         # Cross-process invalidation observer (io/workers.SharedGen or
         # anything with a changed() -> bool); None in one process.
         self.shared_gen = None
+        # Cross-NODE gate (minio_tpu/object/fi_cache.py): a set with a
+        # remote drive gets a deny-all gate at construction, so its
+        # lookups answer misses, never hits that no invalidation from
+        # another node covers. None on local sets.
+        self.remote_gate = None
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -133,13 +152,21 @@ class FileInfoCache:
             self._stat.clear()
             self._bytes = 0
 
+    def _serving(self) -> bool:
+        """May cached entries be served, and taken, now? Not while the
+        remote gate is shut. The JAX package takes inserts behind a shut
+        gate, which its coherence protocol may reopen; the port's shut
+        gate never reopens, so an insert would copy what no lookup
+        serves."""
+        return gate_open(self.remote_gate)
+
     # -- lookup / insert -------------------------------------------------
 
     def get(self, bucket: str, object_: str, version_id: str,
             need_data: bool) -> Optional[tuple]:
         """(fi, fis) or None. `need_data=True` only matches entries
         whose fis were read with read_data (inline payloads loaded)."""
-        if not self.enabled:
+        if not self.enabled or not self._serving():
             return None
         self.maybe_flush()
         key = (bucket, object_, version_id)
@@ -154,7 +181,7 @@ class FileInfoCache:
 
     def put(self, bucket: str, object_: str, version_id: str,
             fi, fis, read_data: bool, token: int) -> None:
-        if not self.enabled:
+        if not self.enabled or not self._serving():
             return
         self.maybe_flush()
         key = (bucket, object_, version_id)
@@ -194,7 +221,7 @@ class FileInfoCache:
     def get_stat(self, bucket: str, object_: str, version_id: str):
         """Quorum fi for a HEAD, or None: the stat map first, then the
         data map; only the stat counters move."""
-        if not self.enabled:
+        if not self.enabled or not self._serving():
             return None
         self.maybe_flush()
         key = (bucket, object_, version_id)
@@ -215,7 +242,7 @@ class FileInfoCache:
                  fi, token: int) -> None:
         """Insert a HEAD result into the STAT class only; same token
         protocol as put()."""
-        if not self.enabled or fi is None:
+        if not self.enabled or fi is None or not self._serving():
             return
         self.maybe_flush()
         if fi.inline_data:

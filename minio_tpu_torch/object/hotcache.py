@@ -25,7 +25,11 @@ Coherence rides the funnel object/fi_cache.py uses:
   ``put()``) makes inserts race-free against concurrent mutations;
 - pre-forked workers observe the shared ``list.gen`` bump file (their
   own SharedGen instance: ``changed()`` is stateful per observer) and
-  flush wholesale when a sibling worker mutated anything.
+  flush wholesale when a sibling worker mutated anything;
+- a layer with a set whose fileinfo-cache ``remote_gate`` is shut (a
+  set with a drive on another node) turns the cache off at
+  ``attach_layer``: no invalidation from another node reaches it, and
+  without the cross-node coherence protocol that gate never reopens.
 
 Each entry also keeps the response head its admitting GET sent, split
 around its Date value (``split_head``), so that a hit can be replayed
@@ -48,7 +52,7 @@ import time
 from collections import OrderedDict
 from typing import Any, Optional
 
-from minio_tpu_torch.object.fi_cache import cache_enabled
+from minio_tpu_torch.object.fi_cache import cache_enabled, gate_open
 from minio_tpu_torch.object.pools import layer_sets
 
 
@@ -213,9 +217,15 @@ class HotObjectCache:
     def attach_layer(self, layer: Any) -> None:
         """Front the given object layer: subscribe to the metacache bump
         funnel of every set of every pool, so every mutation of a bucket
-        (a pool migration's included) drops its entries."""
-        for s in layer_sets(layer):
+        (a pool migration's included) drops its entries. A set whose
+        remote gate is shut turns the cache off: it could serve no entry
+        (minio_tpu/object/hotcache.py reads the same gate at each
+        lookup), so no GET copies a body into it."""
+        sets = layer_sets(layer)
+        for s in sets:
             s.metacache.listeners.append(self.invalidate_bucket)
+        if not all(gate_open(s.fi_cache.remote_gate) for s in sets):
+            self.enabled = False
 
     def maybe_flush(self) -> None:
         """Flush wholesale when a sibling worker process bumped the

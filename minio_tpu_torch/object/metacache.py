@@ -32,8 +32,10 @@ alone.
 Invalidation is by generation: every namespace mutation of a bucket
 calls `bump`, which orphans the bucket's walks (a cached stream never
 serves names from before a change) and calls every `listeners` entry.
-The distributed hooks of the JAX package (`on_bump` broadcast to peer
-nodes, `remote_gate`) wait for the port's grid.
+A set with a drive on another node shuts `remote_gate` (its bumps
+reach no other node): every lookup then walks afresh, outside the
+registry. The JAX package's `on_bump` broadcast to peer nodes waits for
+the port's cross-node coherence protocol.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from minio_tpu_torch.object.fi_cache import gate_open
 from minio_tpu_torch.storage.meta_scan import PREFIX_MARK
 
 
@@ -107,6 +110,9 @@ class WalkStream:
         self.error: Optional[Exception] = None
         self.truncated = False             # hit _MAX_ENTRIES, or cancelled
         self.persisted_from = 0            # segments a seek skipped
+        # A walk that bypassed the registry (a shut remote gate) serves
+        # one call and is never persisted.
+        self.ephemeral = False
         self.last_touch = time.monotonic()
         self.cond = threading.Condition()
         self._cancel = threading.Event()
@@ -167,7 +173,7 @@ class WalkStream:
         orphaned the walk first means no write, and a bump after it
         removes what was written."""
         d = mc.persist_drive
-        if d is None or not self.keys:
+        if d is None or not self.keys or self.ephemeral:
             return
         base = self._dir(self.bucket, self.prefix)
         try:
@@ -335,6 +341,10 @@ class MetaCache:
         # funnel every namespace mutation goes through, so caches that
         # must see writes subscribe here (the JAX package's fi_cache).
         self.listeners: list[Callable[[str], None]] = []
+        # Cross-NODE gate (minio_tpu/object/metacache.py): while it is
+        # shut (the deny-all gate of a set with a remote drive), every
+        # lookup walks afresh, unregistered, and the drives answer.
+        self.remote_gate: Optional[Callable[[], bool]] = None
 
     def stats(self) -> dict:
         with self._mu:
@@ -414,6 +424,19 @@ class MetaCache:
         it that still covers it serve the page (the coverage scan), and
         lets a fresh process's continuation page load only the persisted
         segments past it."""
+        if not gate_open(self.remote_gate):
+            # No cached or persisted stream is provable: a fresh walk
+            # outside the registry serves this call alone. Not a bump,
+            # which would cancel concurrent listings' walks.
+            with self._mu:
+                self.misses += 1
+                self.walks_started += 1
+                gen = self._gen.get(bucket, 0)
+            w = WalkStream(bucket, prefix, gen, start=start,
+                           shallow=shallow)
+            w.ephemeral = True
+            w.start(es, self)
+            return w
         with self._mu:
             gen = self._gen.get(bucket, 0)
             key = (bucket, prefix, start, shallow)

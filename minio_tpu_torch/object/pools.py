@@ -68,6 +68,9 @@ class ServerPools:
         # that sees no change while another re-reads waits for that
         # re-read instead of placing with the drains it knew before.
         self._drain_sync_mu = threading.Lock()
+        # Pools spanning nodes (server.boot): the migration walks need
+        # the peer plane's coordinator lease, which is not ported.
+        self.distributed = False
 
     @property
     def sets(self) -> list:

@@ -39,7 +39,8 @@ same path polls it, with the bulk heals of replaced drives under
 object/decom.py and object/rebalance.py: `POST decommission?pool=N`,
 `GET decommission-status`, `POST decommission-cancel`, `POST
 rebalance-start`, `GET rebalance-status`, `POST rebalance-stop` (400
-InvalidArgument for a refused start, 501 on a layer of one pool). All
+InvalidArgument for a refused start, 501 on a layer of one pool and on
+a distributed deployment, whose walks need the peer plane). All
 admin calls are SigV4-signed by the root credential. The health probes
 are not signed: `/minio/health/live` answers 200 while the server
 serves, and `/minio/health/ready` 200, or 503 with one `degraded_sets`
@@ -1046,6 +1047,13 @@ class _Handler(BaseHTTPRequestHandler):
         fn = getattr(self.s3.objects, verb, None)
         if fn is None:
             raise S3Error("NotImplemented", "a layout of one pool")
+        if getattr(self.s3.objects, "distributed", False):
+            # Without a coordinator lease and peer notices a walk could
+            # run on two nodes at once, or place into a draining pool.
+            raise S3Error("NotImplemented",
+                          "rebalance and decommission of a distributed "
+                          "deployment need the peer plane (coordinator "
+                          "lease, peer notices)")
         try:
             result = fn(int(self._q("pool", "-1"))) \
                 if verb == "start_decommission" else fn()

@@ -14,6 +14,11 @@ own deadline (utils/deadline.py) clamps each call; an expiry inside that
 clamp is the request's, not the drive's, unless the drive stays silent
 for whole seconds several calls in a row.
 
+A drive on another node (storage/remote.py) is wrapped like a local
+one. Its grid transport faults arrive as StorageError and count against
+it; its handler's errors arrive as the exception the owner raised, so a
+missing file there is a domain error here as well.
+
 Four things differ from the JAX package, all because of what the
 port's callers do. A generator op's step pulls a batch of items, not
 one. The pool grows when every worker is busy: a streamed PUT holds one

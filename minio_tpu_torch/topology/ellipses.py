@@ -8,19 +8,49 @@ equal erasure sets of 2-16 drives, the largest size that divides the
 count unless `--set-size` names one. A comma-separated argument is a
 pool of exactly its endpoints (the JAX package's extension).
 
-Only local drives are served: an `http://` endpoint names another node
-of a distributed deployment, whose grid plane (remote drives, dsync
-locks, peer notifications) the port does not have yet, and parse_pools
-refuses it with that reason.
+An endpoint is a local drive path, or `http://host:port/path` (or
+https) naming the node that owns the drive in a distributed deployment
+(reference cmd/endpoint.go): `parse_endpoint` splits it, and the server
+reaches the drives of other nodes over the grid (storage/remote.py).
 """
 
 from __future__ import annotations
 
 import re
+import urllib.parse
+from dataclasses import dataclass
+from typing import Optional
 
 _ELLIPSES = re.compile(r"\{(\d+)\.\.\.(\d+)\}")
 
 SET_SIZES = tuple(range(2, 17))   # valid erasure set sizes (reference)
+
+
+@dataclass(frozen=True)
+class Endpoint:
+    """One drive endpoint: a local path (host None), or the drive
+    `path` of the node at host:port."""
+    host: Optional[str]
+    port: int
+    path: str
+
+    @property
+    def is_url(self) -> bool:
+        return self.host is not None
+
+    def __str__(self) -> str:
+        if self.host is None:
+            return self.path
+        return f"http://{self.host}:{self.port}{self.path}"
+
+
+def parse_endpoint(spec: str) -> Endpoint:
+    if spec.startswith(("http://", "https://")):
+        u = urllib.parse.urlsplit(spec)
+        if not u.hostname or not u.port or not u.path:
+            raise ValueError(f"endpoint {spec!r} needs host, port and path")
+        return Endpoint(host=u.hostname, port=u.port, path=u.path)
+    return Endpoint(host=None, port=0, path=spec)
 
 
 def has_ellipses(spec: str) -> bool:
@@ -63,17 +93,8 @@ def split_sets(drives: list, set_size: int | None = None) -> list[list]:
     return [drives[i:i + size] for i in range(0, len(drives), size)]
 
 
-def _local(spec: str) -> str:
-    if spec.startswith(("http://", "https://")):
-        raise ValueError(
-            f"endpoint {spec!r} names a node of a distributed deployment; "
-            "the port serves local drives only until its distributed "
-            "plane (the grid, remote drives, dsync) is ported")
-    return spec
-
-
 def parse_pools(args: list[str]) -> list[list[str]]:
-    """Command-line drive arguments -> pools of drive paths."""
+    """Command-line drive arguments -> pools of endpoint strings."""
     pools: list[list[str]] = []
     plain: list[str] = []
     for a in args:
@@ -81,11 +102,11 @@ def parse_pools(args: list[str]) -> list[list[str]]:
             eps = [e for e in (s.strip() for s in a.split(",")) if e]
             if not eps:
                 raise ValueError(f"empty pool spec {a!r}")
-            pools.append([_local(d) for e in eps for d in expand(e)])
+            pools.append([d for e in eps for d in expand(e)])
         elif has_ellipses(a):
-            pools.append([_local(d) for d in expand(a)])
+            pools.append(expand(a))
         else:
-            plain.append(_local(a))
+            plain.append(a)
     if plain:
         pools.append(plain)
     return pools

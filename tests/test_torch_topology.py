@@ -98,10 +98,23 @@ def test_split_sets_matches_jax(count, size):
 
 
 def test_http_endpoint_names_the_distributed_plane():
-    with pytest.raises(ValueError, match="distributed"):
-        ellipses.parse_pools(["http://h:9000/d{1...4}"])
-    with pytest.raises(SystemExit):
-        server.parse_args(["--device", "cpu", "http://h:9000/d{1...4}"])
+    """An http:// endpoint names the node that owns the drive: it parses
+    to the JAX package's host, port and path, and the CLI takes it."""
+    args = ["http://h:9000/d{1...4}", "https://n2.example.net:9443/mnt/x",
+            "/plain/d0"]
+    assert ellipses.parse_pools(args) == ref_ellipses.parse_pools(args)
+    for spec in ellipses.parse_pools(args):
+        for ep in spec:
+            a, b = ellipses.parse_endpoint(ep), ref_ellipses.parse_endpoint(ep)
+            assert (a.host, a.port, a.path, a.is_url, str(a)) == \
+                (b.host, b.port, b.path, b.is_url, str(b))
+    with pytest.raises(ValueError):
+        ellipses.parse_endpoint("http://h/d1")
+    with pytest.raises(ValueError):
+        ref_ellipses.parse_endpoint("http://h/d1")
+    got = server.parse_args(["--device", "cpu", "http://h:9000/d{1...4}"])
+    assert [[str(ep) for ep in spec] for spec in got.endpoints] == \
+        [[f"http://h:9000/d{i}" for i in range(1, 5)]]
 
 
 # ---------------------------------------------------------------------------
