@@ -84,8 +84,8 @@ and prints no result line):
    heal_object of each copy finding every shard good; an UploadPartCopy
    upload of the first 64 MiB, 40 MiB across two 32 MiB windows and the
    last 5 MiB + 777 B of the single-part object beside an uploaded 5 MiB
-   part, exact. 16 clients PUT 3,000 keys of 1 KiB
-   (dir00..49/obj000..059) into an unversioned bucket, their commits
+   part, exact. 16 clients PUT 2,000 keys of 1 KiB
+   (dir00..49/obj000..039) into an unversioned bucket, their commits
    coalescing in the group-commit lanes (at least one batch of 2 or
    more members, no demotion, no deadline cull; batches, members a
    batch, solo bypasses, demotions and fsyncs saved printed);
@@ -117,9 +117,9 @@ and prints no result line):
 4e. The drive plane: `python -m minio_tpu_torch.server
    --scanner-interval 1` in a subprocess on 12 fresh drives (the drive
    health wrapper on, as by default). Every drive gets format.json with
-   one layout, /minio/health/ready answers 200. 16 clients load 2 GiB of
-   16 MiB objects, 64 MiB + 1 B, a multipart of 8 x 8 MiB, 1,000 keys of
-   1 KiB and a versioned bucket of 200 keys x 3 versions with 100 delete
+   one layout, /minio/health/ready answers 200. 16 clients load 1 GiB of
+   16 MiB objects, 64 MiB + 1 B, a multipart of 8 x 8 MiB, 500 keys of
+   1 KiB and a versioned bucket of 100 keys x 3 versions with 50 delete
    markers. Replaced at boot: the server stops cleanly, drive 3 is
    copied, wiped and the server restarted: drive 3 must be adopted into
    slot 3 and marked healing, /ready answer 503 naming set 0 with one
@@ -160,7 +160,7 @@ and prints no result line):
    request on a fresh connection so that SO_REUSEPORT spreads them, and
    GET back byte for byte. Worker 3 SIGKILLed while 16 clients read
    (retrying a cut connection): the parent respawns it and its new pid
-   holds a context within 30 s, no read failing. 200 coherence rounds,
+   holds a context within 30 s, no read failing. 100 coherence rounds,
    alternating a 1 KiB and a 1 MiB key: PUT new bytes, 8 GETs on fresh
    connections return them; DELETE, 8 GETs answer 404; PUT again, a
    listing from a fresh connection names the key; 0 stale reads.
@@ -172,7 +172,7 @@ and prints no result line):
 4g. Pools of erasure sets: `python -m minio_tpu_torch.server` with
    MTPU_HTTP_WORKERS=2, both caches on and MTPU_REBALANCE_WORKERS=4, on
    `ROOT/p1/d{1...24}`: one pool of 2 sets x 12 at EC 8+4. 16 clients
-   load 24 objects of 16 MiB (4e's size), 64 MiB + 1 B, a multipart of
+   load 12 objects of 16 MiB (4e's size), 64 MiB + 1 B, a multipart of
    8 x 8 MiB, 50 keys of 1 KiB, and 50 keys x 3 versions with 25 delete
    markers in a versioned bucket; every key's journal must lie on the
    12 drives of the set the port's sip_hash_mod names under the
@@ -198,20 +198,29 @@ and prints no result line):
    four `python -m minio_tpu_torch.server` processes on 127.0.0.1
    (ports P0-P3, grid ports +1000), each given the same 16 explicit
    http:// endpoints ROOT/h/n<i>/d<j>, boot one set of 16 at EC 12+4;
-   node 0 with MTPU_HTTP_WORKERS=2, the others 1; both caches on (their
-   remote gates keep them empty). 16 clients, client t through node t mod
-   4, load 32 x 16 MiB, 64 MiB + 1 B, a 4 x 8 MiB multipart and 250
+   node 0 with MTPU_HTTP_WORKERS=2, the others 1; both caches on,
+   behind the cross-node coherence gates: after boot every node's
+   worker 0 reports 3 of 3 peers armed and node 0's sibling its gate
+   open (GET /minio/admin/v3/info). 16 clients, client t through node t
+   mod 4, load 16 x 16 MiB, 64 MiB + 1 B, a 4 x 8 MiB multipart and 250
    keys of 1 KiB; every key is read back through the node after its
-   writer: 0 lost, 0 differing. 16 clients overwrite 8 keys of 64 KiB
+   writer: 0 lost, 0 differing. 8 keys of 1 MiB and 64 KiB are
+   overwritten through node 1 in 4 rounds and read and HEAD through
+   nodes 0 (both workers), 2 and 3: 0 stale, with fileinfo-cache and
+   hot-cache hits on nodes 2 and 3 and on both of node 0's workers
+   (printed); 16 clients' 1 KiB PUT rate over the four nodes, each PUT's
+   bump pushed to 3 peers and acked. 16 clients overwrite 8 keys of 64 KiB
    through all four nodes for 10 s: each key then reads as one whole
    written body, the same from every node. Node 3 is SIGKILLed under 16
    clients' paced 1 MiB PUT+GET pairs on nodes 0-2: no request fails;
    the pairs' p50/p99 before and after the kill and the GET p50/p99
    with node 3 down are printed, and every key reads back through
-   nodes 0-2 (decode rows). Node 2 SIGKILLed too: a PUT and a GET
-   answer 503 within the 10 s drive deadline. Nodes 2 and 3 restart
-   (time until they serve), an admin heal through node 3 brings every
-   key written while node 3 was down to its drives; node 0 SIGKILLed,
+   nodes 0-2 (decode rows); every gate of nodes 0-2 is then shut. Node
+   2 SIGKILLed too: a PUT and a GET answer 503 within the 10 s drive
+   deadline. Nodes 2 and 3 restart (time until they serve), an admin
+   heal through node 3 brings every key written while node 3 was down
+   to its drives, every node is armed again (nodes 0 and 1 through new
+   resyncs) and the overwrite rounds show 0 stale; node 0 SIGKILLed,
    every key reads back byte for byte through nodes 1-3. Nodes 1-3
    stop cleanly and print their launches, their dsync locks (taken,
    refused, acquire histogram) and their grid peers' breakers: node 1's
@@ -219,8 +228,35 @@ and prints no result line):
    the kill to its opening and the calls it failed fast are printed.
    The same load on one node of 16 local drives at EC 12+4, served by
    5 workers as the four nodes serve from 5 processes, gives the PUT
-   and GET MiB/s the distributed ones are printed against. gf_apply must have launched
-   at k = 12 with parity rows and with decode rows on the nodes.
+   and GET MiB/s and the 1 KiB PUT rate the distributed ones are printed
+   against. gf_apply must have launched at k = 12 with parity rows and
+   with decode rows on the nodes.
+4i. A distributed expansion and decommission (MinIO's "Expand a
+   Distributed MinIO Deployment", `minio server
+   https://minio{1...4}.example.net/mnt/disk{1...4}/minio
+   https://minio{5...8}.example.net/mnt/disk{1...4}/minio`, then `mc
+   admin rebalance` and "Decommission a Server Pool"): four processes on
+   127.0.0.1, each serving its 4 drives of each pool (both 1 x 16 at EC
+   12+4), node 0 with 2 workers, both caches on, MTPU_GRID_LOCK_TTL=6,
+   MTPU_ELASTIC_JANITOR_S=1, MTPU_MIG_BATCH=1. 16 clients over the
+   nodes load pool 1 with 16 x 16 MiB, 64 MiB + 1 B, 10 x 1 KiB and 5
+   keys x 3 versions with 3 delete markers. The four restart with pool
+   2 appended; a rebalance started through node 2 is read through node
+   3 while it runs, its live state ahead of the checkpoint on the
+   drives, and stopped through node 1 (paused, or complete). Pool 1 is
+   decommissioned through node 1 under 16 paced 1 MiB PUT+GET clients
+   on nodes 0, 2 and 3 (started once the start answered, so their keys
+   land in pool 2); node 1, the coordinator, is SIGKILLed after 12
+   keys moved; a survivor's janitor resumes the walk once the lease
+   lapsed (the seconds from the kill are printed, and the keys, bytes
+   and seconds of the walk after the resume apart) and the drain ends
+   "complete", with `mig.page` batches served by at least two nodes
+   (counts by node from their clean stops). 0 failed and 0 stale client
+   requests; no journal left on pool 1's drives of nodes 0, 2, 3. The
+   four restart on pool 2 alone, an admin heal through node 1 brings
+   its drives up to date, and every key and version reads back byte
+   for byte through each node. gf_apply must have launched at
+   k = 12, r = 4 on the nodes.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
@@ -1258,11 +1294,12 @@ def phase_multipart_heal(torch, rng, s: "Server", root: str):
 
 # Phase 4c: the bucket namespace.
 NS_BIG = 256 * MIB          # each versioned PUT, as phase 4b's objects
-# 3,000 keys of 1 KiB for the listing: with 10,000 and phase 4g the
+# 2,000 keys of 1 KiB for the listing: with 10,000 and phase 4g the
 # script ran 1155.4 s on an H100 against a 1,200 s limit; with phase 4h
 # and 5,000 keys 4c took 197.6 s, with 2,000 84.8 s and the script
-# 864.9 s.
-NS_DIRS, NS_PER_DIR = 50, 60
+# 864.9 s; with 3,000 and phase 4i 4c took 159.6 s and the script
+# 1149.0 s (an H100 80GB HBM3 at 700 W on a slow host).
+NS_DIRS, NS_PER_DIR = 50, 40
 NS_CLIENTS = 16
 # UploadPartCopy's ranges of the 256 MiB source, (offset, length): its
 # first 64 MiB, 40 MiB across the boundary of its 32 MiB windows 3 and 4,
@@ -1810,11 +1847,11 @@ def phase_crash(rng, root: str, device: str = "cuda") -> dict:
 
 # Phase 4e: the drive plane.
 DP_BIG = 16 * MIB               # MinIO's own layout: 16 MiB objects
-DP_BIG_BYTES = 2 << 30          # of them, 2 GiB (the data's scale cut)
+DP_BIG_BYTES = 1 << 30          # of them, 1 GiB (2 GiB until phase 4i)
 DP_RAGGED = 64 * MIB + 1        # a ragged tail
 DP_MP_PARTS = 8                 # a multipart object of 8 x AWS_PART
-DP_SMALL = 1000                 # keys of 1 KiB
-DP_VKEYS, DP_VERSIONS, DP_MARKERS = 200, 3, 100
+DP_SMALL = 500                  # keys of 1 KiB (1,000 until phase 4i)
+DP_VKEYS, DP_VERSIONS, DP_MARKERS = 100, 3, 50   # (200, 3, 100 before 4i)
 DP_VBODY = 4 * 1024
 DP_CLIENTS = 16
 DP_LIVE_KEYS = 24               # keys a client PUTs and GETs while serving
@@ -2435,7 +2472,7 @@ def phase_drive_plane(rng, root: str, device: str = "cuda") -> dict:
 
 # Phase 4f: the pre-forked fleet.
 FLEET_WORKERS = 4
-FLEET_ROUNDS = 200              # coherence rounds, half 1 KiB, half 1 MiB
+FLEET_ROUNDS = 100              # coherence rounds, half 1 KiB, half 1 MiB
 FLEET_GETS = 8                  # fresh connections a check
 RATE_KEYS = 32                  # 1 KiB PUTs a client for the fleet's rate
 RATE_PAIRS = 4                  # 1 MiB PUT+GET pairs a client
@@ -2753,7 +2790,7 @@ def solo_dispatch_ms(torch, rng, stats: dict, runs: int = 5) -> dict:
 
 PL_WORKERS = 2                  # the fleet of the phase's servers
 PL_CLIENTS = 16
-PL_BIG, PL_N_BIG = 16 * MIB, 24  # MinIO's object size in 4e
+PL_BIG, PL_N_BIG = 16 * MIB, 12  # MinIO's object size in 4e (24 before 4i)
 PL_RAGGED = 64 * MIB + 1
 PL_MP_PARTS = 8                 # a multipart of 8 x AWS_PART
 PL_SMALL = 50                   # keys of 1 KiB
@@ -3163,8 +3200,8 @@ def phase_pools(rng, root: str, device: str = "cuda") -> dict:
                   f"{key}: drive {i}'s shard file differs from the plain "
                   "path's")
     log(f"pools: the shard files of {len(sample)} migrated objects "
-        f"({PL_SAMPLE} x 16 MiB and 64 MiB + 1 B) on pool 2's 16 drives "
-        "equal the plain PyTorch path's 12+4 encode and digests on the "
+        f"({len(sample) - 1} x 16 MiB and 64 MiB + 1 B) on pool 2's 16 "
+        "drives equal the plain PyTorch path's 12+4 encode and digests on the "
         f"CPU ({wait_plain:.1f} s waited for it at the end); launches "
         f"{launches}; phase {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -3173,7 +3210,7 @@ def phase_pools(rng, root: str, device: str = "cuda") -> dict:
 DI_NODES, DI_DRIVES = 4, 4       # MinIO's multi-node multi-drive guide
 DI_HTTP_WORKERS = (2, 1, 1, 1)   # MTPU_HTTP_WORKERS of each node
 DI_CLIENTS = 16
-DI_BIG, DI_N_BIG = 16 * MIB, 32
+DI_BIG, DI_N_BIG = 16 * MIB, 16   # (32 before phase 4i)
 DI_RAGGED = 64 * MIB + 1
 DI_MP_PARTS = 4                 # a multipart of 4 x AWS_PART
 DI_SMALL = 250                  # keys of 1 KiB
@@ -3184,6 +3221,11 @@ DI_LIVE_PAUSE = 0.25            # seconds between a client's pairs
 DI_LIVE_BEFORE, DI_LIVE_AFTER = 2.0, 7.0   # seconds around the kill
 DI_DRIVE_TIMEOUT = 10.0         # the nodes' --drive-timeout (default)
 GRID_PORT_OFFSET = 1000         # minio_tpu_torch.server's
+DI_COH_KEYS = 8                 # keys overwritten through node 1 a round
+DI_COH_ROUNDS = 4               # rounds of the coherence step
+DI_COH_READS = 3                # reads of a key through a node a round
+DI_COH_SIZES = (MIB, 64 * 1024)  # the coherence keys' sizes, alternating
+DI_SMALL_PUTS = 16              # 1 KiB PUTs a client for the small-PUT rate
 
 
 def bindable(port: int) -> bool:
@@ -3225,9 +3267,9 @@ def clean_stop(p: "ServerProc") -> None:
 def summaries(p: "ServerProc") -> dict:
     """Once a clean stop was sent: the sums of what the node's workers
     printed at their drain: launches, gf_apply's by "k,r", and the
-    dsync locks taken, refused and their acquire histogram, and the
-    grid peers' breaker stats ("peers", of the last worker printing
-    them)."""
+    dsync locks taken, refused and their acquire histogram, the grid
+    peers' breaker stats ("peers", of the last worker printing them)
+    and each worker's control-plane line ("control")."""
     from minio_tpu_torch.utils.latency import Histogram
     try:
         rc = p.proc.wait(timeout=120)
@@ -3236,7 +3278,8 @@ def summaries(p: "ServerProc") -> dict:
     p.reader.join(30)
     check(rc == 0, f"the node's clean stop exited {rc}: {p.lines[-20:]}")
     out = {"gf_apply": 0, "highwayhash256": 0, "gf_apply_by_kr": {},
-           "locks": 0, "refused": 0, "hists": [], "peers": []}
+           "locks": 0, "refused": 0, "hists": [], "peers": [],
+           "control": []}
     runs = [ln for ln in p.lines
             if "kernel launches while serving: " in ln]
     check(len(runs) == p.workers, f"{len(runs)} launch lines from "
@@ -3255,6 +3298,8 @@ def summaries(p: "ServerProc") -> dict:
             out["hists"].append(n["acquire_hist"])
         if "grid peers: " in ln:
             out["peers"] = json.loads(ln.split(": ", 1)[1])
+        if "control plane while serving: " in ln:
+            out["control"].append(json.loads(ln.split(": ", 1)[1]))
     out["acquire"] = Histogram.merge(out["hists"])
     return out
 
@@ -3333,6 +3378,115 @@ def read_back(nodes: list, objs: dict, what: str,
     return retries[0]
 
 
+def node_info(p: "ServerProc") -> dict:
+    """GET /minio/admin/v3/info of the worker the connection reached:
+    its node, worker, pid, coherence (worker 0: the protocol's stats; a
+    sibling: {"gate": verdict}) and read caches' counters."""
+    st, body, _ = p.client.send("GET", "/minio/admin/v3/info")
+    check(st == 200, f"admin info: {st} {body[:200]!r}")
+    return json.loads(body)
+
+
+def worker_infos(p: "ServerProc", tries: int = 0) -> dict:
+    """worker id -> its info, over fresh connections until every worker
+    of the node answered (the kernel spreads them)."""
+    out: dict = {}
+    for _ in range(tries or 12 * p.workers):
+        d = node_info(p)
+        out[d["worker"]] = d
+        if len(out) == p.workers:
+            break
+    check(len(out) == p.workers, f"admin info reached workers "
+          f"{sorted(out)} of {p.workers}")
+    return out
+
+
+def coherent(doc: dict) -> bool:
+    coh = doc["coherence"] or {}
+    return bool(coh.get("coherent", coh.get("gate")))
+
+
+def wait_armed(nodes: list, what: str, timeout: float = 60.0) -> dict:
+    """Until every worker 0 reports all its peers armed and every sibling
+    its gate open; {node index: worker 0's coherence stats}."""
+    t0 = time.perf_counter()
+    while True:
+        infos = [worker_infos(p) for p in nodes]
+        if all(coherent(d) for inf in infos for d in inf.values()):
+            return {i: next(d["coherence"] for d in inf.values()
+                            if "armed" in (d["coherence"] or {}))
+                    for i, inf in enumerate(infos)}
+        check(time.perf_counter() - t0 < timeout, f"{what}: not armed "
+              f"after {timeout:.0f} s: " + json.dumps(
+                  [{w: d["coherence"] for w, d in inf.items()}
+                   for inf in infos])[:1500])
+        time.sleep(0.25)
+
+
+def coherence_rounds(writer: "ServerProc", readers: list, rng,
+                     what: str, retry_s: float = 0.0) -> tuple[int, int]:
+    """DI_COH_ROUNDS rounds: DI_COH_KEYS keys (half 64 KiB, half 1 MiB)
+    overwritten through `writer`, then each read DI_COH_READS times and
+    HEAD twice through every reader on fresh connections (a HEAD's size
+    and ETag checked against the GET's). A 503 is retried for up to
+    `retry_s` seconds (a reader's breaker to a restarted node may hold
+    it out until its next probe). (reads, stale); a failed read
+    raises."""
+    reads = stale = 0
+    for r in range(DI_COH_ROUNDS):
+        bodies = {f"coh/k{i}": rng.bytes(DI_COH_SIZES[i % 2])
+                  for i in range(DI_COH_KEYS)}
+        for key, body in bodies.items():
+            st, err = writer.client("PUT", f"/g4h/{key}", body)
+            check(st == 200, f"{what}: PUT {key}: {st} {err[:200]!r}")
+
+        etags: dict = {}
+
+        def get(t: int, item) -> None:
+            nonlocal reads, stale
+            p, key, method = item
+            end = time.monotonic() + retry_s
+            while True:
+                st, got, h = p.client.send(method, f"/g4h/{key}")
+                if st != 503 or time.monotonic() > end:
+                    break
+                time.sleep(0.5)
+            check(st == 200, f"{what}: {method} {key}: {st}")
+            reads += 1
+            if method == "GET":
+                stale += got != bodies[key]
+                etags[key] = h["etag"]
+            else:
+                stale += int(h["content-length"]) != len(bodies[key]) \
+                    or h["etag"] != etags[key]
+        for method, n in (("GET", DI_COH_READS), ("HEAD", 2)):
+            items = [(p, k, method) for p in readers for k in bodies
+                     for _ in range(n)]
+            run_clients(get, [items[t::DI_CLIENTS]
+                              for t in range(DI_CLIENTS)])
+    return reads, stale
+
+
+def cache_hits(doc: dict) -> tuple[int, int]:
+    """(fileinfo-cache hits with its stat class, hot-cache hits)."""
+    fi = doc["fi_cache"]
+    return fi["hits"] + fi["stat_hits"], doc["hot_cache"]["hits"]
+
+
+def node_put_rate(nodes: list, rng, tag: str) -> float:
+    """keys/s of 1 KiB PUTs from DI_CLIENTS clients, client t through
+    node t mod the node count."""
+    bodies = rng.bytes(DI_CLIENTS * DI_SMALL_PUTS * 1024)
+
+    def put(t: int, i: int) -> None:
+        o = (t * DI_SMALL_PUTS + i) * 1024
+        st, _ = nodes[t % len(nodes)].client(
+            "PUT", f"/g4h/{tag}/c{t:02d}/{i:03d}", bodies[o:o + 1024])
+        check(st == 200, f"{tag}: 1 KiB PUT: {st}")
+    wall = run_clients(put, [range(DI_SMALL_PUTS)] * DI_CLIENTS)
+    return DI_CLIENTS * DI_SMALL_PUTS / wall
+
+
 def lock_bodies(t: int, n: int) -> bytes:
     """Client t's n-th body for the lock step: its id, then bytes made
     from the id, so a torn or mixed body shows."""
@@ -3401,9 +3555,40 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
         log(f"4h: 4 nodes x 4 drives, one set at EC 12+4, serving "
             f"{boot_s:.2f} s after their start (node 0: "
             f"{DI_HTTP_WORKERS[0]} workers)")
+        t0 = time.perf_counter()
+        armed = wait_armed(nodes, "4h boot")
+        log(f"4h coherence: every node's worker 0 armed 3 of 3 peers and "
+            f"node 0's sibling gate open {time.perf_counter() - t0:.2f} s "
+            f"after serving (resyncs " + ", ".join(
+                f"node {i} {a['resyncs']}" for i, a in armed.items()) + ")")
+        check(all(a["armed"] == a["peers"] == 3 for a in armed.values()),
+              f"4h: peers armed {armed}")
 
         # -- 1. load through every node, read back through another ----
         dist_put, dist_get = di_load(nodes, objs, parts, "4h load")
+
+        # -- 1b. caches on: overwrites through node 1, reads elsewhere -
+        t0 = time.perf_counter()
+        readers = [nodes[0], nodes[2], nodes[3]]
+        reads, stale = coherence_rounds(nodes[1], readers, rng,
+                                        "4h coherence")
+        coh_s = time.perf_counter() - t0
+        hits = {i: {w: cache_hits(d) for w, d in
+                    worker_infos(nodes[i]).items()} for i in (0, 2, 3)}
+        small_dist = node_put_rate(nodes, rng, "rate4")
+        log(f"4h coherence: {DI_COH_ROUNDS} rounds of {DI_COH_KEYS} keys "
+            f"(64 KiB and 1 MiB) overwritten through node 1, {reads} reads "
+            f"through nodes 0 (both workers), 2 and 3 in {coh_s:.2f} s: "
+            f"{stale} stale; (fileinfo-cache, hot-cache) hits by node and "
+            f"worker {hits}; 1 KiB PUTs from {DI_CLIENTS} clients over the "
+            f"4 nodes {small_dist:.1f} keys/s ({smi('--query-gpu=name,power.limit')})")
+        check(stale == 0, f"4h coherence: {stale} stale reads")
+        check(all(h[0] > 0 and h[1] > 0 for i in (2, 3)
+                  for h in hits[i].values()),
+              f"4h coherence: nodes 2 and 3 served no cache hit: {hits}")
+        check(len(hits[0]) == DI_HTTP_WORKERS[0] and
+              all(sum(h) > 0 for h in hits[0].values()),
+              f"4h coherence: a worker of node 0 served no hit: {hits[0]}")
 
         # -- 2. locks: 16 clients overwrite 8 keys through all nodes ---
         written: dict = {}
@@ -3493,6 +3678,13 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
               f"{[(p[4], p[5]) for p in failed[:5]]}")
         every.update(live)
         read_back(nodes[:3], every, "4h with node 3 down")
+        shut = {i: {w: coherent(d) for w, d in
+                    worker_infos(nodes[i]).items()} for i in range(3)}
+        log(f"4h coherence with node 3 down: gates by node and worker "
+            f"{shut} (False: shut, the caches answer misses)")
+        check(not any(v for g in shut.values() for v in g.values()),
+              f"4h: a gate stayed open with node 3 down: {shut}")
+        resyncs0 = {i: a["resyncs"] for i, a in armed.items()}
 
         # -- 4. two nodes lost: 503, within the drive deadline ---------
         nodes[2].kill()
@@ -3538,6 +3730,21 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
             f"journals of the {len(live)} keys written with node 3 down "
             f"missing from its drives: {missing}")
         check(missing == 0, "4h: node 3's drives did not heal")
+        t0 = time.perf_counter()
+        rearmed = wait_armed(nodes, "4h after the restarts")
+        rearm_s = time.perf_counter() - t0
+        reads, stale = coherence_rounds(nodes[1], [nodes[0], nodes[2],
+                                                   nodes[3]], rng,
+                                        "4h coherence after the restarts",
+                                        retry_s=30.0)
+        log(f"4h coherence after nodes 2 and 3 restarted: every node armed "
+            f"again ({rearm_s:.2f} s after the heal; resyncs of the nodes "
+            f"that stayed up: node 0 {resyncs0[0]} -> "
+            f"{rearmed[0]['resyncs']}, node 1 {resyncs0[1]} -> "
+            f"{rearmed[1]['resyncs']}); {reads} reads, {stale} stale")
+        check(all(rearmed[i]["resyncs"] > resyncs0[i] for i in (0, 1)),
+              f"4h: no resync re-armed the nodes: {resyncs0} {rearmed}")
+        check(stale == 0, f"4h: {stale} stale reads after the restarts")
 
         # -- 6. the heal's proof: node 0 lost, nodes 1-3 read all ------
         # Node 1 reads node 3's drives again once its breaker's next
@@ -3569,6 +3776,11 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
         # -- 7. the same load on one node of 16 local drives -----------
         one.wait_serving()
         local_put, local_get = di_load([one], objs, parts, "4h one node")
+        small_one = node_put_rate([one], rng, "rate1")
+        log(f"4h small PUTs: {small_dist:.1f} keys/s over 4 nodes, each "
+            f"PUT's bump pushed to 3 peers and acked, against "
+            f"{small_one:.1f} on one node of 16 drives served by "
+            f"{sum(DI_HTTP_WORKERS)} workers ({small_dist / small_one:.3f}x)")
         clean_stop(one)
         add(summaries(one))
     finally:
@@ -3592,6 +3804,448 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
                                         for r in (1, 2, 3)),
           f"4h: gf_apply at k = 12 with parity and decode rows: {kr}")
     check(launches["highwayhash256"] > 0, "4h: highwayhash256 never "
+          "launched on the nodes")
+    return launches
+
+
+EL_NODES, EL_DRIVES = 4, 4       # MinIO's "Expand a Distributed Deployment"
+EL_HTTP_WORKERS = (2, 1, 1, 1)   # MTPU_HTTP_WORKERS of each node
+EL_CLIENTS = 16
+EL_BIG, EL_N_BIG = 16 * MIB, 16
+EL_RAGGED = 64 * MIB + 1
+EL_SMALL = 10                   # keys of 1 KiB (cut from 100)
+EL_VKEYS, EL_VERSIONS, EL_MARKERS = 5, 3, 3    # (20, 3, 10, cut)
+EL_VBODY = 4 * 1024
+EL_LIVE_SIZE = MIB              # the paced clients' PUT+GET pairs
+EL_LIVE_PAUSE = 0.25            # seconds between a client's pairs
+EL_LIVE_KEYS = 4                # keys a paced client overwrites in turn
+EL_KILL_AFTER = 12              # keys the drain moved before the SIGKILL
+# The cut: a coordinator's lease lapses in 6 s (default 30) and the
+# janitor ticks every second (default 10). MTPU_MIG_BATCH=1 (default 8)
+# shards each batch of 4 keys over the 4 nodes: the checkpoint, written
+# every 16 keys, trails the live walk from the first batch's end until
+# the rebalance's byte target or its 16th key (step 4 reads the
+# difference while 16 MiB objects move), and a SIGKILL cuts a batch of
+# 4 keys, not 32.
+EL_ENV = {"MTPU_FILEINFO_CACHE": "on", "MTPU_HOT_CACHE": "on",
+          "MTPU_GRID_LOCK_TTL": "6", "MTPU_ELASTIC_JANITOR_S": "1",
+          "MTPU_MIG_BATCH": "1", "PYTHONFAULTHANDLER": "1"}
+
+
+def dump_nodes(nodes: list, what: str) -> None:
+    """After a failed check: SIGABRT to each live node's processes,
+    whose fault handler prints every thread's stack, and the tail of
+    each node's output to stderr."""
+    import signal
+    live = [p for p in nodes if p is not None and p.proc.poll() is None]
+    for p in live:
+        try:
+            os.killpg(p.proc.pid, signal.SIGABRT)
+        except ProcessLookupError:
+            pass
+    time.sleep(3.0)
+    for i, p in enumerate(nodes):
+        if p is not None:
+            print(f"---- {what}: node {i}, last lines ----\n"
+                  + "\n".join(p.lines[-400:]), file=sys.stderr, flush=True)
+
+
+def admin_json(p: "ServerProc", verb: str, method: str = "GET",
+               query: dict | None = None):
+    """An admin pool verb through node `p`: (status, JSON or None)."""
+    st, body, _ = p.client.send(method, f"/minio/admin/v3/{verb}",
+                                query=query)
+    return st, (json.loads(body) if st == 200 and body else None)
+
+
+def checkpoint(drives: list, name: str) -> dict | None:
+    """The highest-revision copy of config/<name> on `drives`."""
+    best = None
+    for d in drives:
+        try:
+            with open(os.path.join(d, ".mtpu.sys", "config", name)) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if best is None or doc.get("rev", 0) > best.get("rev", 0):
+            best = doc
+    return best
+
+
+def phase_elastic_fleet(rng, root: str, device: str = "cuda") -> dict:
+    """A distributed expansion and decommission (phase 4i): four nodes on
+    a 16-drive pool, loaded, restarted with a second pool appended, a
+    rebalance started, read live and stopped through three other nodes,
+    then a decommission of the first pool under paced clients whose
+    coordinator is SIGKILLed mid-walk and resumed by a survivor's
+    janitor, and a restart on the second pool alone; returns the
+    launches the nodes printed at their clean stops."""
+    t_phase = time.perf_counter()
+    card = smi("--query-gpu=name,power.limit")
+    ports = node_ports(EL_NODES)
+    drives = {pool: [os.path.join(root, "i", f"n{i}", f"p{pool}", f"d{j}")
+                     for i in range(EL_NODES)
+                     for j in range(1, EL_DRIVES + 1)] for pool in (1, 2)}
+    args = {pool: ",".join(
+        f"http://127.0.0.1:{ports[k // EL_DRIVES]}{d}"
+        for k, d in enumerate(drives[pool])) for pool in (1, 2)}
+    extra = ("--scanner-interval", "0")
+    launches = {"gf_apply": 0, "highwayhash256": 0, "gf_apply_by_kr": {}}
+    walls: dict = {}
+
+    def add(n: dict) -> None:
+        launches["gf_apply"] += n["gf_apply"]
+        launches["highwayhash256"] += n["highwayhash256"]
+        for kr, v in n["gf_apply_by_kr"].items():
+            launches["gf_apply_by_kr"][kr] = \
+                launches["gf_apply_by_kr"].get(kr, 0) + v
+
+    def boot(pools: list, what: str) -> list:
+        t0 = time.perf_counter()
+        nodes = [ServerProc([args[x] for x in pools], extra, device,
+                            EL_HTTP_WORKERS[i], EL_ENV, port=ports[i],
+                            wait=False) for i in range(EL_NODES)]
+        try:
+            for p in nodes:
+                p.wait_serving()
+            for p in nodes:
+                check(f"distributed over {EL_NODES} nodes" in
+                      p.line("serving S3 on"), f"{what}: {p.lines[-5:]}")
+            wait_armed(nodes, what)
+        except BaseException:
+            for p in nodes:
+                p.kill()
+            raise
+        walls[what] = time.perf_counter() - t0
+        return nodes
+
+    def stop_all(nodes: list) -> list:
+        for p in nodes:
+            clean_stop(p)
+        sums = [summaries(p) for p in nodes]
+        for n in sums:
+            add(n)
+        return sums
+
+    # What the phase wrote: (bucket, key) -> bytes; versions apart.
+    blob = rng.bytes(EL_N_BIG * EL_BIG + EL_RAGGED + EL_SMALL * 1024)
+    view = memoryview(blob)
+    objs = {("g4i", f"big/{i:03d}"): view[i * EL_BIG:(i + 1) * EL_BIG]
+            for i in range(EL_N_BIG)}
+    o = EL_N_BIG * EL_BIG
+    objs["g4i", "ragged"] = view[o:o + EL_RAGGED]
+    o += EL_RAGGED
+    for i in range(EL_SMALL):
+        objs["g4i", f"small/{i:04d}"] = view[o + i * 1024:o + (i + 1) * 1024]
+    versions: dict = {}             # key -> [(version id, etag or marker)]
+    small_keys = [k for b, k in objs if k.startswith("small/")]
+
+    def read_all(p: "ServerProc", what: str) -> float:
+        """Every key byte for byte, every version by its id and ETag and
+        the version listing, through node `p`."""
+        def get(_t: int, bk) -> None:
+            st, body = p.client("GET", f"/{bk[0]}/{bk[1]}")
+            check(st == 200 and body == objs[bk],
+                  f"{what}: GET {bk[0]}/{bk[1]}: {st}")
+        items = sorted(objs)
+        t0 = time.perf_counter()
+        run_clients(get, [items[t::EL_CLIENTS] for t in range(EL_CLIENTS)])
+        listed = []
+        marker = vm = ""
+        while True:
+            st, body, _ = p.client.send("GET", "/g4iv", query={
+                "versions": "", "key-marker": marker,
+                **({"version-id-marker": vm} if marker else {})})
+            check(st == 200, f"{what}: list versions {st}")
+            for e in xml_entries(body, "Version") + \
+                    xml_entries(body, "DeleteMarker"):
+                listed.append((e["Key"], e["VersionId"],
+                               e.get("ETag", "marker")))
+            if xml_tag(body, "IsTruncated") != "true":
+                break
+            marker = xml_tag(body, "NextKeyMarker")
+            vm = xml_tag(body, "NextVersionIdMarker")
+        want = sorted((k, vid, tag) for k, vs in versions.items()
+                      for vid, tag in vs)
+        check(sorted(listed) == want, f"{what}: the version listing "
+              f"differs: {len(listed)} entries against {len(want)}")
+        for k, vs in versions.items():
+            for vid, tag in vs:
+                if tag != "marker":
+                    st, _, h = p.client.send("GET", f"/g4iv/{k}",
+                                             query={"versionId": vid})
+                    check(st == 200 and h["etag"] == tag,
+                          f"{what}: GET {k}?versionId={vid}: {st}")
+        return time.perf_counter() - t0
+
+    nodes: list = []
+    try:
+        # -- 1. pool 1 (1 x 16, EC 12+4) on four nodes, loaded ----------
+        nodes = boot([1], "4i boot on pool 1")
+        c0 = nodes[0].client
+        for b in ("g4i", "g4iv", "g4il"):
+            check(c0("PUT", f"/{b}")[0] == 200, f"4i: make bucket {b}")
+        check(c0.send("PUT", "/g4iv", VERSIONING.format("Enabled").encode(),
+                      query={"versioning": ""})[0] == 200, "4i: versioning")
+        t0 = time.perf_counter()
+
+        def put(t: int, bk) -> None:
+            st, err = nodes[t % EL_NODES].client("PUT", f"/{bk[0]}/{bk[1]}",
+                                                 bytes(objs[bk]))
+            check(st == 200, f"4i: PUT {bk}: {st} {err[:200]!r}")
+        items = sorted(objs)
+        run_clients(put, [items[t::EL_CLIENTS] for t in range(EL_CLIENTS)])
+        vbody = rng.bytes(EL_VKEYS * EL_VERSIONS * EL_VBODY)
+
+        def put_versions(t: int, k: int) -> None:
+            c, key, got = nodes[t % EL_NODES].client, f"v{k:03d}", []
+            for v in range(EL_VERSIONS):
+                o = (k * EL_VERSIONS + v) * EL_VBODY
+                st, _, h = c.send("PUT", f"/g4iv/{key}",
+                                  vbody[o:o + EL_VBODY])
+                check(st == 200, f"4i: PUT {key} #{v}: {st}")
+                got.append((h["x-amz-version-id"], h["etag"]))
+            if k < EL_MARKERS:
+                st, _, h = c.send("DELETE", f"/g4iv/{key}")
+                check(st == 204 and h.get("x-amz-delete-marker") == "true",
+                      f"4i: marker on {key}: {st}")
+                got.append((h["x-amz-version-id"], "marker"))
+            versions[key] = got
+        run_clients(put_versions, [range(t, EL_VKEYS, EL_CLIENTS)
+                                   for t in range(EL_CLIENTS)])
+        walls["load"] = time.perf_counter() - t0
+        loaded = sum(map(len, objs.values())) + len(vbody)
+        log(f"4i: 4 nodes x 4 drives of pool 1 (1 x 16, EC 12+4) serving "
+            f"and armed in {walls['4i boot on pool 1']:.2f} s; "
+            f"{EL_CLIENTS} clients over the nodes loaded "
+            f"{loaded / MIB:.1f} MiB in {walls['load']:.2f} s "
+            f"({EL_N_BIG} x 16 MiB, 64 MiB + 1 B, {EL_SMALL} x 1 KiB, "
+            f"{EL_VKEYS} keys x {EL_VERSIONS} versions, {EL_MARKERS} "
+            f"markers)")
+        stop_all(nodes)
+        nodes = []
+
+        # -- 2. restarted with pool 2 appended ---------------------------
+        nodes = boot([1, 2], "4i boot on pools 1 and 2")
+        check("pool 0: EC 12+4; pool 1: EC 12+4" in
+              nodes[0].line("serving S3 on"),
+              f"4i: the expanded layout {nodes[0].line('serving S3 on')}")
+
+        # -- 3-5. a rebalance started through node 2, read live through
+        # node 3, stopped through node 1 ---------------------------------
+        t0 = time.perf_counter()
+        st, _ = admin_json(nodes[2], "rebalance-start", "POST")
+        check(st == 200, f"4i: rebalance-start through node 2: {st}")
+        differs = None
+        polls = 0
+        while differs is None:
+            check(time.perf_counter() - t0 < 120, "4i: node 3 never read "
+                  "a live rebalance state ahead of its checkpoint")
+            st, live = admin_json(nodes[3], "rebalance-status")
+            ckpt = checkpoint(drives[1], "rebalance.json")
+            polls += 1
+            if st == 200 and live and ckpt and \
+                    live.get("status") == "rebalancing":
+                moved = sum(r["migrated"] for r in live["pools"].values())
+                saved = sum(r["migrated"] for r in ckpt["pools"].values())
+                if moved > saved:       # the coordinator's, not a copy
+                    differs = (moved, saved, live.get("rev"),
+                               ckpt.get("rev"))
+            check(not (live or {}).get("status") in ("complete", "failed"),
+                  f"4i: the rebalance ended before node 3 read it live: "
+                  f"{live}")
+            time.sleep(0.05)
+        st, _ = admin_json(nodes[1], "rebalance-stop", "POST")
+        check(st == 200, f"4i: rebalance-stop through node 1: {st}")
+        stop_s = time.perf_counter() - t0
+        while True:
+            # The coordinator pauses once its batch in flight ends.
+            st, after = admin_json(nodes[0], "rebalance-status")
+            if st == 200 and after and (after.get("paused") or
+                                        after["status"] == "complete"):
+                break
+            check(time.perf_counter() - t0 < 180, f"4i: the stop through "
+                  f"node 1 did not reach node 2: {after}")
+            time.sleep(0.1)
+        paused_s = time.perf_counter() - t0
+        rb_moved = sum(r["migrated"] for r in after["pools"].values())
+        walls["rebalance"] = paused_s
+        log(f"4i rebalance: started through node 2, read live through "
+            f"node 3 after {polls} polls ({differs[0]} keys moved live "
+            f"against {differs[1]} in the checkpoint on pool 1's drives, "
+            f"rev {differs[2]} and {differs[3]}); stopped through node 1 "
+            f"{stop_s:.2f} s after the start, paused at {paused_s:.2f} s: "
+            f"{after['status']}, paused {after.get('paused')}, {rb_moved} "
+            f"keys moved")
+
+        # -- 6-9. pool 1 decommissioned through node 1 under paced clients
+        # on nodes 0, 2 and 3; node 1 (the coordinator) SIGKILLed --------
+        live_pool = rng.bytes(64 * MIB)
+        live_keys: dict = {}
+        failed, stale, pairs = [], [], [0]
+        done = threading.Event()
+
+        def client(t: int) -> None:
+            node = nodes[(0, 2, 3)[t % 3]]
+            i = 0
+            while not done.is_set():
+                key = f"t{t:02d}/k{i % EL_LIVE_KEYS}"
+                o = (t * 7919 + i * 104729) % (63 * MIB)
+                body = live_pool[o:o + EL_LIVE_SIZE]
+                small_k = small_keys[(t * 31 + i) % len(small_keys)]
+                try:
+                    st, _ = node.client("PUT", f"/g4il/{key}", body)
+                    if st != 200:
+                        failed.append(f"PUT {key}: {st}")
+                    else:
+                        live_keys["g4il", key] = body
+                        st, got = node.client("GET", f"/g4il/{key}")
+                        if st != 200:
+                            failed.append(f"GET {key}: {st}")
+                        elif got != body:
+                            stale.append(f"GET {key}")
+                    st, got = node.client("GET", f"/g4i/{small_k}")
+                    if st != 200:
+                        failed.append(f"GET {small_k}: {st}")
+                    elif got != objs["g4i", small_k]:
+                        stale.append(f"GET {small_k}")
+                    pairs[0] += 1
+                except (OSError, http.client.HTTPException) as e:
+                    failed.append(f"{key}: {e!r}")
+                i += 1
+                time.sleep(EL_LIVE_PAUSE)
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(EL_CLIENTS)]
+        t0 = time.perf_counter()
+        st, _ = admin_json(nodes[1], "decommission", "POST", {"pool": "0"})
+        check(st == 200, f"4i: decommission through node 1: {st}")
+        # The start's notice reached every node before the answer: the
+        # clients' keys land in pool 2 and stay out of the walk.
+        for th in threads:
+            th.start()
+        try:
+            while True:
+                st, doc = admin_json(nodes[1], "decommission-status")
+                check(st == 200 and doc and doc["status"] == "draining",
+                      f"4i: the drain before the kill: {st} {doc}")
+                if doc["migrated"] >= EL_KILL_AFTER:
+                    break
+                check(time.perf_counter() - t0 < 120,
+                      f"4i: the drain stalled: {doc}")
+                time.sleep(0.05)
+            t_kill = time.time()
+            before_kill = time.perf_counter() - t0
+            nodes[1].kill()
+            resumed_s = at_resume = None
+            while True:
+                st, doc = admin_json(nodes[2], "decommission-status")
+                if doc and resumed_s is None and \
+                        doc.get("checkpoint_ns", 0) > t_kill * 1e9:
+                    resumed_s = time.time() - t_kill
+                    # The resumed walk's first record: its checkpoint.
+                    at_resume = (time.perf_counter(), doc["migrated"],
+                                 doc["bytes_moved"])
+                if doc and doc["status"] in ("complete", "failed"):
+                    break
+                check(time.perf_counter() - t0 < 300,
+                      f"4i: the drain never ended: {doc}")
+                time.sleep(0.1)
+            drain_s = time.perf_counter() - t0
+        finally:
+            done.set()
+            for th in threads:
+                th.join(120)
+        check(not any(th.is_alive() for th in threads),
+              "4i: a paced client hung")
+        check(doc["status"] == "complete" and doc["failed"] == 0,
+              f"4i: the drain ended {doc}")
+        check(resumed_s is not None, f"4i: no survivor resumed: {doc}")
+        # The walk after the resume, apart from the walk before the kill
+        # and the dead lease's wait.
+        post_s = t0 + drain_s - at_resume[0]
+        post_keys = doc["migrated"] - at_resume[1]
+        post_bytes = doc["bytes_moved"] - at_resume[2]
+        check(not failed and not stale, f"4i: paced clients: failed "
+              f"{failed[:5]}, stale {stale[:5]}")
+        walls["decommission"] = drain_s
+        objs.update(live_keys)
+        survivors = [nodes[i] for i in (0, 2, 3)]
+        sums = stop_all(survivors)
+        nodes[1] = None
+        nodes = []
+        pages = {i: sum(c["mig_pages_served"]["batches"]
+                        for c in n["control"])
+                 for i, n in zip((0, 2, 3), sums)}
+        keys_served = {i: sum(c["mig_pages_served"]["keys"]
+                              for c in n["control"])
+                       for i, n in zip((0, 2, 3), sums)}
+        coh = [c for n in sums for c in n["control"] if c["peers"]]
+        log(f"4i decommission of pool 1 through node 1: node 1 (the "
+            f"coordinator) SIGKILLed {before_kill:.2f} s in, after "
+            f"{EL_KILL_AFTER}+ keys; a survivor's janitor resumed the "
+            f"walk {resumed_s:.2f} s after the kill (lease TTL 6 s, "
+            f"janitor 1 s); complete {drain_s:.2f} s after the start "
+            f"with {doc['migrated']} keys and {doc['bytes_moved']} B on "
+            f"its record; after the resume {post_keys} keys and "
+            f"{post_bytes} B in {post_s:.2f} s "
+            f"({post_keys / max(post_s, 1e-9):.3f} keys/s), "
+            f"{doc.get('yields', 0)} yields; mig.page batches served by "
+            f"the survivors {pages} (keys {keys_served}); {EL_CLIENTS} "
+            f"paced clients on nodes 0, 2, 3: {pairs[0]} PUT+GET pairs, "
+            f"0 failed, 0 stale ({card})")
+        log("4i control planes at the survivors' clean stops: " + "; ".join(
+            f"pushes {c['pushes']}, escalations {c['escalations']}, "
+            f"resyncs {c['resyncs']}, notices {c['notices']}" for c in coh))
+        check(sum(1 for v in pages.values() if v > 0) >= 2,
+              f"4i: mig.page served by fewer than two nodes: {pages}")
+        left = {i: sum(len(journals(d)) for d in drives[1]
+                       if f"{os.sep}n{i}{os.sep}" in d)
+                for i in range(EL_NODES)}
+        check(all(left[i] == 0 for i in (0, 2, 3)),
+              f"4i: journals left on pool 1's drives: {left}")
+
+        # -- 10-11. pool 2 alone, every key through every node ----------
+        nodes = boot([2], "4i boot on pool 2 alone")
+        # Node 1's drives missed what was written after its SIGKILL: an
+        # admin heal through it (as 4h heals node 3) before the reads,
+        # or a listing over its stale drives shows only latest versions.
+        status, heal_s = admin_heal(nodes[1].client, deep=False)
+        walls["heal"] = heal_s
+        n1 = [d for d in drives[2] if f"{os.sep}n1{os.sep}" in d]
+        behind = sum(not os.path.exists(os.path.join(d, b, k, "xl.meta"))
+                     for b, k in [*objs, *[("g4iv", v) for v in versions]]
+                     for d in n1)
+        log(f"4i: an admin heal through node 1 in {heal_s:.2f} s "
+            f"({status.get('healed')} healed); journals missing from node "
+            f"1's pool-2 drives after it: {behind}")
+        check(behind == 0, "4i: node 1's drives did not heal")
+        reads = {i: read_all(p, f"4i pool 2 alone, node {i}")
+                 for i, p in enumerate(nodes)}
+        log(f"4i: restarted on pool 2 alone ({walls['4i boot on pool 2 alone']:.2f} s "
+            f"to serve and arm); {len(objs)} keys (the paced clients' "
+            f"{len(live_keys)} acknowledged ones among them) and "
+            f"{sum(map(len, versions.values()))} versions and markers read "
+            f"back byte for byte through each node in " + ", ".join(
+                f"{w:.2f}" for w in reads.values()) + " s; journals left "
+            f"on pool 1: {left} (node 1's drives were down for the rest "
+            f"of the walk and leave with the pool)")
+        stop_all(nodes)
+        nodes = []
+    except BaseException:
+        dump_nodes(nodes, "4i")
+        raise
+    finally:
+        for p in nodes:
+            if p is not None:
+                p.kill()
+    shutil.rmtree(os.path.join(root, "i"), ignore_errors=True)
+    kr = launches["gf_apply_by_kr"]
+    log(f"4i launches by k,r {kr}, highwayhash256 "
+        f"{launches['highwayhash256']}; walls " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    check(kr.get("12,4", 0) > 0, f"4i: gf_apply at k = 12, r = 4: {kr}")
+    check(launches["highwayhash256"] > 0, "4i: highwayhash256 never "
           "launched on the nodes")
     return launches
 
@@ -3818,6 +4472,9 @@ def main() -> int:
         for done in os.listdir(root):
             shutil.rmtree(os.path.join(root, done), ignore_errors=True)
         dist = timed("4h", phase_distributed, rng, root)
+        for done in os.listdir(root):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        elastic = timed("4i", phase_elastic_fleet, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed("4 (solo dispatch)", solo_dispatch_ms, torch, rng, conc_stats)
@@ -3825,7 +4482,7 @@ def main() -> int:
     times = timed("6", phase_times, torch, dev, rng)
 
     launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
-                + fleet[k] + pools[k] + dist[k]
+                + fleet[k] + pools[k] + dist[k] + elastic[k]
                 for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {

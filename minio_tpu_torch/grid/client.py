@@ -112,6 +112,10 @@ class GridClient:
         # node's clean stop prints, to time the switch after a peer dies.
         self.fast_fails_total = 0
         self.opened_at: list[float] = []
+        # Called when a live connection dies: the coherence plane
+        # (grid/coherence.py) disarms the peer at once, not at its next
+        # sync tick.
+        self.on_conn_lost: list = []
 
     # -- breaker ---------------------------------------------------------
 
@@ -245,6 +249,11 @@ class GridClient:
             s.close()
         except OSError:
             pass
+        for cb in self.on_conn_lost:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 - observers must not break I/O
+                pass
 
     def _on_frame(self, s, msg: dict) -> None:
         """Route one received frame (the poller's callback). Raw bulk

@@ -21,7 +21,14 @@ Cross-process coordination:
     listing or a fileinfo or hot-object hit, and flush what they hold
     when any sibling mutated anything. Bucket-metadata writes append to
     `meta.gen`, checked at most every 0.25 s before a TTL-cached record
-    is trusted;
+    is trusted. On a distributed node worker 0 owns the cross-node
+    coherence (grid/coherence.py) and publishes its verdict to
+    `coherence.state` on every sync tick; siblings gate their caches on
+    it (FileGate: a stale heartbeat reads as incoherent), relay their
+    bumps to worker 0 over loopback (`gen.relay`), and leave
+    `coherence.relay-flag` when a relay fails, which worker 0's next
+    tick turns into a wildcard broadcast (the wiring is
+    minio_tpu_torch.server's);
   * admission: MTPU_API_REQUESTS_MAX budgets divide across workers
     (ceil), so the fleet-wide in-flight bound stays what the operator
     configured;
@@ -253,8 +260,8 @@ def _wire_set(s, shared_dir: str, list_gen: SharedGen,
     mc = s.metacache
     orig_bump = mc.bump
 
-    def bump(bucket: str) -> None:
-        orig_bump(bucket)
+    def bump(bucket: str, broadcast: bool = True) -> None:
+        orig_bump(bucket, broadcast)
         list_gen.bump()
     mc.bump = bump
     if s.group_commit is not None:
@@ -277,7 +284,7 @@ def _wire_set(s, shared_dir: str, list_gen: SharedGen,
             buckets = {k[0] for k in list(mc._walks)} | set(mc._gen) \
                 | {bucket}
             for b in buckets:
-                orig_bump(b)
+                orig_bump(b, False)     # a sibling's: it broadcast it
         return orig_walk(es, bucket, prefix, start=start, **kw)
     mc.walk_for = walk_for
 

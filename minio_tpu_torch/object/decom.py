@@ -19,9 +19,13 @@ search visits destinations first. When the walk ends and a last
 listing finds the pool empty, it is "complete" and the operator
 restarts without its drives.
 
-The walk runs in this process. A distributed deployment's coordinator
-lease (dsync) and its fleet-sharded page dispatch come with the port's
-distributed plane.
+In a distributed deployment one node drives a walk: it holds the dsync
+coordinator lease (`coordinator_lease`), shards each listing page's keys
+over the nodes by a CRC-32 of the key (`PageDispatcher`: a peer migrates
+its shard through its own object layer on a `mig.page` call and returns
+counters only) and alone writes the checkpoint, so a coordinator's crash
+costs at most one batch again. A peer that is down has its shard
+migrated here.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from minio_tpu_torch.object.types import (DeleteOptions, GetOptions,
                                           MethodNotAllowed, ObjectNotFound,
                                           VersionNotFound)
 from minio_tpu_torch.storage.local import SYS_VOL
-from minio_tpu_torch.utils.env import env_int
+from minio_tpu_torch.utils.env import env_float, env_int
 
 DECOM_PATH = "config/decom.json"
 CHECKPOINT_EVERY = 16          # keys between checkpoint writes
@@ -49,6 +53,11 @@ RECHECK_WALKS = 3              # walks again while a drained pool holds keys
 
 class DecomError(Exception):
     pass
+
+
+class LeaseHeld(DecomError):
+    """Another node holds the migration coordinator lease: it drives
+    the drain (or rebalance)."""
 
 
 class MigrationGovernor:
@@ -179,6 +188,18 @@ def _write_doc(layer, doc: dict, skip_idx: int, scrub: bool = False) -> None:
                     pass
 
 
+def coordinator_lease(layer, name: str):
+    """The dsync write lease electing one fleet-wide coordinator of a
+    migration ("decom" or "rebalance"), over the layer's lockers; None
+    without lockers (one node needs no election). A held lease refreshes
+    itself; a SIGKILLed holder's lapses after MTPU_GRID_LOCK_TTL, and a
+    surviving node's elastic janitor then wins it."""
+    if not layer.lockers:
+        return None
+    from minio_tpu_torch.grid.dsync import DRWMutex
+    return DRWMutex(layer.lockers, f"{SYS_VOL}/elastic/{name}-coordinator")
+
+
 def migrate_key(layer, src_idx: int, bucket: str, key: str,
                 pick_dst: Callable[[], int]) -> int:
     """Move one key's whole version stack out of pool `src_idx`: the
@@ -291,6 +312,129 @@ def free_space_dst(layer, exclude) -> int:
     return best
 
 
+# mig.page batches and keys this process migrated for a coordinator on
+# another node; a node's clean stop prints them.
+PAGES_SERVED = {"batches": 0, "keys": 0}
+_served_mu = threading.Lock()
+
+
+def exec_page(layer, src_idx: int, bucket: str, keys: list,
+              exclude=()) -> dict:
+    """Migrate `keys` out of pool `src_idx` here, yielding to this node's
+    clients between keys: the body of the `mig.page` verb and of the
+    coordinator's own shard. Counters only ({migrated, failed, bytes,
+    last_error}): the coordinator writes every checkpoint."""
+    ex = {int(i) for i in exclude} | {int(src_idx)}
+    pressure = layer.migration_pressure
+    out = {"migrated": 0, "failed": 0, "bytes": 0, "last_error": None}
+    for key in keys:
+        while pressure is not None and pressure():
+            time.sleep(YIELD_POLL_S)
+        try:
+            moved = migrate_key(layer, src_idx, bucket, key,
+                                lambda: free_space_dst(layer, ex))
+            out["migrated"] += 1
+            out["bytes"] += moved
+        except Exception as e:  # noqa: BLE001 - the page goes on
+            out["failed"] += 1
+            out["last_error"] = f"{bucket}/{key}: {e}"
+    return out
+
+
+def serve_page(layer, payload: dict) -> dict:
+    """The `mig.page` grid verb: a coordinator's shard, counted."""
+    keys = list(payload.get("keys") or ())
+    out = exec_page(layer, int(payload["src"]), payload["b"], keys,
+                    payload.get("ex") or ())
+    with _served_mu:
+        PAGES_SERVED["batches"] += 1
+        PAGES_SERVED["keys"] += len(keys)
+    return out
+
+
+class PageDispatcher:
+    """A migration walk sharded over the fleet (minio_tpu/object/decom.py):
+    each batch's keys go to shard crc32(key) % (peers + 1); shard 0
+    migrates here, each other one on its peer through `mig.page`, all at
+    once, and the counters add up. A peer that is down, partitioned or
+    without the verb gets its shard migrated here: the fleet's width
+    buys speed, never correctness."""
+
+    def __init__(self, layer, peers, timeout: Optional[float] = None):
+        self.layer = layer
+        self.peers = list(peers)
+        self.timeout = timeout if timeout is not None else \
+            env_float("MTPU_MIG_PAGE_TIMEOUT_S", 600.0)
+
+    def run(self, src_idx: int, bucket: str, keys: list,
+            exclude=()) -> dict:
+        import zlib
+        n = len(self.peers) + 1
+        shards: list[list] = [[] for _ in range(n)]
+        for k in keys:
+            shards[zlib.crc32(k.encode()) % n].append(k)
+        agg = {"migrated": 0, "failed": 0, "bytes": 0, "last_error": None}
+        mu = threading.Lock()
+        ex = sorted({int(i) for i in exclude} | {int(src_idx)})
+
+        def merge(res: dict) -> None:
+            with mu:
+                for k in ("migrated", "failed", "bytes"):
+                    agg[k] += int(res.get(k, 0))
+                if res.get("last_error"):
+                    agg["last_error"] = res["last_error"]
+
+        def remote(i: int, shard: list) -> None:
+            try:
+                res = self.peers[i].call(
+                    "mig.page", {"src": src_idx, "b": bucket,
+                                 "keys": shard, "ex": ex},
+                    timeout=self.timeout)
+            except Exception:  # noqa: BLE001 - the peer is down: here
+                res = exec_page(self.layer, src_idx, bucket, shard, ex)
+            merge(res)
+
+        threads = [threading.Thread(target=remote, args=(i, shard),
+                                    daemon=True, name=f"mig-page-peer{i}")
+                   for i, shard in enumerate(shards[1:]) if shard]
+        for t in threads:
+            t.start()
+        if shards[0]:
+            merge(exec_page(self.layer, src_idx, bucket, shards[0], ex))
+        for t in threads:
+            t.join()
+        return agg
+
+    def iter_batches(self, src_idx: int, bucket: str, keys: list,
+                     exclude=(), gate=None, cut=None):
+        """`keys` in ordered batches of MTPU_MIG_BATCH (default 8) a
+        node, each dispatched over the fleet with a barrier, yielding
+        (batch, counters): the caller moves its marker and checkpoints
+        between batches. `gate` (the governor's) runs before each;
+        `cut(batch)` may keep a leading part of it (a rebalance's byte
+        target), and the next batch starts after that part."""
+        width = max(1, env_int("MTPU_MIG_BATCH", 8)) * (len(self.peers) + 1)
+        i = 0
+        while i < len(keys):
+            if gate is not None and not gate():
+                return
+            batch = keys[i:i + width]
+            if cut is not None:
+                batch = cut(batch)
+                if not batch:
+                    return
+            i += len(batch)
+            yield batch, self.run(src_idx, bucket, batch, exclude)
+
+
+def page_dispatcher(layer) -> Optional[PageDispatcher]:
+    """The fleet's dispatcher when the boot wired peer nodes, else None
+    (one node walks alone)."""
+    if not layer.migration_peers:
+        return None
+    return PageDispatcher(layer, layer.migration_peers)
+
+
 class Decommission:
     """One pool drain, fresh or resumed from a checkpoint."""
 
@@ -321,6 +465,7 @@ class Decommission:
         # The document, loaded once: a checkpoint must not re-read every
         # drive of the deployment every few keys.
         self._doc: Optional[dict] = None
+        self._lease = None
 
     def _persist(self, scrub: bool = False) -> None:
         if self._doc is None:
@@ -331,13 +476,46 @@ class Decommission:
         _write_doc(self.layer, self._doc, self.pool_idx, scrub=scrub)
 
     def _notify(self) -> None:
-        """A status change reaches the fleet's other workers, which take
-        the pool out of their placement too."""
+        """A status change reaches the fleet's other workers and, through
+        on_decom_change, the other nodes, which take the pool out of
+        their placement too."""
         gen = getattr(self.layer, "decom_gen", None)
         if gen is not None:
             gen.bump()
+        cb = self.layer.on_decom_change
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 - must not fail the drain
+                pass
 
-    def start(self) -> None:
+    def _acquire_lease(self) -> None:
+        """One node drives a drain: a lease lost mid-walk stops this one
+        (checkpointed, still "draining") for the next winner to resume."""
+        lease = coordinator_lease(self.layer, "decom")
+        if lease is not None:
+            lease.on_lost = self._stop.set
+            if not lease.lock(write=True, timeout=5.0):
+                raise LeaseHeld(
+                    "decommission coordinator lease held by another node")
+        self._lease = lease
+
+    def _release_lease(self) -> None:
+        lease, self._lease = self._lease, None
+        if lease is not None:
+            try:
+                lease.unlock()
+            except Exception:  # noqa: BLE001 - the lease may be lost
+                pass
+
+    def start(self, still_wanted=None) -> None:
+        """Take the lease and walk. `still_wanted()`, asked once the
+        lease is won, can still call it off (LeaseHeld): the janitor's
+        check that the walk was not paused or ended while it waited."""
+        self._acquire_lease()
+        if still_wanted is not None and not still_wanted():
+            self._release_lease()
+            raise LeaseHeld("the walk was paused or ended meanwhile")
         self.state.pop("paused", None)
         # The record and the fleet's notice first, this process's
         # placement after: a key this process then places in another
@@ -345,7 +523,11 @@ class Decommission:
         # package excludes the pool here first, and a sibling reading
         # before the notice finds the key's old copy in the drained
         # pool).
-        self._persist(scrub=True)
+        try:
+            self._persist(scrub=True)
+        except DecomError:
+            self._release_lease()
+            raise
         self._notify()
         self.layer.decommissioning.add(self.pool_idx)
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -364,6 +546,9 @@ class Decommission:
                 self._persist()
             except DecomError:
                 pass
+        # Only now: a janitor that won the lease before the pause was on
+        # the drives would resume the walk an operator stopped.
+        self._release_lease()
 
     def wait(self, timeout: float = 300) -> bool:
         if self._thread is not None:
@@ -381,6 +566,9 @@ class Decommission:
                 self._persist()
             except DecomError:
                 pass
+        finally:
+            if not self._stop.is_set():
+                self._release_lease()   # stop() releases after the pause
 
     def _do_key(self, bucket: str, key: str) -> None:
         gov = self._gov
@@ -440,10 +628,14 @@ class Decommission:
         from concurrent.futures import ThreadPoolExecutor
         src = self.layer.pools[self.pool_idx]
         since = 0
+        gov = self._gov
+        # With peer nodes each page's keys spread over the fleet; this
+        # coordinator adds the counters up and writes every checkpoint.
+        disp = page_dispatcher(self.layer)
         pool = ThreadPoolExecutor(
-            max_workers=self._gov.workers,
+            max_workers=gov.workers,
             thread_name_prefix=f"decom{self.pool_idx}-mig") \
-            if self._gov.workers > 1 else None
+            if disp is None and gov.workers > 1 else None
         try:
             start_bucket = self.state.get("bucket", "")
             for bucket in sorted(b.name for b in src.list_buckets()):
@@ -456,7 +648,24 @@ class Decommission:
                                             max_keys=256,
                                             include_versions=True)
                     keys = sorted({o.name for o in page.objects})
-                    if pool is not None:
+                    if disp is not None:
+                        # The marker passes a batch once the whole fleet
+                        # finished it: a crash walks one batch again.
+                        for batch, agg in disp.iter_batches(
+                                self.pool_idx, bucket, keys,
+                                exclude={self.pool_idx}, gate=gov.gate):
+                            gov.count("migrated", agg["migrated"])
+                            gov.count("failed", agg["failed"])
+                            gov.count("bytes_moved", agg["bytes"])
+                            if agg["last_error"]:
+                                self.state["last_error"] = agg["last_error"]
+                            self.state["bucket"] = bucket
+                            self.state["marker"] = batch[-1]
+                            since += len(batch)
+                            if since >= self.checkpoint_every:
+                                since = 0
+                                self._persist()
+                    elif pool is not None:
                         # The marker passes only a fully done page: a
                         # crash walks at most one page again.
                         list(pool.map(lambda k: self._do_key(bucket, k),

@@ -430,10 +430,11 @@ class ErasureSet:
         # Which drives the next listing walk starts at (_walk_resolved).
         self._walk_rotor = 0
         # A set with a drive on another node (storage/remote.py, found
-        # behind the health wrapper) runs without the cross-node cache
-        # protocol, as minio_tpu/object/erasure_object.py does then: its
-        # caches answer misses behind a deny-all gate, it has no
-        # group-commit lanes, and bucket metadata is cached 2 s.
+        # behind the health wrapper) has no group-commit lanes and
+        # caches bucket metadata 2 s, and its caches answer misses
+        # behind a deny-all gate until the distributed boot puts the
+        # cross-node coherence protocol's live gate in its place
+        # (minio_tpu/object/erasure_object.py).
         self._remote_set = any(isinstance(_innermost(d), RemoteStorage)
                                for d in self.disks)
         # The listing's shared walk streams, and the bump funnel every
@@ -651,7 +652,9 @@ class ErasureSet:
     # Seconds a bucket's record stays cached. A local set is this
     # process's own (pre-forked siblings bump the meta generation), and
     # every write here invalidates it; a remote set's record may change
-    # on another node, which tells nobody, so its TTL is the bound.
+    # on another node, whose push (grid/coherence, class bucket-meta)
+    # reaches worker 0 but not its sibling workers or a peer that was
+    # unreachable, so its short TTL stays the backstop.
     _BUCKET_META_TTL = 60.0
     _REMOTE_BUCKET_META_TTL = 2.0
     # Seconds a bucket seen to exist is taken to exist (the JAX

@@ -25,9 +25,12 @@ Coherence model (correctness first, three layers):
     worker's bump appends to; `maybe_flush()` runs at each lookup and
     at each token grab, clearing the whole cache when ANY worker
     mutated ANY namespace since we last looked.
-  * cross-node: a set with a drive on another node shuts `remote_gate`
-    (no invalidation from other nodes reaches this process), and its
-    lookups answer misses.
+  * cross-node: a distributed deployment gates every set's lookups on
+    `remote_gate`, the cross-node coherence protocol's verdict
+    (grid/coherence.PeerCoherence.coherent, or a sibling worker's
+    FileGate); while it is shut the lookups answer misses. A set with a
+    drive on another node built without the protocol has a deny-all
+    gate.
 
 Bounds: entry count AND resident bytes (inline objects carry their
 framed shard payloads in fis), both LRU-evicted. Cached entries keep
@@ -97,10 +100,9 @@ class FileInfoCache:
         # Cross-process invalidation observer (io/workers.SharedGen or
         # anything with a changed() -> bool); None in one process.
         self.shared_gen = None
-        # Cross-NODE gate (minio_tpu/object/fi_cache.py): a set with a
-        # remote drive gets a deny-all gate at construction, so its
-        # lookups answer misses, never hits that no invalidation from
-        # another node covers. None on local sets.
+        # Cross-NODE gate (minio_tpu/object/fi_cache.py): read at each
+        # lookup; a hit is served only while it answers true. None on a
+        # set of one node.
         self.remote_gate = None
         self.hits = 0
         self.misses = 0
@@ -153,11 +155,12 @@ class FileInfoCache:
             self._bytes = 0
 
     def _serving(self) -> bool:
-        """May cached entries be served, and taken, now? Not while the
-        remote gate is shut. The JAX package takes inserts behind a shut
-        gate, which its coherence protocol may reopen; the port's shut
-        gate never reopens, so an insert would copy what no lookup
-        serves."""
+        """May cached entries be served now? Not while the remote gate
+        is shut: this node cannot prove it saw every peer's latest
+        mutation. Inserts are not gated: the token protocol, and the
+        flush of every (bucket, class) whose generation moved when a
+        resync reopens the gate, make an entry taken meanwhile
+        harmless."""
         return gate_open(self.remote_gate)
 
     # -- lookup / insert -------------------------------------------------
@@ -181,7 +184,7 @@ class FileInfoCache:
 
     def put(self, bucket: str, object_: str, version_id: str,
             fi, fis, read_data: bool, token: int) -> None:
-        if not self.enabled or not self._serving():
+        if not self.enabled:
             return
         self.maybe_flush()
         key = (bucket, object_, version_id)
@@ -242,7 +245,7 @@ class FileInfoCache:
                  fi, token: int) -> None:
         """Insert a HEAD result into the STAT class only; same token
         protocol as put()."""
-        if not self.enabled or fi is None or not self._serving():
+        if not self.enabled or fi is None:
             return
         self.maybe_flush()
         if fi.inline_data:

@@ -26,10 +26,14 @@ Coherence rides the funnel object/fi_cache.py uses:
 - pre-forked workers observe the shared ``list.gen`` bump file (their
   own SharedGen instance: ``changed()`` is stateful per observer) and
   flush wholesale when a sibling worker mutated anything;
-- a layer with a set whose fileinfo-cache ``remote_gate`` is shut (a
-  set with a drive on another node) turns the cache off at
-  ``attach_layer``: no invalidation from another node reaches it, and
-  without the cross-node coherence protocol that gate never reopens.
+- across nodes, a hit is served only while the fileinfo-cache
+  ``remote_gate`` of each set that can own the key (one a pool, by the
+  pool's SipHash placement) answers true, failing closed; a set seen
+  shut and then open again first loses the entries it owns, since the
+  bumps sent while it was shut never arrived (``_serving``,
+  ``_flush_set``); one node's sets carry no gate and skip the check. A
+  wildcard invalidation from a peer flushes every cache of the process
+  (``flush_process_caches``).
 
 Each entry also keeps the response head its admitting GET sent, split
 around its Date value (``split_head``), so that a hit can be replayed
@@ -49,11 +53,23 @@ import os
 import re
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Optional
 
 from minio_tpu_torch.object.fi_cache import cache_enabled, gate_open
 from minio_tpu_torch.object.pools import layer_sets
+
+# Every live cache of the process, so that a peer's wildcard
+# invalidation (grid/coherence.make_set_invalidator, bucket "") flushes
+# them all without a server at hand.
+_REGISTRY: "weakref.WeakSet[HotObjectCache]" = weakref.WeakSet()
+
+
+def flush_process_caches() -> None:
+    """Flush every live HotObjectCache of this process."""
+    for cache in list(_REGISTRY):
+        cache.invalidate_all()
 
 
 def _env_int(key: str, default: int) -> int:
@@ -213,19 +229,83 @@ class HotObjectCache:
         self.rejects = 0
         self.evictions = 0
         self.invalidations = 0
+        # The object layer fronted (attach_layer), the sets subscribed
+        # to, whether any of them carries a coherence gate (read at each
+        # lookup only then), and the sets seen with a shut gate.
+        self._layer: Optional[Any] = None
+        self._wired_ids: set[int] = set()
+        self._gated = False
+        self._down_ids: set[int] = set()
+        _REGISTRY.add(self)
 
     def attach_layer(self, layer: Any) -> None:
         """Front the given object layer: subscribe to the metacache bump
         funnel of every set of every pool, so every mutation of a bucket
-        (a pool migration's included) drops its entries. A set whose
-        remote gate is shut turns the cache off: it could serve no entry
-        (minio_tpu/object/hotcache.py reads the same gate at each
-        lookup), so no GET copies a body into it."""
+        (a pool migration's included) drops its entries, and note whether
+        any set carries a coherence gate. Attach again whenever the
+        layer's sets or their gates change (the boot installs the gates
+        before the server attaches): sets that appeared are subscribed
+        and the cache flushed."""
+        self._layer = layer
         sets = layer_sets(layer)
-        for s in sets:
-            s.metacache.listeners.append(self.invalidate_bucket)
-        if not all(gate_open(s.fi_cache.remote_gate) for s in sets):
-            self.enabled = False
+        with self._mu:
+            changed = False
+            for s in sets:
+                if id(s) not in self._wired_ids:
+                    s.metacache.listeners.append(self.invalidate_bucket)
+                    self._wired_ids.add(id(s))
+                    changed = True
+            if changed and (self._probation or self._protected):
+                self._invalidate_all_locked()
+            self._gated = any(s.fi_cache.remote_gate is not None
+                              for s in sets)
+
+    def _owning_sets(self, object_: str) -> list:
+        """The sets that can hold the key: one a pool, by the pool's
+        placement; every set of a layer without pools."""
+        pools = getattr(self._layer, "pools", None)
+        if not pools:
+            return layer_sets(self._layer)
+        return [p.set_for(object_) for p in pools]
+
+    def _serving(self, object_: str) -> bool:
+        """May a hit for `object_` be served now? Only while the gates of
+        the sets that can own it answer true (minio_tpu/object/hotcache.py
+        `_serving`), failing closed: one shut set leaves the other sets'
+        keys served. A set seen shut and now open first loses the entries
+        it owns (_flush_set). A layer whose sets carry no gate (one node)
+        serves at once."""
+        if not self._gated:
+            return True
+        ok = True
+        for s in self._owning_sets(object_):
+            if not gate_open(s.fi_cache.remote_gate):
+                self._down_ids.add(id(s))
+                ok = False
+            elif id(s) in self._down_ids:
+                self._flush_set(s)
+                self._down_ids.discard(id(s))
+        return ok
+
+    def _flush_set(self, target: Any) -> None:
+        """Drop the entries some pool places in `target`, bumping their
+        buckets' generations so a put() racing the flush is refused; the
+        other sets' entries stay."""
+        pools = getattr(self._layer, "pools", None)
+        with self._mu:
+            if not pools:
+                self._invalidate_all_locked()
+                return
+            doomed = [(seg, key) for seg in (self._probation,
+                                            self._protected)
+                      for key in seg
+                      if any(p.set_for(key[1]) is target for p in pools)]
+            for seg, key in doomed:
+                self._bytes -= seg.pop(key).nbytes
+            for bucket in {key[0] for _, key in doomed}:
+                self._gens[bucket] = self._gens.get(bucket, 0) + 1
+            if doomed:
+                self.invalidations += 1
 
     def maybe_flush(self) -> None:
         """Flush wholesale when a sibling worker process bumped the
@@ -254,6 +334,8 @@ class HotObjectCache:
         if not self.enabled:
             return None
         self.maybe_flush()
+        if not self._serving(object_):
+            return None
         key = (bucket, object_)
         with self._mu:
             self._sketch.record(bucket + "/" + object_)
@@ -375,12 +457,15 @@ class HotObjectCache:
 
     def invalidate_all(self) -> None:
         with self._mu:
-            for bucket in self._gens:
-                self._gens[bucket] += 1
-            self._probation.clear()
-            self._protected.clear()
-            self._bytes = 0
-            self.invalidations += 1
+            self._invalidate_all_locked()
+
+    def _invalidate_all_locked(self) -> None:
+        for bucket in self._gens:
+            self._gens[bucket] += 1
+        self._probation.clear()
+        self._protected.clear()
+        self._bytes = 0
+        self.invalidations += 1
 
     # -- introspection ---------------------------------------------------
 

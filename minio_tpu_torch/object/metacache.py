@@ -32,10 +32,13 @@ alone.
 Invalidation is by generation: every namespace mutation of a bucket
 calls `bump`, which orphans the bucket's walks (a cached stream never
 serves names from before a change) and calls every `listeners` entry.
-A set with a drive on another node shuts `remote_gate` (its bumps
-reach no other node): every lookup then walks afresh, outside the
-registry. The JAX package's `on_bump` broadcast to peer nodes waits for
-the port's cross-node coherence protocol.
+A distributed deployment sends each local bump to the peer nodes
+through `on_bump` (grid/coherence.PeerCoherence.broadcast, acked), and
+gates the registry on `remote_gate`, the protocol's verdict: while it is
+shut every lookup walks afresh, outside the registry (a set with a
+remote drive built without the protocol has a deny-all gate). A bump a
+peer sent, or a sibling worker's, is applied with broadcast=False, so
+it never echoes back.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ _IDLE_TTL = 30.0
 _PERSIST_TTL = 2.0
 # In-memory entries a walk at most; past it the walk marks itself
 # truncated and later pages continue through start-floored walks.
+# Per-bucket leading-edge coalescing window of the peer broadcast of a
+# bump (0: every bump broadcasts at once, as the distributed boot sets).
+_BUMP_COALESCE = 0.1
 _MAX_ENTRIES = 500_000
 
 META_DIR = "listcache"         # under SYS_VOL on the first drive
@@ -342,9 +348,17 @@ class MetaCache:
         # must see writes subscribe here (the JAX package's fi_cache).
         self.listeners: list[Callable[[str], None]] = []
         # Cross-NODE gate (minio_tpu/object/metacache.py): while it is
-        # shut (the deny-all gate of a set with a remote drive), every
-        # lookup walks afresh, unregistered, and the drives answer.
+        # shut, every lookup walks afresh, unregistered, and the drives
+        # answer.
         self.remote_gate: Optional[Callable[[], bool]] = None
+        # The distributed boot's broadcaster(bucket): a local bump
+        # reaches the peer nodes, leading-edge coalesced over
+        # bump_coalesce seconds with a trailing broadcast guaranteed
+        # (0: synchronous, every bump, as the acked protocol needs).
+        self.on_bump: Optional[Callable[[str], None]] = None
+        self.bump_coalesce: float = _BUMP_COALESCE
+        self._last_broadcast: dict[str, float] = {}
+        self._pending_broadcast: set[str] = set()
 
     def stats(self) -> dict:
         with self._mu:
@@ -388,15 +402,51 @@ class MetaCache:
             shutil.rmtree(os.path.join(root, SYS_VOL_, META_DIR,
                                        _safe(bucket)), ignore_errors=True)
 
-    def bump(self, bucket: str) -> None:
+    def bump(self, bucket: str, broadcast: bool = True) -> None:
         """A namespace mutation in the bucket: its walks are orphaned and
         its persisted runs removed, before the caller acks the
-        mutation."""
+        mutation; a local one (`broadcast`) also reaches the peers
+        through on_bump."""
         self._notify(bucket)
+        defer = 0.0
         with self._mu:
             self._gen[bucket] = self._gen.get(bucket, 0) + 1
             self._orphan(bucket)
+            cb = self.on_bump if broadcast else None
+            now = time.monotonic()
+            if cb is not None and self.bump_coalesce > 0:
+                last = self._last_broadcast.get(bucket, 0.0)
+                if now - last < self.bump_coalesce:
+                    # Coalesce the burst, but a trailing broadcast is
+                    # owed: without it peers would hold the burst's last
+                    # write out until their next fresh walk.
+                    if bucket in self._pending_broadcast:
+                        cb = None
+                    else:
+                        self._pending_broadcast.add(bucket)
+                        defer = self.bump_coalesce - (now - last)
+                else:
+                    self._last_broadcast[bucket] = now
         self._unpersist(bucket)
+        if cb is None:
+            return
+        if defer > 0:
+            def fire():
+                with self._mu:
+                    self._pending_broadcast.discard(bucket)
+                    self._last_broadcast[bucket] = time.monotonic()
+                try:
+                    cb(bucket)
+                except Exception:  # noqa: BLE001 - peer fan-out best-effort
+                    pass
+            t = threading.Timer(defer, fire)
+            t.daemon = True
+            t.start()
+            return
+        try:
+            cb(bucket)
+        except Exception:  # noqa: BLE001 - peer fan-out best-effort
+            pass
 
     def drop_bucket(self, bucket: str) -> None:
         """The bucket is gone: its generation, walks and persisted runs
@@ -404,6 +454,7 @@ class MetaCache:
         self._notify(bucket)
         with self._mu:
             self._gen.pop(bucket, None)
+            self._last_broadcast.pop(bucket, None)
             self._orphan(bucket)
         self._unpersist(bucket)
 

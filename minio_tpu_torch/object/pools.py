@@ -9,15 +9,17 @@ PutObject, :1095 getPoolIdx); reads and deletes search the pools in
 order, draining pools last; listings merge the pools' pages.
 
 The decommission and rebalance entry points drive object/decom.py and
-object/rebalance.py. Their walks run in this process: the coordinator
-lease and the fleet-sharded page dispatch of a distributed deployment,
-and the elastic janitor that resumes an orphaned walk there, come with
-the port's distributed plane.
+object/rebalance.py. In a distributed deployment a walk takes the dsync
+coordinator lease over `lockers` (one node drives it), shards its pages
+over the peer nodes (`migration_peers`, decom.PageDispatcher), and tells
+the peers of a drain's start and end (`on_decom_change`); the elastic
+janitor resumes a walk whose coordinator died once its lease lapsed.
 """
 
 from __future__ import annotations
 
 import json
+import sys
 import threading
 from typing import Optional, Sequence
 
@@ -34,6 +36,12 @@ _MISSES = (ObjectNotFound, VersionNotFound)
 
 class DecomUnavailable(Exception):
     """Every pool is draining: no placement target exists."""
+
+
+def _in_flight(state, status: str) -> bool:
+    """A checkpoint of a walk in flight that no operator paused."""
+    return bool(state) and state.get("status") == status \
+        and not state.get("paused")
 
 
 def layer_sets(layer) -> list:
@@ -68,9 +76,17 @@ class ServerPools:
         # that sees no change while another re-reads waits for that
         # re-read instead of placing with the drains it knew before.
         self._drain_sync_mu = threading.Lock()
-        # Pools spanning nodes (server.boot): the migration walks need
-        # the peer plane's coordinator lease, which is not ported.
-        self.distributed = False
+        # Peer fan-out hooks of a distributed boot: on_bucket_meta_change
+        # (bucket) after every bucket-metadata change made through this
+        # layer, on_decom_change() at a drain's start and end.
+        self.on_bucket_meta_change = None
+        self.on_decom_change = None
+        # The dsync lockers electing one migration coordinator (empty:
+        # one node, no election), and the peer nodes' grid clients a
+        # walk shards its pages over (decom.page_dispatcher).
+        self.lockers: list = []
+        self.migration_peers: list = []
+        self._janitor = None            # (thread, stop event) when running
 
     @property
     def sets(self) -> list:
@@ -175,6 +191,15 @@ class ServerPools:
                 missing += 1
         if missing == len(self.pools):
             raise BucketNotFound(bucket)
+        self._fire_meta_change(bucket)
+
+    def _fire_meta_change(self, bucket: str) -> None:
+        cb = self.on_bucket_meta_change
+        if cb is not None:
+            try:
+                cb(bucket)
+            except Exception:  # noqa: BLE001 - fan-out must not fail writes
+                pass
 
     def sync_buckets(self) -> int:
         """Make every bucket some pool has in each pool without it, with
@@ -210,8 +235,11 @@ class ServerPools:
         return self.pools[0].versioning_state(bucket)
 
     def set_bucket_versioning(self, bucket: str, status) -> None:
-        for p in self.pools:
-            p.set_bucket_versioning(bucket, status)
+        try:
+            for p in self.pools:
+                p.set_bucket_versioning(bucket, status)
+        finally:
+            self._fire_meta_change(bucket)
 
     def invalidate_bucket_meta(self, bucket: str = "") -> None:
         for p in self.pools:
@@ -356,6 +384,15 @@ class ServerPools:
         self._decom.start()
         return self._decom
 
+    def peer_decom_notice(self) -> None:
+        """A peer node's drain started or ended: re-read the drains
+        here, as a change of the fleet's decom generation would, and
+        make this node's other workers re-read them."""
+        with self._drain_sync_mu:
+            self.sync_decommission_markers()
+        if self.decom_gen is not None:
+            self.decom_gen.bump()
+
     def sync_decommission_markers(self) -> None:
         """The persisted decommission document's drained and draining
         pools leave placement here too."""
@@ -366,13 +403,14 @@ class ServerPools:
                     "draining", "failed", "complete"):
                 self.decommissioning.add(idx)
 
-    def resume_decommission(self):
+    def resume_decommission(self, unpaused: bool = False):
         """At boot: pick an unfinished drain up (from the start when the
         run before recorded failures: the migrate is idempotent, and a
         failed key would be checkpointed past forever). Pools are found
         by their drives' signature, never by a stored index, which
-        shifts once a drained pool leaves the command line. Returns the
-        walk or None."""
+        shifts once a drained pool leaves the command line. With
+        `unpaused` (the janitor) a drain paused or ended by the time the
+        lease is won is left alone. Returns the walk or None."""
         from minio_tpu_torch.object import decom
         self.sync_decommission_markers()
         for sig, rec in decom.load_doc(self).get("records", {}).items():
@@ -384,9 +422,17 @@ class ServerPools:
                 rec.update(bucket="", marker="", failed=0)
             rec["status"] = "draining"
             rec["pool"] = idx
-            self._decom = decom.Decommission(self, idx, state=rec)
-            self._decom.start()
-            return self._decom
+            d = decom.Decommission(self, idx, state=rec)
+            try:
+                d.start(still_wanted=(lambda: _in_flight(
+                    decom.load_state(self), "draining")) if unpaused
+                    else None)
+            except decom.LeaseHeld:
+                # Another node drives this drain; the markers synced
+                # above are all this one needs.
+                return None
+            self._decom = d
+            return d
         return None
 
     def decommission_status(self) -> Optional[dict]:
@@ -425,10 +471,11 @@ class ServerPools:
             self._rebalance.start()
             return self._rebalance
 
-    def resume_rebalance(self):
+    def resume_rebalance(self, unpaused: bool = False):
         """At boot: resume an interrupted rebalance from its checkpoint
         (a run killed while planning, or one whose pool count changed,
-        plans again). Returns the walk or None."""
+        plans again); `unpaused` as resume_decommission's. Returns the
+        walk or None."""
         from minio_tpu_torch.object import rebalance
         state = rebalance.load_state(self)
         if not state or state.get("status") not in ("planning",
@@ -438,9 +485,15 @@ class ServerPools:
                 len(state.get("pools", {})) != len(self.pools):
             state = None
         with self._rebal_mu:
-            self._rebalance = rebalance.Rebalance(self, state=state)
-            self._rebalance.start()
-            return self._rebalance
+            rb = rebalance.Rebalance(self, state=state)
+            try:
+                rb.start(still_wanted=(lambda: _in_flight(
+                    rebalance.load_state(self), "rebalancing")) if unpaused
+                    else None)
+            except rebalance.LeaseHeld:
+                return None             # another node drives it
+            self._rebalance = rb
+            return rb
 
     @staticmethod
     def _state_copy(rb) -> dict:
@@ -469,6 +522,58 @@ class ServerPools:
         if self._rebalance is not None:
             self._rebalance.stop()
 
+    # -- elastic janitor -------------------------------------------------
+
+    def elastic_janitor_tick(self) -> list[str]:
+        """One pass of the orphan recovery (minio_tpu/object/pools.py):
+        a checkpoint that says a walk is in flight, with no walk alive
+        here, is resumed if this node wins the coordinator lease. A
+        SIGKILLed coordinator's lease lapses after MTPU_GRID_LOCK_TTL,
+        and the next tick of a surviving node takes the walk on from its
+        checkpoint. A walk an operator paused is never resumed here.
+        Returns the walks resumed."""
+        from minio_tpu_torch.object import decom, rebalance
+        resumed = []
+        d = self._decom
+        if d is None or d.wait(timeout=0):
+            st = decom.load_state(self)
+            if _in_flight(st, "draining") and \
+                    self.resume_decommission(unpaused=True) is not None:
+                resumed.append("decom")
+        rb = self._rebalance
+        if rb is None or rb.wait(timeout=0):
+            st = rebalance.load_state(self)
+            if _in_flight(st, "rebalancing") and \
+                    self.resume_rebalance(unpaused=True) is not None:
+                resumed.append("rebalance")
+        return resumed
+
+    def start_elastic_janitor(self, interval: Optional[float] = None):
+        """Tick the janitor every MTPU_ELASTIC_JANITOR_S seconds
+        (default 10) on a thread; the lease keeps one node driving."""
+        from minio_tpu_torch.utils.env import env_float
+        if self._janitor is not None:
+            return
+        if interval is None:
+            interval = env_float("MTPU_ELASTIC_JANITOR_S", 10.0)
+        stop = threading.Event()
+
+        def run() -> None:
+            while not stop.wait(interval):
+                try:
+                    self.elastic_janitor_tick()
+                except Exception as e:  # noqa: BLE001 - the next tick
+                    print(f"WARN: elastic janitor: {type(e).__name__}: "
+                          f"{e}", file=sys.stderr, flush=True)
+        t = threading.Thread(target=run, daemon=True, name="elastic-janitor")
+        self._janitor = (t, stop)
+        t.start()
+
+    def stop_elastic_janitor(self) -> None:
+        if self._janitor is not None:
+            self._janitor[1].set()
+            self._janitor = None
+
     # -- healing and shutdown --------------------------------------------
 
     def heal_bucket(self, bucket: str) -> dict:
@@ -480,7 +585,9 @@ class ServerPools:
         return out
 
     def close(self) -> None:
-        """Pause a walk in flight (checkpointed), then close the pools."""
+        """Stop the janitor, pause a walk in flight (checkpointed), then
+        close the pools."""
+        self.stop_elastic_janitor()
         for walk in (self._decom, self._rebalance):
             if walk is not None:
                 walk.stop()

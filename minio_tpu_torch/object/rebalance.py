@@ -15,7 +15,9 @@ target (it stops once at the average); destinations leave out the other
 sources, so bytes never move back and forth between two full pools.
 The state (`config/rebalance.json`, the JAX package's document) is
 written to a majority of pool 0's drives every CHECKPOINT_EVERY keys,
-and a restarted server resumes from it.
+and a restarted server resumes from it. In a distributed deployment the
+walk takes decom's coordinator lease (named "rebalance") and shards its
+pages over the nodes through decom.PageDispatcher.
 
 Pools on one filesystem report the same free and total bytes a drive:
 capacity is then drives x the filesystem's size, and placement by free
@@ -29,8 +31,9 @@ import threading
 import time
 from typing import Optional
 
-from minio_tpu_torch.object.decom import (MigrationGovernor, free_space_dst,
-                                          migrate_key)
+from minio_tpu_torch.object.decom import (LeaseHeld, MigrationGovernor,
+                                          coordinator_lease, free_space_dst,
+                                          migrate_key, page_dispatcher)
 from minio_tpu_torch.storage.local import SYS_VOL
 
 REBAL_PATH = "config/rebalance.json"
@@ -111,6 +114,7 @@ class Rebalance:
                                "pools": {}, "rev": 0, "yields": 0}
         self.state.setdefault("yields", 0)
         self._gov = MigrationGovernor(layer, self.state, self._stop)
+        self._lease = None
 
     def _plan(self) -> dict:
         usages = [pool_usage(p) for p in self.layer.pools]
@@ -145,9 +149,39 @@ class Rebalance:
         if ok < len(disks) // 2 + 1:
             raise RebalanceError("could not persist rebalance state")
 
-    def start(self) -> None:
+    def _acquire_lease(self) -> None:
+        """One coordinator fleet-wide (decom.coordinator_lease); a lease
+        lost mid-walk stops this one, checkpointed, for the next winner."""
+        lease = coordinator_lease(self.layer, "rebalance")
+        if lease is not None:
+            lease.on_lost = self._stop.set
+            if not lease.lock(write=True, timeout=5.0):
+                raise LeaseHeld(
+                    "rebalance coordinator lease held by another node")
+        self._lease = lease
+
+    def _release_lease(self) -> None:
+        lease, self._lease = self._lease, None
+        if lease is not None:
+            try:
+                lease.unlock()
+            except Exception:  # noqa: BLE001 - the lease may be lost
+                pass
+
+    def start(self, still_wanted=None) -> None:
+        """Take the lease and walk. `still_wanted()`, asked once the
+        lease is won, can still call it off (LeaseHeld): the janitor's
+        check that the walk was not paused or ended while it waited."""
+        self._acquire_lease()
+        if still_wanted is not None and not still_wanted():
+            self._release_lease()
+            raise LeaseHeld("the walk was paused or ended meanwhile")
         self.state.pop("paused", None)
-        self._persist()
+        try:
+            self._persist()
+        except RebalanceError:
+            self._release_lease()
+            raise
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="rebalance")
         self._thread.start()
@@ -164,6 +198,9 @@ class Rebalance:
                 self._persist()
             except RebalanceError:
                 pass
+        # Only now: a janitor that won the lease before the pause was on
+        # the drives would resume the walk an operator stopped.
+        self._release_lease()
 
     def wait(self, timeout: float = 300) -> bool:
         if self._thread is not None:
@@ -195,6 +232,9 @@ class Rebalance:
                 self._persist()
             except RebalanceError:
                 pass
+        finally:
+            if not self._stop.is_set():
+                self._release_lease()   # stop() releases after the pause
 
     def _do_key(self, src: int, rec: dict, bucket: str, key: str,
                 size: int, exclude: set) -> None:
@@ -218,13 +258,31 @@ class Rebalance:
         rec = self.state["pools"][str(src)]
         pool = self.layer.pools[src]
         since = 0
+        gov = self._gov
+        # With peer nodes the pages spread over the fleet (decom's
+        # PageDispatcher); this coordinator writes every checkpoint.
+        disp = page_dispatcher(self.layer)
         workers = ThreadPoolExecutor(
-            max_workers=self._gov.workers,
+            max_workers=gov.workers,
             thread_name_prefix=f"rebal{src}-mig") \
-            if self._gov.workers > 1 else None
+            if disp is None and gov.workers > 1 else None
+
+        def reached_target() -> bool:
+            return rec["bytes_moved"] >= rec["bytes_target"]
+
+        def within_target(batch: list) -> list:
+            # The byte target checked before each key, from the listing's
+            # sizes: a batch ends with the key that reaches it, as the
+            # serial walk does.
+            left = rec["bytes_target"] - rec["bytes_moved"]
+            for n, k in enumerate(batch):
+                if left <= 0:
+                    return batch[:n]
+                left -= sizes[k]
+            return batch
 
         def reached() -> bool:
-            if rec["bytes_moved"] >= rec["bytes_target"]:
+            if reached_target():
                 rec["done"] = True      # the pool is at the average
                 self._persist()
                 return True
@@ -244,7 +302,27 @@ class Rebalance:
                     for o in page.objects:
                         sizes[o.name] = sizes.get(o.name, 0) + o.size
                     keys = sorted(sizes)
-                    if workers is not None:
+                    if disp is not None:
+                        for batch, agg in disp.iter_batches(
+                                src, bucket, keys, exclude=exclude | {src},
+                                gate=lambda: not reached_target()
+                                and gov.gate(), cut=within_target):
+                            gov.add(rec, "migrated", agg["migrated"])
+                            gov.add(rec, "failed", agg["failed"])
+                            gov.add(rec, "bytes_moved", agg["bytes"])
+                            if agg["last_error"]:
+                                rec["last_error"] = agg["last_error"]
+                            rec["bucket"] = bucket
+                            rec["marker"] = batch[-1]
+                            since += len(batch)
+                            if since >= self.checkpoint_every:
+                                since = 0
+                                self._persist()
+                        if self._stop.is_set():
+                            return
+                        if reached():
+                            return
+                    elif workers is not None:
                         # The marker passes only a fully done page.
                         list(workers.map(
                             lambda k: self._do_key(src, rec, bucket, k,

@@ -262,9 +262,12 @@ def check_drive_formats(sets: Sequence) -> int:
 
 
 def heal_set(es, deep: bool = False) -> dict:
-    """Heal every bucket and every object of one set (reference
-    cmd/global-heal.go:49 healErasureSet); counts of buckets, objects
-    seen, objects healed and failures."""
+    """Heal every bucket and every version of every object of one set
+    (reference cmd/global-heal.go:49 healErasureSet heals each version;
+    minio_tpu/object/scanner.py `heal_set` the latest alone, which
+    leaves a drive that missed older versions short of them); counts of
+    buckets, objects seen, objects with a version healed and
+    failures."""
     from minio_tpu_torch.object.healing import heal_bucket, heal_object
     stats = {"buckets": 0, "objects": 0, "healed": 0, "failures": 0}
     for b in es.list_buckets():
@@ -273,13 +276,16 @@ def heal_set(es, deep: bool = False) -> dict:
             stats["buckets"] += 1
         except Exception:  # noqa: BLE001 - counted
             stats["failures"] += 1
-        for path, _ in _walk_all_drives(es, b.name):
+        for path, copies in _walk_all_drives(es, b.name):
             stats["objects"] += 1
             try:
-                if heal_object(es, b.name, path, deep=deep).healed:
-                    stats["healed"] += 1
+                healed = [heal_object(es, b.name, path, vid,
+                                      deep=deep).healed
+                          for vid in key_version_ids(copies)]
             except Exception:  # noqa: BLE001 - counted
                 stats["failures"] += 1
+                continue
+            stats["healed"] += any(healed)
     return stats
 
 

@@ -39,9 +39,9 @@ same path polls it, with the bulk heals of replaced drives under
 object/decom.py and object/rebalance.py: `POST decommission?pool=N`,
 `GET decommission-status`, `POST decommission-cancel`, `POST
 rebalance-start`, `GET rebalance-status`, `POST rebalance-stop` (400
-InvalidArgument for a refused start, 501 on a layer of one pool and on
-a distributed deployment, whose walks need the peer plane). All
-admin calls are SigV4-signed by the root credential. The health probes
+InvalidArgument for a refused start, 501 on a layer of one set); on a
+distributed deployment any node answers them (a status asks the peers
+for a live walk's state, a stop reaches every peer). All admin calls are SigV4-signed by the root credential. The health probes
 are not signed: `/minio/health/live` answers 200 while the server
 serves, and `/minio/health/ready` 200, or 503 with one `degraded_sets`
 entry (set, drives online, write quorum, healing drives) for each set
@@ -307,6 +307,14 @@ class S3Server:
         # drive lifecycle manager, stopped before the set closes.
         self.scanner = None
         self.drive_heal = None
+        # A distributed node's peers: their grid clients, which the pool
+        # verbs ask for a live walk's state and tell to stop one. Its id,
+        # and its cross-node coherence (worker 0's PeerCoherence) or, in
+        # a sibling worker, the gate it reads (minio_tpu_torch.server).
+        self.elastic_peers: list = []
+        self.node_id = ""
+        self.coherence = None
+        self.coherence_gate = None
 
     @property
     def address(self) -> str:
@@ -345,6 +353,8 @@ class S3Server:
         manager, wait for a heal sweep in flight, close the set and the
         health wrappers' pools."""
         self.httpd.server_close()
+        if self.coherence is not None:
+            self.coherence.stop()
         for bg in (self.scanner, self.drive_heal):
             if bg is not None:
                 bg.stop()
@@ -354,6 +364,34 @@ class S3Server:
         for d in self.objects.disks:
             if isinstance(d, DiskHealthWrapper):
                 d.close()
+
+    def info(self) -> dict:
+        """`GET /minio/admin/v3/info`: the answering process's node,
+        worker and pid, its cross-node coherence (worker 0: the
+        protocol's stats; a sibling: its gate's verdict), and its read
+        caches' counters summed over the sets."""
+        sets = layer_sets(self.objects)
+
+        def summed(stats: list) -> dict:
+            out: dict = {}
+            for st in stats:
+                for k, v in st.items():
+                    if isinstance(v, (int, float)) and \
+                            not isinstance(v, bool):
+                        out[k] = out.get(k, 0) + v
+            return out
+        if self.coherence is not None:
+            coherence = self.coherence.stats()
+        elif self.coherence_gate is not None:
+            coherence = {"gate": bool(self.coherence_gate())}
+        else:
+            coherence = None
+        return {"node": self.node_id,
+                "worker": os.environ.get("MTPU_WORKER_ID", ""),
+                "pid": os.getpid(), "coherence": coherence,
+                "fi_cache": summed([s.fi_cache.stats() for s in sets]),
+                "metacache": summed([s.metacache.stats() for s in sets]),
+                "hot_cache": self.hot_cache.stats()}
 
     def readiness(self) -> tuple[int, dict]:
         """/minio/health/ready (minio_tpu/s3/server.py `_health_ready`;
@@ -1022,10 +1060,14 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _admin(self, method: str, op: str) -> None:
         """The admin API (minio_tpu/s3/server.py `_admin_op`): the heal
-        (POST starts a sweep, GET polls it) and the pool verbs."""
+        (POST starts a sweep, GET polls it), the pool verbs and `info`
+        (S3Server.info)."""
         verb = self._POOL_VERBS.get((method, op))
         if verb is not None:
             return self._admin_pools(verb)
+        if (method, op) == ("GET", "info"):
+            return self._send(200, {"Content-Type": "application/json"},
+                              json.dumps(self.s3.info()).encode())
         if op != "heal" or method not in ("POST", "GET"):
             raise S3Error("NotImplemented", f"admin {method} {op}")
         if method == "POST":
@@ -1041,27 +1083,51 @@ class _Handler(BaseHTTPRequestHandler):
                    json.dumps(status).encode())
 
     def _admin_pools(self, verb: str) -> None:
-        """A decommission or rebalance verb: a start answers 200 once
-        its walk runs (400 InvalidArgument when refused), a status the
-        walk's state as JSON (an empty body before any), a stop 200."""
-        fn = getattr(self.s3.objects, verb, None)
+        """A decommission or rebalance verb, from any node
+        (minio_tpu/s3/server.py): a start answers 200 once its walk runs
+        (400 InvalidArgument when refused, the coordinator lease held
+        elsewhere included), a status the walk's state as JSON (an empty
+        body before any): a live coordinator's, asked of the peers
+        (`elastic.status`) when no walk runs here, else the checkpoint;
+        a stop 200, once it reached this node and every peer
+        (`elastic.stop`), whichever drives the walk."""
+        layer = self.s3.objects
+        fn = getattr(layer, verb, None)
         if fn is None:
             raise S3Error("NotImplemented", "a layout of one pool")
-        if getattr(self.s3.objects, "distributed", False):
-            # Without a coordinator lease and peer notices a walk could
-            # run on two nodes at once, or place into a draining pool.
-            raise S3Error("NotImplemented",
-                          "rebalance and decommission of a distributed "
-                          "deployment need the peer plane (coordinator "
-                          "lease, peer notices)")
+        kind = "decommission" if "decommission" in verb else "rebalance"
         try:
             result = fn(int(self._q("pool", "-1"))) \
                 if verb == "start_decommission" else fn()
         except (DecomError, RebalanceError, ValueError) as e:
             raise S3Error("InvalidArgument", str(e)) from None
+        if verb.endswith("_status"):
+            walk = getattr(layer, "_decom" if kind == "decommission"
+                           else "_rebalance")
+            if walk is None or walk.wait(timeout=0):
+                result = self._live_peer_state(kind) or result
+        elif verb in ("cancel_decommission", "stop_rebalance"):
+            for cli in self.s3.elastic_peers:
+                try:
+                    cli.call("elastic.stop", {"kind": kind}, timeout=5.0)
+                except Exception:  # noqa: BLE001 - a peer that is down
+                    continue
         body = json.dumps(result).encode() \
             if verb.endswith("_status") and result is not None else b""
         self._send(200, {"Content-Type": "application/json"}, body)
+
+    def _live_peer_state(self, kind: str):
+        """The state of a walk of `kind` that a peer drives now, or None
+        (the lease lets one node drive, so the first live answer is
+        the coordinator's)."""
+        for cli in self.s3.elastic_peers:
+            try:
+                r = cli.call("elastic.status", None, timeout=3.0)
+            except Exception:  # noqa: BLE001 - a peer that is down
+                continue
+            if isinstance(r, dict) and r.get(f"{kind}_live") and r.get(kind):
+                return r[kind]
+        return None
 
     # -- multipart --------------------------------------------------------
 

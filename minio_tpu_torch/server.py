@@ -79,21 +79,42 @@ pool's first endpoint writes a fresh layout; the others wait for it and
 retry the format boot 5 times. Every set locks its keys through dsync
 over all nodes' lock servers (grid/dsync.DistNSLock; in a fleet inside
 the workers' flock locks). Worker 0 then asks every peer's `node.info`:
-a peer of another deployment is fatal. Sets with remote drives run
-without the cross-node cache protocol, which is not ported: their
-caches answer misses, they have no group commit, and bucket metadata
-is cached 2 s. The scanner and the bulk heals are sharded over nodes x
-workers (set i by slot i mod the fleet's slots). A distributed
-deployment resumes no migration, and the rebalance and decommission
-admin verbs answer 501: without a coordinator lease two nodes could
-walk at once.
+a peer of another deployment is fatal. Sets with remote drives have no
+group commit and cache bucket metadata 2 s (a backstop beside the
+pushes below). The scanner and the bulk heals are sharded over nodes x
+workers (set i by slot i mod the fleet's slots).
+
+The control plane comes up next (wire_control_plane; minio_tpu/server.py
+:528-727). The node id is HOST:PORT (the host name for 0.0.0.0). Worker
+0's grid answers `peer.reload` (grid/peers.py: decom, listing and
+bucket-meta notices) and the coherence verbs `gen.inv`, `gen.sync` and
+`gen.relay` (grid/coherence.PeerCoherence: every local bump and bucket-
+metadata change pushes an acked invalidation to every peer; a peer is
+armed only after a resync, disarmed by any failed call or lost
+connection; a sync thread resyncs every MTPU_GRID_SYNC_S seconds,
+default 5). Every set of every pool gates its fileinfo, listing and hot
+caches on that verdict, so they serve hits only while every peer is
+armed. Sibling workers gate on the verdict worker 0 publishes under the
+first drive's `.mtpu.sys/workers/` (grid/coherence.FileGate) and relay
+their bumps to worker 0. The pool verbs answer on every node
+(`elastic.status`, `elastic.stop`); a walk takes the dsync coordinator
+lease over the namespace locks' lockers and shards its pages over the
+nodes (`mig.page`, object/decom.PageDispatcher; MTPU_MIG_BATCH keys a
+node a batch, default 8, MTPU_MIG_PAGE_TIMEOUT_S, default 600). Worker
+0 resumes an interrupted walk if it wins the lease, and with more than
+one pool runs the elastic janitor (MTPU_ELASTIC_JANITOR_S, default 10),
+which resumes a walk whose coordinator died once its lease lapsed
+(MTPU_GRID_LOCK_TTL).
 
 A clean stop (SIGINT to one process; SIGTERM or SIGINT to a fleet's
 parent, which forwards SIGTERM to its workers) stops accepting, lets
-the requests in flight finish, stops the scanner, the bulk heals and a
-migration walk (checkpointed), closes the sets, stamps the drives and
-prints the card's kernel launches while it served (a worker's line
-names the worker) and, distributed, the dsync locks it took.
+the requests in flight finish, stops the scanner, the bulk heals, the
+coherence thread and a migration walk (checkpointed), closes the sets,
+stamps the drives and prints the card's kernel launches while it served
+(a worker's line names the worker) and, distributed, the dsync locks it
+took, its grid peers' breakers and its control plane (peers armed,
+pushes, escalations, resyncs, peer notices, `mig.page` batches served,
+the read caches' counters).
 """
 
 from __future__ import annotations
@@ -109,9 +130,11 @@ from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.erasure.selftest import erasure_self_test
 from minio_tpu_torch.grid import GridServer, client_for, dsync
 from minio_tpu_torch.grid.client import peer_stats
+from minio_tpu_torch.grid.peers import notify_stats
 from minio_tpu_torch.grid.dsync import (DistNSLock, LocalLocker, LockServer,
                                         RemoteLocker)
 from minio_tpu_torch.io import workers as workers_mod
+from minio_tpu_torch.object import decom
 from minio_tpu_torch.object.drive_heal import (DriveHealManager,
                                                admission_pressure)
 from minio_tpu_torch.object.erasure_object import ErasureSet
@@ -326,6 +349,123 @@ def check_peers(topo: Topology, node_info: dict, deployment_id: str) -> None:
                 f"peer {host}:{port} deployment {peer} != {deployment_id}")
 
 
+def wire_control_plane(topo: Topology, layer, grid_srv, host: str,
+                       shared_dir) -> dict:
+    """The distributed control plane (minio_tpu/server.py's distributed
+    boot, reference cmd/notification.go and the peer REST plane): the
+    node id, peer notices (`peer.reload`), the cross-node cache
+    coherence, the any-node pool verbs (`elastic.status`,
+    `elastic.stop`) and the fleet-sharded migration verb (`mig.page`).
+
+    Worker 0 (`grid_srv` given) owns the node's PeerCoherence: every set
+    of every pool gates its fileinfo and listing caches on it (a set
+    whose drives are all here is another node's remote set), its bumps
+    and bucket-metadata changes push acked invalidations, and with
+    `shared_dir` (a fleet) it publishes its verdict there for the
+    siblings. A sibling gates on that file (FileGate) and relays its
+    bumps to worker 0 over loopback, leaving the relay flag when that
+    fails. Returns what the server keeps: node id, notifier, coherence
+    (worker 0) or gate (a sibling)."""
+    from minio_tpu_torch.grid.coherence import (CLASS_BUCKET_META,
+                                                CLASS_LISTING, FileGate,
+                                                PeerCoherence,
+                                                RELAY_HANDLER,
+                                                make_set_invalidator)
+    from minio_tpu_torch.grid.peers import (PeerNotifier, RELOAD_HANDLER,
+                                            make_reload_handler)
+    # Unique a node, stable across restarts; the bind address is
+    # neither when every node binds 0.0.0.0.
+    ident = host if host not in ("", "0.0.0.0", "::") \
+        else socket.gethostname()
+    node_id = f"{ident}:{topo.port}"
+    peers = [client_for(h, p + GRID_PORT_OFFSET) for h, p in topo.remote_nodes]
+    notifier = PeerNotifier(peers)
+    layer.on_decom_change = lambda: notifier.broadcast("decom")
+    # Every worker may win the coordinator lease; its pages go to each
+    # peer node's grid plane (worker 0 there).
+    layer.migration_peers = peers
+    sets = layer.sets
+    out = {"node_id": node_id, "notifier": notifier, "coherence": None,
+           "gate": None}
+    if grid_srv is not None:
+        grid_srv.register(RELOAD_HANDLER, make_reload_handler(layer))
+        coherence = PeerCoherence(
+            node_id, {f"{h}:{p}": client_for(h, p + GRID_PORT_OFFSET)
+                      for h, p in topo.remote_nodes},
+            on_invalidate=make_set_invalidator(sets, layer=layer))
+        coherence.register_into(grid_srv)
+        if shared_dir is not None:
+            coherence.state_path = os.path.join(shared_dir,
+                                                "coherence.state")
+            coherence.relay_flag_path = os.path.join(
+                shared_dir, "coherence.relay-flag")
+            # A state file a dead worker 0 left must not open the
+            # siblings' gates before this one armed.
+            coherence._publish_state()
+        layer.on_bucket_meta_change = \
+            lambda bucket: coherence.broadcast(bucket, CLASS_BUCKET_META)
+        for s in sets:
+            s.metacache.on_bump = \
+                lambda bucket: coherence.broadcast(bucket, CLASS_LISTING)
+            # Synchronous acked pushes: a deferred one would be a
+            # staleness window no gate covers.
+            s.metacache.bump_coalesce = 0.0
+            s.fi_cache.remote_gate = coherence.coherent
+            s.metacache.remote_gate = coherence.coherent
+
+        def elastic_status(payload):
+            d, rb = layer._decom, layer._rebalance
+            return {
+                "rebalance": layer.rebalance_status(),
+                "rebalance_live": bool(rb is not None
+                                       and not rb.wait(timeout=0)),
+                "decommission": layer.decommission_status(),
+                "decommission_live": bool(d is not None
+                                          and not d.wait(timeout=0)),
+            }
+
+        def elastic_stop(payload):
+            kind = (payload or {}).get("kind", "")
+            if kind == "rebalance":
+                layer.stop_rebalance()
+            elif kind == "decommission":
+                layer.cancel_decommission()
+            return {"ok": True}
+        grid_srv.register("elastic.status", elastic_status)
+        grid_srv.register("elastic.stop", elastic_stop)
+        grid_srv.register("mig.page", lambda p: decom.serve_page(layer, p))
+        coherence.start()
+        out["coherence"] = coherence
+        out["gate"] = coherence.coherent
+        return out
+    relay = client_for("127.0.0.1", topo.port + GRID_PORT_OFFSET)
+    flag = os.path.join(shared_dir, "coherence.relay-flag") \
+        if shared_dir is not None else None
+
+    def relay_bump(bucket: str, cls: str) -> None:
+        try:
+            relay.call(RELAY_HANDLER, {"b": bucket, "c": cls}, timeout=5.0)
+        except Exception:  # noqa: BLE001 - worker 0 restarting: the flag
+            if flag is not None:
+                try:
+                    with open(flag, "w"):
+                        pass
+                except OSError:
+                    pass
+    gate = FileGate(os.path.join(shared_dir, "coherence.state")) \
+        if shared_dir is not None else (lambda: False)
+    layer.on_bucket_meta_change = \
+        lambda bucket: relay_bump(bucket, CLASS_BUCKET_META)
+    for s in sets:
+        s.metacache.on_bump = \
+            lambda bucket: relay_bump(bucket, CLASS_LISTING)
+        s.metacache.bump_coalesce = 0.0
+        s.fi_cache.remote_gate = gate
+        s.metacache.remote_gate = gate
+    out["gate"] = gate
+    return out
+
+
 def boot(argv=None) -> S3Server:
     """Parse, run the boot gates, open the pools; a server ready to
     serve_forever(). In a pre-forked worker (MTPU_WORKER_ID), the crash
@@ -358,7 +498,8 @@ def boot(argv=None) -> S3Server:
     def make_disk(ep):
         if topo.is_local(ep):
             return local[ep.path]
-        return RemoteStorage(ep.host, ep.port + GRID_PORT_OFFSET, ep.path)
+        return RemoteStorage(ep.host, ep.port + GRID_PORT_OFFSET, ep.path,
+                             endpoint=str(ep))
 
     pools, formats, in_slots = [], [], []
     recovery = dict(_NO_RECOVERY, heal=[])
@@ -404,20 +545,35 @@ def boot(argv=None) -> S3Server:
     if node_info is not None:
         check_peers(topo, node_info, deployment_id)
     layer = ServerPools(pools)
-    layer.distributed = topo.distributed
     for pi, vol, path in pending:
         pools[pi].set_for(path).mrf.enqueue(vol, path)
+    host, _, port = args.address.rpartition(":")
+    control: dict = {}
+    if topo.distributed:
+        # One migration coordinator fleet-wide: the dsync lease over the
+        # namespace locks' lockers.
+        layer.lockers = lockers
+        shared_dir = None
+        if worker and in_slots:
+            shared_dir = os.path.join(in_slots[0].root, ".mtpu.sys",
+                                      "workers")
+            os.makedirs(shared_dir, exist_ok=True)
+        control = wire_control_plane(topo, layer, grid_srv, host,
+                                     shared_dir)
     if len(pools) > 1:
         if recovers:
             layer.sync_buckets()
         layer.sync_decommission_markers()
-        # A distributed deployment resumes no migration: with no
-        # coordinator lease, every node would run the walk.
-        if owner and not topo.distributed:
+        # Worker 0 resumes an interrupted walk; distributed, the lease
+        # lets one node win it.
+        if owner:
             for what, resume in (("decommission", layer.resume_decommission),
                                  ("rebalance", layer.resume_rebalance)):
                 if resume() is not None:
                     print(f"resuming an interrupted pool {what}", flush=True)
+            if topo.distributed:
+                # Resumes a dead coordinator's walk once its lease lapsed.
+                layer.start_elastic_janitor()
     # Every set is scanned and bulk-healed by one (node, worker) slot of
     # the fleet (minio_tpu/server.py).
     width = int(os.environ.get("MTPU_WORKER_TOTAL") or 1)
@@ -433,7 +589,6 @@ def boot(argv=None) -> S3Server:
     if owned:
         drive_heal.start(interval=args.scanner_interval
                          if args.scanner_interval > 0 else 10.0)
-    host, _, port = args.address.rpartition(":")
     srv = S3Server(layer, (host or "127.0.0.1", int(port)),
                    {os.environ.get("MINIO_ROOT_USER", "minioadmin"):
                     os.environ.get("MINIO_ROOT_PASSWORD", "minioadmin")})
@@ -448,6 +603,11 @@ def boot(argv=None) -> S3Server:
     srv.drive_heal = drive_heal
     srv.grid_server = grid_srv
     srv.distributed = topo.distributed
+    srv.node_id = control.get("node_id", "")
+    srv.coherence = control.get("coherence")
+    srv.coherence_gate = control.get("gate")
+    if topo.distributed:
+        srv.elastic_peers = layer.migration_peers
     if recovers:
         print("recovery: " + ", ".join(
             f"{k} {len(v) if k == 'heal' else v}"
@@ -490,7 +650,19 @@ def launch_counts() -> dict:
             "highwayhash256": hh_device.LAUNCHES}
 
 
+def whole_lines() -> None:
+    """Make each print one write to stdout and stderr. A fleet's
+    processes share one output pipe, and an unbuffered stream
+    (PYTHONUNBUFFERED) writes a print's text and its newline apart, so
+    two workers' clean-stop lines could join into one."""
+    for stream in (sys.stdout, sys.stderr):
+        reconfigure = getattr(stream, "reconfigure", None)
+        if reconfigure is not None:
+            reconfigure(write_through=False, line_buffering=True)
+
+
 def main(argv=None) -> int:
+    whole_lines()
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     if not os.environ.get("MTPU_WORKER_ID"):
@@ -518,6 +690,7 @@ def main(argv=None) -> int:
         # Stop accepting and drain; the scanner and the bulk heals stop
         # (checkpointed) before the set closes and the drives get their
         # clean-shutdown stamps.
+        srv_info = srv.info()
         srv.stop()
         if srv.grid_server is not None:
             srv.grid_server.stop()
@@ -545,6 +718,21 @@ def main(argv=None) -> int:
                       "acquire_hist": st}), flush=True)
             print(("worker " + worker + " " if worker else "")
                   + "grid peers: " + json.dumps(peer_stats()), flush=True)
+            coh = srv.coherence.stats() if srv.coherence is not None \
+                else {}
+            print(("worker " + worker + " " if worker else "")
+                  + "control plane while serving: " + json.dumps({
+                      "peers": coh.get("peers"), "armed": coh.get("armed"),
+                      "pushes": coh.get("inv_sent"),
+                      "push_failures": coh.get("inv_failed"),
+                      "escalations": coh.get("escalations"),
+                      "applied": coh.get("inv_applied"),
+                      "resyncs": coh.get("resyncs"),
+                      "notices": notify_stats(),
+                      "mig_pages_served": dict(decom.PAGES_SERVED),
+                      "caches": {k: srv_info[k] for k in
+                                 ("fi_cache", "metacache", "hot_cache")}}),
+                  flush=True)
 
     # A pre-forked worker drains on SIGTERM/SIGINT through finish().
     workers_mod.maybe_attach_worker(srv, finish)

@@ -128,11 +128,16 @@ def _scatter(view, bufs: list, pos: int) -> int:
 class RemoteStorage:
     """A drive on another node: LocalStorage's calls, over the grid."""
 
-    def __init__(self, host: str, port: int, path: str):
+    def __init__(self, host: str, port: int, path: str,
+                 endpoint: str = ""):
+        """`port` is the peer's grid port; `endpoint`, the drive's
+        endpoint as the command line names it (the peer's S3 port), is
+        what every node calls the drive: a pool's signature
+        (object/decom.pool_signature) must read the same on each."""
         self.host = host
         self.port = port
         self.path = path
-        self.endpoint = f"http://{host}:{port}{path}"
+        self.endpoint = endpoint or f"http://{host}:{port}{path}"
 
     def _client(self):
         return client_for(self.host, self.port)

@@ -1,10 +1,10 @@
 """Port nodes under node-level chaos (tests/torch_cluster.py).
 
 The port's counterparts of tests/test_cluster.py's chaos cases: a
-partitioned node that rejoins never serves a stale read (the port's
-remote sets run without the cross-node cache protocol, so their caches
-answer misses), and a holder's dsync write lock leaked by its SIGKILL
-frees itself within the lock TTL.
+partitioned node that rejoins never serves a stale read (its caches
+serve behind the cross-node coherence gate, which the partition shuts
+and only a resync after the rejoin reopens), and a holder's dsync write
+lock leaked by its SIGKILL frees itself within the lock TTL.
 """
 
 import os

@@ -18,9 +18,10 @@ prefixes; a concurrent PUT/DELETE storm lists what the JAX package
 lists; every mutation path of the port bumps the bucket (each op is
 held to its own bump count, so a removed bump fails its op); a bump
 removes persisted runs, so a fresh process never loads a run older than
-an acknowledged write. The JAX cases left out: the peer bump broadcast
-(`on_bump`, the distributed plane) and the 10M-key slow sweep.
-Tolerance: none.
+an acknowledged write. The peer bump broadcast (`on_bump`, leading-edge
+coalesced with a trailing broadcast owed) reaches another node's walks
+as the JAX package's does. The JAX case left out: the 10M-key slow
+sweep. Tolerance: none.
 """
 
 import json
@@ -189,6 +190,61 @@ def test_multipart_and_bucket_delete_invalidate(tmp_path):
         return listed
     ref, port = _both(tmp_path, "mcb", run)
     assert port == ref == ["mp"]
+
+
+def test_peer_bump_invalidates_other_nodes_walk(tmp_path):
+    """tests/test_metacache.py's case on each package: two "nodes" over
+    the same drives; node A's bump rides its on_bump hook to node B, so
+    B's next listing shows A's write, and a mutation inside the
+    coalescing window reaches B through the trailing broadcast."""
+    def run(pkg):
+        a = _mkset(pkg, tmp_path / f"peer-{pkg}", "xn")
+        b = _mkset(pkg, tmp_path / f"peer-{pkg}", "")
+        try:
+            dele = PKGS[pkg][3]
+            a.put_object("xn", "one", b"1")
+            seen = [_names(b.list_objects("xn"))]
+            fired = []
+
+            def hook(bucket):
+                fired.append(bucket)
+                b.metacache.bump(bucket, broadcast=False)
+            a.metacache.on_bump = hook
+            a.put_object("xn", "two", b"2")
+            seen.append(_names(b.list_objects("xn")))
+            a.delete_object("xn", "one", dele())
+            deadline = time.monotonic() + 2
+            while time.monotonic() < deadline and \
+                    _names(b.list_objects("xn")) != ["two"]:
+                time.sleep(0.02)
+            seen.append(_names(b.list_objects("xn")))
+            return seen, fired
+        finally:
+            a.close()
+            b.close()
+    ref, port = run("r"), run("p")
+    assert port[0] == ref[0] == [["one"], ["one", "two"], ["two"]]
+    assert set(port[1]) == set(ref[1]) == {"xn"}
+
+
+def test_bump_coalesces_with_a_trailing_broadcast(tmp_path):
+    """Bumps inside the window broadcast once at its leading edge and
+    once after it; a bump applied from a peer (broadcast=False) and one
+    with bump_coalesce 0 never wait."""
+    for pkg in ("r", "p"):
+        mc = PKGS[pkg][4].MetaCache()
+        fired = []
+        mc.on_bump = fired.append
+        for _ in range(5):
+            mc.bump("b")
+        assert fired == ["b"], pkg
+        time.sleep(0.3)
+        assert fired == ["b", "b"], pkg
+        mc.bump("b", broadcast=False)
+        mc.bump_coalesce = 0.0
+        mc.bump("b")
+        mc.bump("b")
+        assert fired == ["b"] * 4, pkg
 
 
 def test_large_bucket_pages_without_rewalking(tmp_path):

@@ -4,8 +4,9 @@ The port's cases of tests/test_rebalance.py: an overfilled pool sheds
 toward the deployment's average with every object (versions and delete
 markers too) readable, and its plan equals the JAX package's on the same
 drives; parallel walkers stop at the byte target, not at the end of a
-page; a balanced deployment is a no-op; a run stopped midway resumes
-from its checkpoint; the admin API's rebalance verbs over HTTP. Test
+page, and so does a walk dispatched over peer nodes; a balanced
+deployment is a no-op; a run stopped midway resumes from its
+checkpoint; the admin API's rebalance verbs over HTTP. Test
 pools share one filesystem, so equal drive counts make the fill
 fraction the bytes used.
 """
@@ -26,7 +27,8 @@ from minio_tpu.object.pools import ServerPools as RefPools
 from minio_tpu.object.sets import ErasureSets as RefSets
 from minio_tpu.storage.local import LocalStorage as RefDisk
 
-from minio_tpu_torch.object import rebalance
+from minio_tpu_torch.grid import GridClient, GridServer
+from minio_tpu_torch.object import decom, rebalance
 from minio_tpu_torch.object.erasure_object import ErasureSet
 from minio_tpu_torch.object.pools import ServerPools
 from minio_tpu_torch.object.sets import ErasureSets
@@ -118,6 +120,40 @@ def test_parallel_walkers_stop_at_the_byte_target(layer, monkeypatch):
     assert rec0["migrated"] < len(bodies)
     for k, b in bodies.items():
         assert layer.get_object(B, k)[1] == b
+
+
+def test_dispatched_rebalance_stops_at_the_byte_target(layer):
+    """A coordinator with two peers over the same drives: one batch of
+    8 keys a node holds the whole page of 16, yet the walk stops after
+    the key that reaches the target, as the serial walk does."""
+    bodies = _seed_imbalance(layer, n=16)
+    peers = [ServerPools(list(layer.pools)) for _ in range(2)]
+    srvs, clients = [], []
+    for p in peers:
+        srv = GridServer(0, host="127.0.0.1")
+        srv.register("mig.page", lambda pl, p=p: decom.serve_page(p, pl))
+        srv.start()
+        srvs.append(srv)
+        clients.append(GridClient("127.0.0.1", srv.port))
+    layer.migration_peers = clients
+    before = decom.PAGES_SERVED["batches"]
+    try:
+        assert layer.start_rebalance().wait(120)
+        st = layer.rebalance_status()
+        assert st["status"] == "complete", st
+        assert decom.PAGES_SERVED["batches"] > before
+        rec0 = st["pools"]["0"]
+        biggest = max(map(len, bodies.values()))
+        assert rec0["bytes_target"] <= rec0["bytes_moved"] \
+            < rec0["bytes_target"] + biggest
+        assert rec0["migrated"] < len(bodies)
+        for k, b in bodies.items():
+            assert layer.get_object(B, k)[1] == b
+    finally:
+        for c in clients:
+            c.close()
+        for s in srvs:
+            s.stop()
 
 
 def _jax_plan(layer, tmp_path) -> dict:

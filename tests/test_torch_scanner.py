@@ -226,3 +226,22 @@ def test_data_usage_equals_reference(tmp_path):
     assert got == ref_usage
     assert got["objects"] == 14 and got["delete_markers"] == 1
     assert DataUsage.from_json(got).to_json() == {**got, "last_update": 0}
+
+
+def test_heal_set_heals_every_version(env):
+    """A drive that missed a key's versions gets all of them back from
+    the sweep, as the reference's healErasureSet heals each version (the
+    JAX package's heal_set heals the latest alone)."""
+    from minio_tpu_torch.object.types import PutOptions
+    from minio_tpu_torch.storage.meta import XLMeta
+    es, roots = env
+    vids = [es.put_object("sb", "vk", os.urandom(3_000 + i),
+                          PutOptions(versioned=True)).version_id
+            for i in range(3)]
+    shutil.rmtree(_obj_dir(roots[0], "sb", "vk"))
+    stats = heal_set(es)
+    assert stats["objects"] == 1 and stats["healed"] == 1
+    with open(os.path.join(_obj_dir(roots[0], "sb", "vk"), "xl.meta"),
+              "rb") as f:
+        healed = XLMeta.load(f.read()).versions
+    assert sorted(v["vid"] for v in healed) == sorted(vids)

@@ -3,7 +3,8 @@ against the JAX package's (minio_tpu/io/workers.py), exact.
 
 Units: SharedGen (with the own-bump case under a young monotonic clock,
 which the JAX package's window reset misses), FlockNSLock across two
-processes, worker_count_from_env against the JAX function.
+processes, worker_count_from_env against the JAX function; forked
+processes printing into one pipe keep their lines whole.
 
 Fleets, in subprocesses started in their own session (killed by process
 group): the port's two workers (`--device cpu`, its parent guarded so
@@ -188,6 +189,43 @@ def test_swap_address_matches_jax():
                  ["d1", "d2"]):
         assert workers._swap_address(argv, "h:0", "h:9") == \
             jax_workers._swap_address(argv, "h:0", "h:9")
+
+
+# Eight forked processes print JSON lines at once into one pipe, as a
+# fleet's workers do at their clean stop, after the server's stream setup.
+_FORKED_LINES = """
+import json, os
+from minio_tpu_torch.server import whole_lines
+whole_lines()
+go_r, go_w = os.pipe()
+pids = []
+for w in range(8):
+    pid = os.fork()
+    if pid == 0:
+        os.read(go_r, 1)            # every process forked: print at once
+        for i in range(300):
+            print(f"worker {w} line: " + json.dumps({"i": i, "pad": "x" * 80}),
+                  flush=True)
+        os._exit(0)
+    pids.append(pid)
+os.write(go_w, b"g" * 8)
+for pid in pids:
+    os.waitpid(pid, 0)
+"""
+
+
+def test_forked_workers_print_whole_lines():
+    """Under PYTHONUNBUFFERED a print writes its text and its newline
+    apart; after whole_lines() every line arrives whole."""
+    out = subprocess.run(
+        [sys.executable, "-c", _FORKED_LINES], capture_output=True,
+        text=True, timeout=120, cwd=str(Path(__file__).parent.parent),
+        env={**os.environ, "PYTHONUNBUFFERED": "1"}, check=True).stdout
+    lines = out.splitlines()
+    assert len(lines) == 8 * 300
+    got = sorted((int(ln.split()[1]), json.loads(ln.split(": ", 1)[1])["i"])
+                 for ln in lines)
+    assert got == [(w, i) for w in range(8) for i in range(300)]
 
 
 # ---------------------------------------------------------------------------
