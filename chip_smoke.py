@@ -84,8 +84,8 @@ and prints no result line):
    heal_object of each copy finding every shard good; an UploadPartCopy
    upload of the first 64 MiB, 40 MiB across two 32 MiB windows and the
    last 5 MiB + 777 B of the single-part object beside an uploaded 5 MiB
-   part, exact. 16 clients PUT 2,000 keys of 1 KiB
-   (dir00..49/obj000..039) into an unversioned bucket, their commits
+   part, exact. 16 clients PUT 1,200 keys of 1 KiB
+   (dir00..49/obj000..023) into an unversioned bucket, their commits
    coalescing in the group-commit lanes (at least one batch of 2 or
    more members, no demotion, no deadline cull; batches, members a
    batch, solo bypasses, demotions and fsyncs saved printed);
@@ -109,7 +109,7 @@ and prints no result line):
    minio_tpu_torch.server --device cuda` in a subprocess on 12 fresh
    drives with MTPU_GROUP_COMMIT_CKPT_S=3600, so that no checkpoint
    retires a frame; 16 clients PUT 1 KiB keys and DELETE every 4th
-   after its PUT; SIGKILL after 1,000 acknowledged PUTs; the server
+   after its PUT; SIGKILL after 500 acknowledged PUTs; the server
    booted again on the same drives in this process. Its boot recovery
    must replay WAL frames on every drive; every acknowledged key reads
    back its bytes and is listed, no key whose DELETE was acknowledged
@@ -117,17 +117,17 @@ and prints no result line):
 4e. The drive plane: `python -m minio_tpu_torch.server
    --scanner-interval 1` in a subprocess on 12 fresh drives (the drive
    health wrapper on, as by default). Every drive gets format.json with
-   one layout, /minio/health/ready answers 200. 16 clients load 1 GiB of
-   16 MiB objects, 64 MiB + 1 B, a multipart of 8 x 8 MiB, 500 keys of
-   1 KiB and a versioned bucket of 100 keys x 3 versions with 50 delete
-   markers. Replaced at boot: the server stops cleanly, drive 3 is
+   one layout, /minio/health/ready answers 200. 16 clients load 512 MiB
+   of 16 MiB objects, 64 MiB + 1 B, a multipart of 8 x 8 MiB, 100 keys
+   of 1 KiB and a versioned bucket of 20 keys x 3 versions with 10
+   delete markers. Replaced at boot: the server stops cleanly, drive 3 is
    copied, wiped and the server restarted: drive 3 must be adopted into
    slot 3 and marked healing, /ready answer 503 naming set 0 with one
    healing drive while GETs of the preloaded keys return their bytes;
    once the drive lifecycle manager's bulk heal reports done, /ready is
    200, and every shard file of drive 3 equals the copy byte for byte
    and its journals as version lists. Replaced while serving: 16 clients
-   PUT and GET 1 MiB objects (24 pairs each, 0.25 s apart) while drive 7
+   PUT and GET 1 MiB objects (8 pairs each, 0.25 s apart) while drive 7
    is wiped; its format must be restored within two polls and its bulk
    heal converge with no request failing; every acknowledged key reads
    back, and (in this process) a second heal of every version of every
@@ -160,7 +160,7 @@ and prints no result line):
    request on a fresh connection so that SO_REUSEPORT spreads them, and
    GET back byte for byte. Worker 3 SIGKILLed while 16 clients read
    (retrying a cut connection): the parent respawns it and its new pid
-   holds a context within 30 s, no read failing. 100 coherence rounds,
+   holds a context within 30 s, no read failing. 40 coherence rounds,
    alternating a 1 KiB and a 1 MiB key: PUT new bytes, 8 GETs on fresh
    connections return them; DELETE, 8 GETs answer 404; PUT again, a
    listing from a fresh connection names the key; 0 stale reads.
@@ -173,7 +173,7 @@ and prints no result line):
    MTPU_HTTP_WORKERS=2, both caches on and MTPU_REBALANCE_WORKERS=4, on
    `ROOT/p1/d{1...24}`: one pool of 2 sets x 12 at EC 8+4. 16 clients
    load 12 objects of 16 MiB (4e's size), 64 MiB + 1 B, a multipart of
-   8 x 8 MiB, 50 keys of 1 KiB, and 50 keys x 3 versions with 25 delete
+   8 x 8 MiB, 20 keys of 1 KiB, and 20 keys x 3 versions with 10 delete
    markers in a versioned bucket; every key's journal must lie on the
    12 drives of the set the port's sip_hash_mod names under the
    deployment id; 16 clients' 1 KiB PUT keys/s. SIGTERM; restarted with
@@ -182,14 +182,14 @@ and prints no result line):
    reads back, and the 1 KiB PUT rate on 2 pools is printed beside the
    one on 1. `rebalance-start` until complete, then (after a restart on
    the same pools) `decommission?pool=0` until complete, each while 16
-   clients overwrite 4 keys each with 1 MiB PUT+GET pairs 0.25 s apart
+   clients overwrite 2 keys each with 1 MiB PUT+GET pairs 0.25 s apart
    and read a preloaded 1 KiB key: 0 failed and 0 stale reads; each
    walk's keys and bytes moved, wall, keys/s and MiB/s, and its server's
    gf_apply launches by (k, r), which must include k = 12. No journal
    is left on pool 1's drives. Restarted on pool 2 alone: every key and
    version (ids and ETags), the live clients' last acknowledged bodies
-   among them, reads back byte for byte. The shard files of 8 migrated
-   16 MiB objects and of the 64 MiB + 1 B one on pool 2's drives equal
+   among them, reads back byte for byte. The shard files of every sixth
+   migrated 16 MiB object (two) and of the 64 MiB + 1 B one on pool 2's drives equal
    the 12+4 encode and digests of the plain PyTorch path on the CPU
    (computed on a thread while the servers run). The phase's drives are
    removed afterwards.
@@ -202,7 +202,7 @@ and prints no result line):
    behind the cross-node coherence gates: after boot every node's
    worker 0 reports 3 of 3 peers armed and node 0's sibling its gate
    open (GET /minio/admin/v3/info). 16 clients, client t through node t
-   mod 4, load 16 x 16 MiB, 64 MiB + 1 B, a 4 x 8 MiB multipart and 250
+   mod 4, load 8 x 16 MiB, 64 MiB + 1 B, a 4 x 8 MiB multipart and 50
    keys of 1 KiB; every key is read back through the node after its
    writer: 0 lost, 0 differing. 8 keys of 1 MiB and 64 KiB are
    overwritten through node 1 in 4 rounds and read and HEAD through
@@ -210,7 +210,7 @@ and prints no result line):
    hot-cache hits on nodes 2 and 3 and on both of node 0's workers
    (printed); 16 clients' 1 KiB PUT rate over the four nodes, each PUT's
    bump pushed to 3 peers and acked. 16 clients overwrite 8 keys of 64 KiB
-   through all four nodes for 10 s: each key then reads as one whole
+   through all four nodes for 5 s: each key then reads as one whole
    written body, the same from every node. Node 3 is SIGKILLed under 16
    clients' paced 1 MiB PUT+GET pairs on nodes 0-2: no request fails;
    the pairs' p50/p99 before and after the kill and the GET p50/p99
@@ -257,12 +257,32 @@ and prints no result line):
    its drives up to date, and every key and version reads back byte
    for byte through each node. gf_apply must have launched at
    k = 12, r = 4 on the nodes.
+4j. The front end every server phase above serves through (the event
+   loop, the default): a server on 12 drives, EC 8+4, with the
+   MTPU_HTTP_KEEPALIVE_S=2 and MTPU_MAX_CONNS=16 of its environment: a
+   partial request head is closed by the 2 s idle deadline without being
+   dispatched, and the 17th connection is answered 503 + Retry-After
+   before it sends a byte. Then a server on 12 fresh drives with the hot
+   cache on: with the soft RLIMIT_NOFILE raised to the hard one, N =
+   min(2,000, (hard - 512) / 2) keep-alive connections each get one
+   answer and park, the server holding 0 recv leases, then each GETs a
+   64 KiB object, identical. 16 GETs pipelined on one connection come
+   back in order; a 64 MiB aws-chunked PUT goes through the pooled
+   decoder and a reader with a 256 KiB receive buffer gets it back
+   identical, its last window left to the loop (offloads > 0), the
+   pinned pool and the recv pool back to idle; a GET with 2 data-shard
+   drives away reconstructs on the card from a loop dispatch; 16 hot
+   4 KiB GETs are answered on the loop thread (as many hot hits, no
+   dispatch). 1 KiB PUT keys/s and hot 4 KiB GETs/s of 64 keep-alive
+   clients through the loop, then through MTPU_HTTP_EVENTLOOP=off on the
+   same drives, printed beside the card's name, power limit and the
+   host's cores. gf_apply and highwayhash256 must have launched.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
-   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f, 4g, 4h
-   and 5 every kernel's launch count is set to 0 just before the phase
+   In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f, 4g, 4h,
+   4j and 5 every kernel's launch count is set to 0 just before the phase
    and read just after (4e's servers, 4f's and 4g's workers and 4h's
    nodes count from their start, less their boot self-tests; a
    SIGKILLed node's are not counted); each kernel of the phase's path
@@ -1299,7 +1319,7 @@ NS_BIG = 256 * MIB          # each versioned PUT, as phase 4b's objects
 # and 5,000 keys 4c took 197.6 s, with 2,000 84.8 s and the script
 # 864.9 s; with 3,000 and phase 4i 4c took 159.6 s and the script
 # 1149.0 s (an H100 80GB HBM3 at 700 W on a slow host).
-NS_DIRS, NS_PER_DIR = 50, 40
+NS_DIRS, NS_PER_DIR = 50, 24      # 1,200 keys (2,000 until phase 4j)
 NS_CLIENTS = 16
 # UploadPartCopy's ranges of the 256 MiB source, (offset, length): its
 # first 64 MiB, 40 MiB across the boundary of its 32 MiB windows 3 and 4,
@@ -1692,7 +1712,8 @@ def phase_namespace(rng, s: "Server", src: dict) -> dict:
 # Phase 4d: a crash with group-commit WALs live.
 CRASH_CLIENTS = 16
 CRASH_KEYS = 400              # a client at most; the kill comes first
-CRASH_ACKS = 1000             # acknowledged PUTs before the SIGKILL
+CRASH_ACKS = 500              # acknowledged PUTs before the SIGKILL (1,000
+                              # until phase 4j)
 CRASH_DELETE_EVERY = 4        # each client deletes every 4th key it PUT
 
 
@@ -1847,19 +1868,24 @@ def phase_crash(rng, root: str, device: str = "cuda") -> dict:
 
 # Phase 4e: the drive plane.
 DP_BIG = 16 * MIB               # MinIO's own layout: 16 MiB objects
-DP_BIG_BYTES = 1 << 30          # of them, 1 GiB (2 GiB until phase 4i)
+DP_BIG_BYTES = 1 << 29          # of them, 512 MiB (2 GiB until phase 4i,
+                                # 1 GiB until phase 4j)
 DP_RAGGED = 64 * MIB + 1        # a ragged tail
 DP_MP_PARTS = 8                 # a multipart object of 8 x AWS_PART
-DP_SMALL = 500                  # keys of 1 KiB (1,000 until phase 4i)
-DP_VKEYS, DP_VERSIONS, DP_MARKERS = 100, 3, 50   # (200, 3, 100 before 4i)
+DP_SMALL = 100                  # keys of 1 KiB (1,000 until phase 4i, 500
+                                # until phase 4j)
+DP_VKEYS, DP_VERSIONS, DP_MARKERS = 20, 3, 10   # (200, 3, 100 before 4i;
+                                                # 100, 3, 50 before 4j)
 DP_VBODY = 4 * 1024
 DP_CLIENTS = 16
-DP_LIVE_KEYS = 24               # keys a client PUTs and GETs while serving
+DP_LIVE_KEYS = 8                # keys a client PUTs and GETs while serving
+                                # (24 until phase 4j)
 DP_LIVE_SIZE = MIB              # their size
 DP_LIVE_PAUSE = 0.25            # seconds between a client's pairs
 DP_INTERVAL = 1.0               # --scanner-interval of the phase's server
 HUNG_SLEEP = 30.0               # the hung drive's sleep on every call
-SMALL_RATE_KEYS = 32            # 1 KiB PUTs a client for the rate pair
+SMALL_RATE_KEYS = 16            # 1 KiB PUTs a client for the rate pair (32
+                                # until phase 4j)
 
 
 class ServerProc:
@@ -2472,9 +2498,11 @@ def phase_drive_plane(rng, root: str, device: str = "cuda") -> dict:
 
 # Phase 4f: the pre-forked fleet.
 FLEET_WORKERS = 4
-FLEET_ROUNDS = 100              # coherence rounds, half 1 KiB, half 1 MiB
+FLEET_ROUNDS = 40               # coherence rounds, half 1 KiB, half 1 MiB
+                                # (200 until phase 4i, 100 until 4j)
 FLEET_GETS = 8                  # fresh connections a check
-RATE_KEYS = 32                  # 1 KiB PUTs a client for the fleet's rate
+RATE_KEYS = 16                  # 1 KiB PUTs a client for the fleet's rate
+                                # (32 until phase 4j)
 RATE_PAIRS = 4                  # 1 MiB PUT+GET pairs a client
 
 
@@ -2793,11 +2821,13 @@ PL_CLIENTS = 16
 PL_BIG, PL_N_BIG = 16 * MIB, 12  # MinIO's object size in 4e (24 before 4i)
 PL_RAGGED = 64 * MIB + 1
 PL_MP_PARTS = 8                 # a multipart of 8 x AWS_PART
-PL_SMALL = 50                   # keys of 1 KiB
-PL_VKEYS, PL_VERSIONS, PL_MARKERS = 50, 3, 25
+PL_SMALL = 20                   # keys of 1 KiB (50 until phase 4j)
+PL_VKEYS, PL_VERSIONS, PL_MARKERS = 20, 3, 10   # (50, 3, 25 until 4j)
 PL_VBODY = 4 * 1024
-PL_RATE_KEYS = 16               # 1 KiB PUTs a client for each rate
-PL_LIVE_KEYS = 4                # keys a live client overwrites in turn
+PL_RATE_KEYS = 8                # 1 KiB PUTs a client for each rate (16
+                                # until phase 4j)
+PL_LIVE_KEYS = 2                # keys a live client overwrites in turn (4
+                                # until phase 4j)
 PL_SAMPLE = 8                   # migrated 16 MiB objects recomputed
 PL_WALK_WORKERS = "4"           # MTPU_REBALANCE_WORKERS of the servers
 PL_K, PL_M = 12, 4              # pool 2's geometry
@@ -3210,15 +3240,17 @@ def phase_pools(rng, root: str, device: str = "cuda") -> dict:
 DI_NODES, DI_DRIVES = 4, 4       # MinIO's multi-node multi-drive guide
 DI_HTTP_WORKERS = (2, 1, 1, 1)   # MTPU_HTTP_WORKERS of each node
 DI_CLIENTS = 16
-DI_BIG, DI_N_BIG = 16 * MIB, 16   # (32 before phase 4i)
+DI_BIG, DI_N_BIG = 16 * MIB, 8    # (32 before phase 4i, 16 before 4j)
 DI_RAGGED = 64 * MIB + 1
 DI_MP_PARTS = 4                 # a multipart of 4 x AWS_PART
-DI_SMALL = 250                  # keys of 1 KiB
-DI_LOCK_KEYS, DI_LOCK_S = 8, 10.0   # keys 16 clients overwrite, seconds
+DI_SMALL = 50                   # keys of 1 KiB (250 until phase 4j)
+DI_LOCK_KEYS, DI_LOCK_S = 8, 5.0    # keys 16 clients overwrite, seconds
+                                    # (10 s until phase 4j)
 DI_LOCK_BODY = 64 * 1024
 DI_LIVE_SIZE = MIB              # the paced clients' PUT+GET pairs
 DI_LIVE_PAUSE = 0.25            # seconds between a client's pairs
-DI_LIVE_BEFORE, DI_LIVE_AFTER = 2.0, 7.0   # seconds around the kill
+DI_LIVE_BEFORE, DI_LIVE_AFTER = 2.0, 3.0   # seconds around the kill (7 s
+                                           # after it until phase 4j)
 DI_DRIVE_TIMEOUT = 10.0         # the nodes' --drive-timeout (default)
 GRID_PORT_OFFSET = 1000         # minio_tpu_torch.server's
 DI_COH_KEYS = 8                 # keys overwritten through node 1 a round
@@ -4250,6 +4282,475 @@ def phase_elastic_fleet(rng, root: str, device: str = "cuda") -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 4j: the event-loop front end
+# ---------------------------------------------------------------------------
+
+FE_IDLE_MAX = 2000              # idle keep-alive connections, at most
+FE_OBJ = 64 * 1024              # the object each idle connection GETs
+FE_GET_THREADS = 8              # client threads of the idle connections
+FE_PIPELINE = 16                # GETs pipelined on one connection
+FE_BIG = 64 * MIB               # the aws-chunked PUT and the slow read
+FE_SLOW_RCVBUF = 256 * 1024     # the slow reader's receive buffer
+FE_HOT = 4 * 1024               # the hot GETs' objects
+FE_HOT_KEYS = 16
+FE_CLIENTS = 64                 # keep-alive clients of the rates
+FE_CLIENT_PROCS = 4             # processes they run in
+FE_RATE_PUTS = 8                # 1 KiB PUTs a client, a rate
+FE_RATE_GETS = 32               # hot 4 KiB GETs a client, a rate
+FE_SMALL_ENV = {"MTPU_HTTP_KEEPALIVE_S": "2", "MTPU_MAX_CONNS": "16"}
+
+
+class env_set:
+    """Environment variables set while a server is built (its front end
+    and caches read them there), restored after."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class KeepAlive:
+    """Signed requests over one persistent HTTP/1.1 connection."""
+
+    def __init__(self, address: str):
+        from minio_tpu_torch.s3 import sigv4
+        self.sigv4, self.address = sigv4, address
+        host, _, port = address.rpartition(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=120)
+
+    def request(self, method: str, path: str, body: bytes = b""):
+        uri, headers = self.sigv4.sign_headers(
+            method, self.address, path, "minioadmin", "minioadmin",
+            hashlib.sha256(body).hexdigest())
+        self.conn.request(method, uri, body=body, headers=headers)
+        resp = self.conn.getresponse()
+        return resp.status, resp.read()
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def raw_conn(address: str, rcvbuf: int = 0):
+    import socket
+    host, _, port = address.rpartition(":")
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    if rcvbuf:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, rcvbuf)
+    s.settimeout(120)
+    s.connect((host, int(port)))
+    return s
+
+
+def signed_get(address: str, path: str) -> bytes:
+    """A signed GET's head, for a raw socket."""
+    from minio_tpu_torch.s3 import sigv4
+    uri, headers = sigv4.sign_headers("GET", address, path, "minioadmin",
+                                      "minioadmin", sigv4.EMPTY_SHA256)
+    return ("\r\n".join([f"GET {uri} HTTP/1.1"] + [
+        f"{k}: {v}" for k, v in headers.items()]) + "\r\n\r\n").encode()
+
+
+LIVE = b"GET /minio/health/live HTTP/1.1\r\nHost: x\r\n\r\n"
+
+
+def recv_responses(sock, n: int, buf: bytearray | None = None) -> list:
+    """n Content-Length responses off a keep-alive socket: [(status,
+    body)]."""
+    buf = bytearray() if buf is None else buf
+    out = []
+    while len(out) < n:
+        end = buf.find(b"\r\n\r\n")
+        if end >= 0:
+            head = buf[:end].decode("latin-1").split("\r\n")
+            length = next((int(ln.split(":", 1)[1]) for ln in head[1:]
+                           if ln.lower().startswith("content-length:")), 0)
+            if len(buf) >= end + 4 + length:
+                out.append((int(head[0].split()[1]),
+                            bytes(buf[end + 4:end + 4 + length])))
+                del buf[:end + 4 + length]
+                continue
+        got = sock.recv(1 << 20)
+        check(bool(got), f"connection closed after {len(out)} of {n} "
+              "responses")
+        buf += got
+    return out
+
+
+# One client process of fe_rates: CLIENTS keep-alive connections, each on
+# a thread, start together at START (wall clock) and make OPS requests:
+# 1 KiB PUTs ("put") or GETs of the hot keys whose SHA-256 it is given
+# ("get"); prints {"ops", "errors", "t1"}.
+_FE_CLIENT = r"""
+import hashlib, http.client, json, os, sys, threading, time
+from minio_tpu_torch.s3 import sigv4
+addr, mode, tag = sys.argv[1:4]
+start, clients, ops = float(sys.argv[4]), int(sys.argv[5]), int(sys.argv[6])
+want = json.loads(sys.argv[7])
+keys = sorted(want)
+host, _, port = addr.rpartition(":")
+done, errors, ends = [0], [0], []
+mu = threading.Lock()
+
+def client(t):
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    body = os.urandom(1024)
+    n = bad = 0
+    while time.time() < start:
+        time.sleep(0.001)
+    try:
+        for i in range(ops):
+            if mode == "put":
+                path, data = f"/front/rate-{tag}-{t}-{i}", body
+            else:
+                path, data = f"/front/{keys[(t + i) % len(keys)]}", b""
+            uri, headers = sigv4.sign_headers(
+                "PUT" if mode == "put" else "GET", addr, path, "minioadmin",
+                "minioadmin", hashlib.sha256(data).hexdigest())
+            conn.request("PUT" if mode == "put" else "GET", uri, body=data,
+                         headers=headers)
+            resp = conn.getresponse()
+            got = resp.read()
+            ok = resp.status == 200 and (mode == "put" or hashlib.sha256(
+                got).hexdigest() == want[path.rsplit("/", 1)[1]])
+            n += 1
+            bad += not ok
+    finally:
+        conn.close()
+        with mu:
+            done[0] += n
+            errors[0] += bad
+            ends.append(time.time())
+
+threads = [threading.Thread(target=client, args=(int(sys.argv[8]) + t,))
+           for t in range(clients)]
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+print(json.dumps({"ops": done[0], "errors": errors[0], "t1": max(ends)}))
+"""
+
+
+def fe_rates(address: str, tag: str, hot_keys: list) -> tuple:
+    """(1 KiB PUT keys/s, hot 4 KiB GETs/s) of FE_CLIENTS keep-alive
+    clients, each on its own connection, spread over FE_CLIENT_PROCS
+    client processes (so that neither the clients nor the server in this
+    process share one interpreter's lock)."""
+    want = json.dumps({key: hashlib.sha256(body).hexdigest()
+                       for key, body in hot_keys})
+    per = FE_CLIENTS // FE_CLIENT_PROCS
+    rates = []
+    for mode, ops in (("put", FE_RATE_PUTS), ("get", FE_RATE_GETS)):
+        start = time.time() + 3.0
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _FE_CLIENT, address, mode, tag,
+             repr(start), str(per), str(ops), want, str(p * per)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p in range(FE_CLIENT_PROCS)]
+        docs = []
+        for proc in procs:
+            out = proc.communicate(timeout=300)[0]
+            check(proc.returncode == 0, f"rate client failed: {out[-2000:]}")
+            docs.append(json.loads(out.strip().splitlines()[-1]))
+        total = sum(d["ops"] for d in docs)
+        errors = sum(d["errors"] for d in docs)
+        check(total == FE_CLIENTS * ops and not errors,
+              f"{mode} rate through {tag}: {total} requests, {errors} "
+              "failed or not identical")
+        rates.append(total / (max(d["t1"] for d in docs) - start))
+    return tuple(rates)
+
+
+def prime_hot(s: "Server", hot_keys: list) -> None:
+    """GET each key until the hot cache holds it with its head template
+    (admission runs after a miss's last write)."""
+    hc = s.srv.hot_cache
+    for key, body in hot_keys:
+        t0 = time.perf_counter()
+        while True:
+            st, got = s.client("GET", f"/front/{key}")
+            check(st == 200 and got == body, f"GET {key} not identical")
+            entry = hc.get("front", key)
+            if entry is not None and entry.head_prefix is not None:
+                break
+            check(time.perf_counter() - t0 < 20,
+                  f"{key} never became resident in the hot cache")
+
+
+def phase_front_end(rng, root: str, device: str = "cuda") -> dict:
+    """4j, see the module docstring."""
+    import resource
+    import socket
+    from minio_tpu_torch.s3 import hotloop
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard != resource.RLIM_INFINITY and soft < hard:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    limit = hard if hard != resource.RLIM_INFINITY else 1 << 20
+    n_idle = min(FE_IDLE_MAX, (limit - 512) // 2)
+    check(n_idle > 0, f"no room for idle connections: RLIMIT_NOFILE {hard}")
+    recv = hotloop.recv_pool()
+    reset_launches()
+
+    # Slowloris and the shed at accept, on a server with a 2 s idle
+    # deadline and a cap of 16 connections.
+    with env_set(**FE_SMALL_ENV):
+        small = Server(root, "fe-small", device=device)
+    try:
+        httpd = small.srv.httpd
+        check(type(httpd).__name__ == "EventLoopServer",
+              f"the server did not boot the event loop: {type(httpd)}")
+        st0 = small.srv.eventloop_stats()
+        slow = raw_conn(small.srv.address)
+        t0 = time.perf_counter()
+        slow.sendall(b"GET /minio/health/live HTTP/1.1\r\nHo")
+        slow.settimeout(15)
+        try:
+            closed = slow.recv(4096) == b""
+        except OSError:
+            closed = True
+        reap_s = time.perf_counter() - t0
+        slow.close()
+        st1 = small.srv.eventloop_stats()
+        check(closed and 1.5 < reap_s < 10,
+              f"slowloris head not reaped at the 2 s deadline: {reap_s:.1f} s")
+        check(st1["reaped_idle_total"] > st0["reaped_idle_total"]
+              and st1["dispatch_total"] == st0["dispatch_total"],
+              f"the partial head was dispatched or not reaped: {st1}")
+        log(f"front end: slowloris partial head reaped after {reap_s:.2f} s "
+            "(deadline 2 s), never dispatched")
+        parked = []
+        try:
+            for _ in range(httpd.max_conns):
+                sock = raw_conn(small.srv.address)
+                sock.sendall(LIVE)
+                check(recv_responses(sock, 1)[0][0] == 200, "live probe")
+                parked.append(sock)
+            extra = raw_conn(small.srv.address)
+            t0 = time.perf_counter()
+            shed = bytearray()
+            while True:
+                got = extra.recv(4096)
+                if not got:
+                    break
+                shed += got
+            shed_ms = (time.perf_counter() - t0) * 1e3
+            extra.close()
+        finally:
+            for sock in parked:
+                sock.close()
+        check(shed.startswith(b"HTTP/1.1 503") and b"Retry-After" in shed
+              and small.srv.eventloop_stats()["shed_total"] >= 1,
+              f"connection {httpd.max_conns + 1} not shed: {bytes(shed)!r}")
+        log(f"front end: connection {httpd.max_conns + 1} past "
+            f"MTPU_MAX_CONNS={httpd.max_conns} shed with 503 + Retry-After "
+            f"in {shed_ms:.1f} ms, before any byte was sent")
+    finally:
+        small.stop()
+
+    with env_set(MTPU_HOT_CACHE="on"):
+        s = Server(root, "fe", device=device)
+    es, c, addr = s.es, s.client, s.srv.address
+    try:
+        check(c("PUT", "/front")[0] == 200, "make bucket fe")
+        obj = rng.bytes(FE_OBJ)
+        check(c("PUT", "/front/idle-get", obj)[0] == 200, "PUT idle-get")
+
+        # N idle keep-alive connections: each answered once, then parked
+        # holding no recv lease; then each GETs the 64 KiB object.
+        t0 = time.perf_counter()
+        socks = []
+        try:
+            for _ in range(n_idle):
+                sock = raw_conn(addr)
+                sock.sendall(LIVE)
+                socks.append(sock)
+            for sock in socks:
+                check(recv_responses(sock, 1)[0][0] == 200, "live probe")
+            t_open = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            while s.srv.eventloop_stats()["parked"] < n_idle:
+                check(time.perf_counter() - t1 < 30,
+                      f"{n_idle} connections never all parked: "
+                      f"{s.srv.eventloop_stats()}")
+                time.sleep(0.05)
+            leases = recv.stats()["outstanding"]
+            check(leases == 0, f"{n_idle} parked connections hold {leases} "
+                  "recv leases")
+            head = signed_get(addr, "/front/idle-get")
+            bad = []
+
+            def idle_gets(chunk):
+                for sock in chunk:
+                    sock.sendall(head)
+                    st, got = recv_responses(sock, 1)[0]
+                    if st != 200 or got != obj:
+                        bad.append(st)
+            per = -(-n_idle // FE_GET_THREADS)
+            get_s = run_clients(lambda _, ch: idle_gets(ch),
+                                [[socks[i:i + per]]
+                                 for i in range(0, n_idle, per)])
+            check(not bad, f"{len(bad)} idle connections' GETs failed: "
+                  f"{bad[:5]}")
+        finally:
+            for sock in socks:
+                sock.close()
+        log(f"front end: {n_idle} idle keep-alive connections (soft "
+            f"RLIMIT_NOFILE raised to {soft}) opened and answered in "
+            f"{t_open:.2f} s, parked holding 0 recv leases; then each GET "
+            f"{FE_OBJ // 1024} KiB identical in {get_s:.2f} s "
+            f"({n_idle / get_s:.0f} GETs/s from {FE_GET_THREADS} threads)")
+
+        # 16 GETs pipelined on one connection.
+        keys = [(f"pipe-{i}", rng.bytes(FE_HOT + i)) for i in
+                range(FE_PIPELINE)]
+        for key, body in keys:
+            check(c("PUT", f"/front/{key}", body)[0] == 200, f"PUT {key}")
+        sock = raw_conn(addr)
+        try:
+            sock.sendall(b"".join(signed_get(addr, f"/front/{key}")
+                                  for key, _ in keys))
+            got = recv_responses(sock, FE_PIPELINE)
+        finally:
+            sock.close()
+        check(got == [(200, body) for _, body in keys],
+              "pipelined GETs did not come back in order and identical")
+        log(f"front end: {FE_PIPELINE} GETs pipelined on one connection "
+            "came back in order, identical")
+
+        # A 64 MiB aws-chunked PUT through the pooled decoder, then a
+        # slow reader: the GET's last window is left to the loop.
+        big = rng.bytes(FE_BIG)
+        t0 = time.perf_counter()
+        st, _, h = c.chunked_put("/front/big", big)
+        put_s = time.perf_counter() - t0
+        check(st == 200 and h.get("etag") ==
+              f'"{hashlib.md5(big).hexdigest()}"',
+              f"aws-chunked PUT of {FE_BIG // MIB} MiB: {st}")
+        check(recv.stats()["outstanding"] == 0,
+              "the pooled chunked reader kept its lease")
+        off0 = s.srv.eventloop_stats()["offloads_total"]
+        # Accepted sockets inherit the listener's send buffer: a small one
+        # for the slow reader's connection only.
+        lsock = s.srv.httpd.socket
+        sndbuf = lsock.getsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF)
+        lsock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF,
+                         FE_SLOW_RCVBUF)
+        try:
+            sock = raw_conn(addr, rcvbuf=FE_SLOW_RCVBUF)
+        finally:
+            lsock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, sndbuf)
+        t0 = time.perf_counter()
+        try:
+            sock.sendall(signed_get(addr, "/front/big"))
+            (st, got), = recv_responses(sock, 1)
+        finally:
+            sock.close()
+        slow_s = time.perf_counter() - t0
+        st1 = s.srv.eventloop_stats()
+        check(st == 200 and got == big, "slow reader's GET not identical")
+        check(st1["offloads_total"] > off0,
+              f"the GET's last window was not left to the loop: {st1}")
+        check_pool_idle("front end, after the slow reader", device)
+        t1 = time.perf_counter()
+        while recv.stats()["outstanding"] and time.perf_counter() - t1 < 10:
+            time.sleep(0.05)
+        check(recv.stats()["outstanding"] == 0,
+              f"recv leases outstanding: {recv.stats()}")
+        log(f"front end: aws-chunked PUT of {FE_BIG // MIB} MiB through the "
+            f"pooled decoder {FE_BIG / MIB / put_s:.1f} MiB/s; a reader with "
+            f"a {FE_SLOW_RCVBUF // 1024} KiB receive buffer got it identical "
+            f"in {slow_s:.2f} s, {st1['offloads_total'] - off0} final write "
+            "left to the loop; pools back to idle")
+
+        # A degraded GET: 2 data-shard drives away, the reconstruct rows
+        # run on the card from a loop dispatch.
+        rec0 = es.device_windows["reconstruct"]
+        disp0 = s.srv.eventloop_stats()["dispatch_total"]
+        hc = s.srv.hot_cache
+        hc.enabled = False           # the drives answer, not a resident copy
+        try:
+            with drives_away(s, data_holders("front", "big", 2),
+                             "front/big"):
+                st, got = c("GET", "/front/big")
+        finally:
+            hc.enabled = True
+        check(st == 200 and got == big, "degraded GET not identical")
+        check(es.device_windows["reconstruct"] > rec0,
+              "the degraded GET did not reconstruct on the card: windows "
+              f"{es.device_windows}, host {es.host_windows}")
+        check(s.srv.eventloop_stats()["dispatch_total"] > disp0,
+              "the degraded GET was not a loop dispatch")
+        log("front end: GET with 2 data-shard drives away identical, "
+            "reconstructed on the card from a loop dispatch")
+
+        # Hot 4 KiB GETs answered on the loop thread.
+        hot_keys = [(f"hot-{i}", rng.bytes(FE_HOT)) for i in
+                    range(FE_HOT_KEYS)]
+        for key, body in hot_keys:
+            check(c("PUT", f"/front/{key}", body)[0] == 200, f"PUT {key}")
+        prime_hot(s, hot_keys)
+        st0 = s.srv.eventloop_stats()
+        ka = KeepAlive(addr)
+        try:
+            for key, body in hot_keys:
+                check(ka.request("GET", f"/front/{key}") == (200, body),
+                      f"hot GET {key} not identical")
+        finally:
+            ka.close()
+        st1 = s.srv.eventloop_stats()
+        hits = st1["hot_hits_total"] - st0["hot_hits_total"]
+        check(hits == FE_HOT_KEYS
+              and st1["dispatch_total"] == st0["dispatch_total"],
+              f"hot GETs not answered on the loop: {hits} hits, "
+              f"{st1['dispatch_total'] - st0['dispatch_total']} dispatches")
+        log(f"front end: {FE_HOT_KEYS} hot {FE_HOT // 1024} KiB GETs "
+            "answered on the loop thread, identical, no dispatch")
+
+        loop_rates = fe_rates(addr, "loop", hot_keys)
+        st = s.srv.eventloop_stats()
+        log(f"front end: loop stats {json.dumps({k: v for k, v in st.items() if k != 'loop_lag'})}")
+        launches = read_launches()
+    finally:
+        s.stop()
+    check_pool_idle("front end", device)
+
+    # The same rates through the thread-per-connection front end, on the
+    # same drives.
+    with env_set(MTPU_HOT_CACHE="on", MTPU_HTTP_EVENTLOOP="off"):
+        t = Server(root, "fe", device=device)
+    try:
+        check(t.srv.eventloop_stats() is None,
+              "MTPU_HTTP_EVENTLOOP=off still booted the loop")
+        prime_hot(t, hot_keys)
+        thread_rates = fe_rates(t.srv.address, "threads", hot_keys)
+    finally:
+        t.stop()
+    check_pool_idle("front end (threads)", device)
+    log(f"front end rates ({smi('--query-gpu=name,power.limit')}; "
+        f"{os.cpu_count()} host cores; {FE_CLIENTS} keep-alive clients): "
+        f"1 KiB PUT keys/s "
+        f"loop {loop_rates[0]:.1f} threads {thread_rates[0]:.1f}; hot "
+        f"{FE_HOT // 1024} KiB GETs/s loop {loop_rates[1]:.1f} threads "
+        f"{thread_rates[1]:.1f}")
+    log(f"front end launches {launches}")
+    check(launches["gf_apply"] and launches["highwayhash256"],
+          f"a kernel of the front end's path never launched: {launches}")
+    return launches
+
+
 def phase_b5_entry_point(torch):
     """python -m minio_tpu_torch.experiments.rs_i8_kernel, in process."""
     from minio_tpu_torch.experiments import rs_i8_kernel
@@ -4475,6 +4976,9 @@ def main() -> int:
         for done in os.listdir(root):
             shutil.rmtree(os.path.join(root, done), ignore_errors=True)
         elastic = timed("4i", phase_elastic_fleet, rng, root)
+        for done in os.listdir(root):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        front = timed("4j", phase_front_end, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed("4 (solo dispatch)", solo_dispatch_ms, torch, rng, conc_stats)
@@ -4482,7 +4986,7 @@ def main() -> int:
     times = timed("6", phase_times, torch, dev, rng)
 
     launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
-                + fleet[k] + pools[k] + dist[k] + elastic[k]
+                + fleet[k] + pools[k] + dist[k] + elastic[k] + front[k]
                 for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {

@@ -37,9 +37,17 @@ Cross-process coordination:
     stamps its drives clean and prints its kernel launches, then exits;
     the parent reaps and respawns workers that die otherwise (bounded).
 
+Each worker serves through an event loop of its own (s3/eventloop.py)
+on its SO_REUSEPORT socket: the epoll set, the executor threads and the
+recv buffer pool are made in the worker, after the fork, as everything
+else is. Its SIGTERM drain stops accepting, closes the parked
+connections, and lets the dispatched requests and the response tails
+the loop drains finish before the drives are stamped.
+
 MTPU_HTTP_WORKERS: worker count (default = cores; 0/1 = one process,
 as the tests run it). The fleet's control pipes (cluster stats, trace
-relay) come with the port's metrics and tracing.
+relay) are not ported yet: they serve the port's metrics and tracing,
+which come later.
 """
 
 from __future__ import annotations

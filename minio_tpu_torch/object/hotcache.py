@@ -36,10 +36,10 @@ Coherence rides the funnel object/fi_cache.py uses:
   (``flush_process_caches``).
 
 Each entry also keeps the response head its admitting GET sent, split
-around its Date value (``split_head``), so that a hit can be replayed
-with only the Date re-stamped (``date_bytes``); the handler path builds
-its head from the cached ObjectInfo, as the JAX package's does, and the
-replay waits for the event loop's short circuit.
+around its Date value (``split_head``): the event loop's short circuit
+(s3/server.py ``_hot_probe``) replays it on the loop thread with the
+Date (``date_bytes``) and the request id stamped anew; the handler path
+builds its head from the cached ObjectInfo, as the JAX package's does.
 
 Kill switch: ``MTPU_HOT_CACHE=off`` (or 0/false). Knobs, with the JAX
 package's defaults: ``MTPU_HOT_CACHE_MAX`` (entries, 1024),

@@ -3,11 +3,19 @@
 The layer is object/pools.ServerPools (pools of erasure sets, as the
 server boots it), or one pool's ErasureSets, or a lone ErasureSet.
 
-`http.server.ThreadingHTTPServer`, one thread per connection, HTTP/1.1
-keep-alive. It serves PUT/HEAD/DELETE bucket and PUT/GET/HEAD/DELETE
-object, every request authenticated with header SigV4 (s3/sigv4.py; a wrong
-signature is 403 SignatureDoesNotMatch), errors rendered as S3 XML
-(reference cmd/api-errors.go).
+Connections are served by s3/eventloop.py's EventLoopServer, as the JAX
+package's server boots: one epoll loop parks idle keep-alive
+connections (no thread, no recv buffer), frames request heads out of
+each connection's pooled recv buffer (s3/hotloop.py), answers a plain
+signed GET of a hot-cache resident object on the loop thread
+(`_hot_probe`), and runs every other request on a bounded executor.
+MTPU_HTTP_EVENTLOOP=off (and a host without epoll) serves one thread a
+connection (`_HTTPServer`); both front ends frame heads the same way and
+close an idle keep-alive connection after MTPU_HTTP_KEEPALIVE_S (75 s).
+It serves PUT/HEAD/DELETE bucket and PUT/GET/HEAD/DELETE object, every
+request authenticated with header SigV4 (s3/sigv4.py; a wrong signature
+is 403 SignatureDoesNotMatch), errors rendered as S3 XML (reference
+cmd/api-errors.go).
 
 An object PUT body is never held whole: `_make_payload` (the port of
 minio_tpu/s3/server.py's) hands the object layer a utils.streams.Payload
@@ -93,12 +101,14 @@ from xml.sax.saxutils import escape
 from minio_tpu_torch.object import types as ot
 from minio_tpu_torch.object.decom import DecomError
 from minio_tpu_torch.object.erasure_object import _resolve_range, object_info
+from minio_tpu_torch.object import hotcache as hotcache_mod
 from minio_tpu_torch.object.hotcache import HotObjectCache
 from minio_tpu_torch.object.nslock import LockTimeout
 from minio_tpu_torch.object.pools import layer_sets
 from minio_tpu_torch.object.rebalance import RebalanceError
 from minio_tpu_torch.s3 import checksum as ck
-from minio_tpu_torch.s3 import sigv4
+from minio_tpu_torch.s3 import eventloop as eventloop_mod
+from minio_tpu_torch.s3 import hotloop, sigv4
 from minio_tpu_torch.s3.admission import (AdmissionController, AdmissionShed,
                                           class_for, path_class)
 from minio_tpu_torch.storage.health import DiskHealthWrapper
@@ -252,6 +262,7 @@ class _HTTPServer(ThreadingHTTPServer):
     # concurrent clients (each then waits a SYN retry); the stripe batcher
     # wants those requests to arrive together.
     request_queue_size = 128
+    daemon_threads = True
 
 
 class _ReusePortHTTPServer(_HTTPServer):
@@ -265,10 +276,95 @@ class _ReusePortHTTPServer(_HTTPServer):
         super().server_bind()
 
 
+def _keepalive_seconds():
+    """MTPU_HTTP_KEEPALIVE_S: the idle deadline between a client's bytes,
+    of the thread path (a timeout on the connection's reads and writes)
+    and of the event loop's parked and dispatched connections alike.
+    None: no idle deadline."""
+    try:
+        keepalive_s = float(
+            os.environ.get("MTPU_HTTP_KEEPALIVE_S", "") or 75.0)
+    except ValueError:
+        keepalive_s = 75.0
+    if keepalive_s <= 0:
+        # settimeout(0) would make the socket non-blocking.
+        return None
+    return keepalive_s
+
+
+# Requests the loop's hot probe leaves to the handler, unchanged
+# (minio_tpu/s3/server.py `_HOT_DECLINE`).
+_HOT_DECLINE = ("transfer-encoding", "expect",
+                "range", "if-match", "if-none-match",
+                "if-modified-since", "if-unmodified-since",
+                "x-amz-checksum-mode", "x-amz-security-token",
+                "x-amz-server-side-encryption-customer-algorithm",
+                "x-amz-server-side-encryption-customer-key")
+_REQUEST_ID = b"\r\nx-amz-request-id: "
+
+
+def _request_id() -> str:
+    return uuid.uuid4().hex[:16].upper()
+
+
+def _hot_probe(handler, head):
+    """(bufs, close_connection) for a plain signed GET of an object the
+    hot cache holds with its response head, else None (the request then
+    dispatches to the handler as it came). The event loop runs it on its
+    own thread (minio_tpu/s3/server.py `_hot_probe`): a RAM copy of the
+    entry's head template, with Date and x-amz-request-id stamped anew,
+    and its body; no object-layer call, no admission slot. The cache's
+    get() reads the per-set coherence gates, so a distributed node's shut
+    gate declines here too. The port has only root credentials, so a
+    request whose signature verifies needs no policy walk; one that does
+    not declines, and the handler answers its error."""
+    srv = handler.s3
+    hc = srv.hot_cache
+    if not hc.enabled:
+        return None
+    d, method, target, _version, http11 = head
+    if method != "GET" or "?" in target or "authorization" not in d:
+        return None
+    # A GET with a body would unframe the connection: the probe reads no
+    # body. An explicit zero length is fine.
+    if d.get("content-length", "0").strip() not in ("", "0"):
+        return None
+    for hk in _HOT_DECLINE:
+        if hk in d:
+            return None
+    bucket, _, key = urllib.parse.unquote(target).lstrip("/").partition("/")
+    if not bucket or not key:
+        return None
+    entry = hc.get(bucket, key)
+    if entry is None or entry.head_prefix is None:
+        return None
+    try:
+        sigv4.verify_request("GET", target, {}, d, srv.credentials.get)
+    except Exception:  # noqa: BLE001 - any auth failure: the handler
+        return None
+    suffix = entry.head_suffix
+    bufs = [entry.head_prefix, hotcache_mod.date_bytes()]
+    if suffix.startswith(_REQUEST_ID):
+        end = suffix.index(b"\r\n", len(_REQUEST_ID))
+        bufs += [_REQUEST_ID, _request_id().encode(), suffix[end:]]
+    else:
+        bufs.append(suffix)
+    bufs.append(entry.body)
+    conntype = d.get("connection", "").lower()
+    if conntype == "close":
+        close = True
+    elif http11:
+        close = False
+    else:
+        close = conntype != "keep-alive"
+    return bufs, close
+
+
 class S3Server:
     """S3 over HTTP for one object layer (see the module docstring). With
     MTPU_REUSE_PORT=1, which the pre-forked fleet sets in each worker,
-    it binds its address in an SO_REUSEPORT group."""
+    it binds its address in an SO_REUSEPORT group: each worker serves
+    through its own event loop, built in the worker after the fork."""
 
     # Seconds stop() waits for the requests in flight.
     DRAIN_S = 10.0
@@ -281,11 +377,17 @@ class S3Server:
 
         class Handler(_Handler):
             s3 = server
+            loop_keepalive_s = _keepalive_seconds()
+            loop_hot_probe = staticmethod(_hot_probe)
         reuse_port = os.environ.get("MTPU_REUSE_PORT", "") \
             in ("1", "on", "true")
-        cls = _ReusePortHTTPServer if reuse_port else _HTTPServer
-        self.httpd = cls(address, Handler)
-        self.httpd.daemon_threads = True
+        if eventloop_mod.loop_enabled():
+            self.httpd = eventloop_mod.EventLoopServer(
+                address, Handler, reuse_port=reuse_port,
+                keepalive_s=Handler.loop_keepalive_s)
+        else:
+            cls = _ReusePortHTTPServer if reuse_port else _HTTPServer
+            self.httpd = cls(address, Handler)
         # Admission control (s3/admission.py): bounded in-flight
         # requests per class; a worker of a fleet holds its share.
         self.admission = AdmissionController.from_env()
@@ -321,6 +423,12 @@ class S3Server:
         host, port = self.httpd.server_address[:2]
         return f"{host}:{port}"
 
+    def eventloop_stats(self):
+        """The event loop's snapshot (s3/eventloop.py `stats`), or None
+        under the thread-per-connection front end."""
+        stats = getattr(self.httpd, "stats", None)
+        return stats() if stats is not None else None
+
     def serve_forever(self) -> None:
         self.httpd.serve_forever()
 
@@ -332,14 +440,16 @@ class S3Server:
         self._thread.start()
 
     def shutdown(self) -> None:
-        """Stop serving (from another thread) and release the drives."""
+        """Stop serving (from another thread) and release the drives.
+        The event loop first lets its dispatched requests and response
+        tails finish."""
         self.httpd.shutdown()
         self.close()
 
     def stop(self) -> None:
-        """After start(): stop accepting, let the requests in flight
-        finish (up to DRAIN_S seconds), then close
-        (minio_tpu/s3/server.py `stop`)."""
+        """After start(): stop accepting, let the requests in flight and
+        the event loop's response tails finish (up to DRAIN_S seconds),
+        then close (minio_tpu/s3/server.py `stop`)."""
         self.httpd.shutdown()
         self.httpd.server_close()
         deadline = time.monotonic() + self.DRAIN_S
@@ -368,8 +478,9 @@ class S3Server:
     def info(self) -> dict:
         """`GET /minio/admin/v3/info`: the answering process's node,
         worker and pid, its cross-node coherence (worker 0: the
-        protocol's stats; a sibling: its gate's verdict), and its read
-        caches' counters summed over the sets."""
+        protocol's stats; a sibling: its gate's verdict), its read
+        caches' counters summed over the sets, and its event loop's
+        (`front_end`, None on the thread path)."""
         sets = layer_sets(self.objects)
 
         def summed(stats: list) -> dict:
@@ -391,7 +502,8 @@ class S3Server:
                 "pid": os.getpid(), "coherence": coherence,
                 "fi_cache": summed([s.fi_cache.stats() for s in sets]),
                 "metacache": summed([s.metacache.stats() for s in sets]),
-                "hot_cache": self.hot_cache.stats()}
+                "hot_cache": self.hot_cache.stats(),
+                "front_end": self.eventloop_stats()}
 
     def readiness(self) -> tuple[int, dict]:
         """/minio/health/ready (minio_tpu/s3/server.py `_health_ready`;
@@ -447,9 +559,123 @@ class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     server_version = "minio_tpu_torch"
     s3: S3Server
+    # The event loop's hooks (s3/eventloop.py), set on each server's
+    # handler class: the idle keep-alive deadline (the thread path's
+    # too) and the hot-cache short circuit.
+    loop_keepalive_s: float | None = None
+    loop_hot_probe = None
 
     def log_message(self, format, *args):  # noqa: A002 - stdlib signature
         pass
+
+    # -- connection plumbing (minio_tpu/s3/server.py's handler) -----------
+
+    def setup(self):
+        super().setup()
+        self._defer_head = False
+        self._deferred_head = None
+        self._last_head = b""
+        self._body_reader = None
+        # Set by the event loop (its _Conn); None on the thread path.
+        self._loop_conn = None
+        # One pooled reader serves the framer, the stock parser and every
+        # body reader of the connection: bytes a fill took past a head
+        # (a body's first bytes, the next pipelined request) are read
+        # from it.
+        try:
+            self.rfile.close()
+        except OSError:
+            pass
+        self._conn = self.rfile = hotloop.ConnReader(self.connection)
+
+    def finish(self):
+        try:
+            super().finish()
+        finally:
+            self._conn.close()
+
+    def handle_one_request(self):
+        """The thread path's request (and the loop's, for bytes the
+        framer refused): frame the head out of the connection buffer and
+        dispatch it; a head the framer refuses is parsed by the stdlib
+        from the same bytes. The idle deadline holds for every read and
+        write of the request, its body's too: a stalled client closes
+        its connection."""
+        try:
+            self.connection.settimeout(self.loop_keepalive_s)
+            head = self._conn.parse_head()
+        except hotloop._Fallback:
+            return self._stock_request()
+        except OSError:                   # the idle deadline, a reset
+            self.close_connection = True
+            return
+        if head is None:                  # a clean close between requests
+            self.close_connection = True
+            return
+        self._dispatch_head(head)
+
+    def _dispatch_head(self, head):
+        """Serve one framed request head: the thread path's, and the
+        event loop's, which frames heads on its thread and hands them
+        here on an executor thread."""
+        d, method, target, version, http11 = head
+        self.command = method
+        self.path = target
+        self.request_version = version
+        self.requestline = f"{method} {target} {version}"
+        self.headers = hotloop.FastHeaders(d)
+        conntype = d.get("connection", "").lower()
+        if conntype == "close":
+            self.close_connection = True
+        elif http11:
+            self.close_connection = False
+        else:
+            self.close_connection = conntype != "keep-alive"
+        if http11 and d.get("expect", "").lower() == "100-continue":
+            self.wfile.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+        mname = "do_" + method
+        if not hasattr(self, mname):
+            self.send_error(501, f"Unsupported method ({method!r})")
+            return
+        try:
+            getattr(self, mname)()
+            self.wfile.flush()
+        except (socket.timeout, ConnectionError):
+            self.close_connection = True
+
+    def _stock_request(self):
+        """The stdlib parse of a head the framer refused, from the same
+        buffered bytes."""
+        return super().handle_one_request()
+
+    def flush_headers(self):
+        # The head as it goes on the wire: the hot cache keeps a plain
+        # whole-object GET's as its entry's template. While _defer_head
+        # is set it waits for the response's first gathered write.
+        head = self._last_head = b"".join(getattr(self, "_headers_buffer",
+                                                  ()))
+        self._headers_buffer = []
+        if self._defer_head:
+            self._deferred_head, self._defer_head = head, False
+        else:
+            self.wfile.write(head)
+
+    def _take_head(self) -> bytes:
+        head, self._deferred_head = self._deferred_head, None
+        self._defer_head = False
+        return head or b""
+
+    def _send_bufs(self, bufs, final: bool = False) -> None:
+        """Gathered write: one sendmsg of head and body views (pooled GET
+        windows go to the wire as they are). `final` marks a response's
+        last write: under the event loop a full socket buffer then hands
+        the rest to the loop's EPOLLOUT drain (offload_final) and the
+        executor thread goes back to the pool."""
+        lc = self._loop_conn
+        if final and lc is not None:
+            self.server.offload_final(lc, bufs)
+        else:
+            hotloop.send_gathered(self.connection, bufs)
 
     def do_PUT(self):
         self._dispatch("PUT")
@@ -542,7 +768,7 @@ class _Handler(BaseHTTPRequestHandler):
         data_put = method == "PUT" and bool(key) and not admin
         done = False
         try:
-            headers = {k.lower(): v for k, v in self.headers.items()}
+            headers = self._headers_lower()
             # An object PUT streams its body (checked as it streams, by
             # the payload's finish hook); any other body is small and
             # read whole, its hash checked before the handler runs.
@@ -595,14 +821,37 @@ class _Handler(BaseHTTPRequestHandler):
                 headers = {"x-amz-delete-marker": "true",
                            "x-amz-version-id": e.version_id}
             self._error(S3Error(code), method, headers)
+        except hotloop.RecvStalled:
+            # The client stalled mid-body past the idle deadline: what is
+            # left of its body is unread, so the connection closes.
+            self.close_connection = True
+            self._error(S3Error("RequestTimeout"), method)
         except Exception:  # noqa: BLE001 - request boundary: log, answer 500
             traceback.print_exc(file=sys.stderr)
             self._error(S3Error("InternalError"), method)
         finally:
+            if self._body_reader is not None:
+                # The pooled aws-chunked reader's lease, whatever became
+                # of the body.
+                self._body_reader.close()
+                self._body_reader = None
             if data_put and not done:
                 # A refused object PUT may leave its body unread: the
                 # connection cannot carry another request.
                 self.close_connection = True
+
+    def _headers_lower(self) -> dict:
+        """The request's headers with lowercase names; a repeated header
+        folds with a comma, as the framer folds it (and SigV4
+        canonicalizes it), so both parse paths verify alike."""
+        d = getattr(self.headers, "d", None)   # FastHeaders: lowercase
+        if d is not None:
+            return d
+        low: dict[str, str] = {}
+        for k, v in self.headers.items():
+            k = k.lower()
+            low[k] = low[k] + "," + v if k in low else v
+        return low
 
     def _make_payload(self, auth, headers: dict) -> Payload:
         """The sized streaming payload of an object PUT (the port of
@@ -623,7 +872,7 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 raw = LimitedReader(self.rfile,
                                     int(headers.get("content-length") or 0))
-            reader = sigv4.chunked_reader(
+            reader = self._body_reader = sigv4.chunked_reader(
                 raw, auth, self.s3.credentials[auth.credential.access_key],
                 verify_signatures=auth.payload_hash
                 != sigv4.STREAMING_UNSIGNED_TRAILER)
@@ -764,23 +1013,22 @@ class _Handler(BaseHTTPRequestHandler):
                           " bytes short of declared size")
         return body
 
-    def flush_headers(self):
-        # The head as it goes on the wire: the hot cache keeps a plain
-        # whole-object GET's as its entry's template.
-        self._last_head = b"".join(getattr(self, "_headers_buffer", ()))
-        super().flush_headers()
-
-    def _send(self, status: int, headers: dict, body: bytes = b"",
-              length: int | None = None) -> None:
+    def _head(self, status: int, headers: dict, length: int) -> bytes:
+        """A response's head, held for its first gathered write."""
+        self._defer_head = True
         self.send_response(status)
-        headers = {"x-amz-request-id": uuid.uuid4().hex[:16].upper(),
-                   "Content-Length": str(len(body) if length is None
-                                         else length), **headers}
+        headers = {"x-amz-request-id": _request_id(),
+                   "Content-Length": str(length), **headers}
         for k, v in headers.items():
             self.send_header(k, v)
         self.end_headers()
-        if body:
-            self.wfile.write(body)
+        return self._take_head()
+
+    def _send(self, status: int, headers: dict, body: bytes = b"",
+              length: int | None = None) -> None:
+        head = self._head(status, headers,
+                          len(body) if length is None else length)
+        self._send_bufs([head, body], final=True)
 
     def _error(self, err: S3Error, method: str,
                headers: dict | None = None) -> None:
@@ -1369,20 +1617,26 @@ class _Handler(BaseHTTPRequestHandler):
         buf = bytearray() if admit else None
         try:
             first = next(chunks, b"")      # errors before the head is sent
-            self._send(*self._answer(info, spec, start, length, headers),
-                       length=length)
+            status, out_headers = self._answer(info, spec, start, length,
+                                               headers)
+            head = self._head(status, out_headers, length)
             if entry is not None and spec is None and template:
                 hot.set_head(bucket, key, info.etag, info.version_id or "",
-                             self._last_head)
+                             head)
             sent = 0
             try:
                 # Each chunk views a pooled lease that returns at the
                 # next pull, so it is on the wire (and copied into the
-                # hot buffer) before then.
+                # hot buffer) before then; the head rides the first
+                # chunk's write. The last chunk is the response's final
+                # write: under the event loop, what a slow reader's socket
+                # does not take at once is copied and left to the loop.
                 for chunk in itertools.chain((first,), chunks):
                     if buf is not None:
                         buf += chunk
-                    self.wfile.write(chunk)
+                    last = sent + len(chunk) >= length
+                    self._send_bufs([head, chunk], final=last)
+                    head = b""
                     sent += len(chunk)
             except Exception:  # noqa: BLE001 - head already sent
                 # A failure mid-body can only cut the connection (the

@@ -4,7 +4,7 @@ The slice's subset of minio_tpu/s3/sigv4.py (itself the public AWS SigV4
 scheme, as the reference implements it in cmd/signature-v4.go):
 canonical request -> string-to-sign -> HMAC chain, for requests signed
 in the Authorization header, and the aws-chunked streaming bodies
-(`ChunkedPayloadReader`: per-chunk signatures chained from the seed
+(`PooledChunkedReader`: per-chunk signatures chained from the seed
 signature, signed trailers, decoded as the body streams). `sign_headers`
 is the client side, used by the port's own tools and tests.
 """
@@ -167,33 +167,39 @@ def verify_request(method: str, raw_path: str, query: dict[str, list[str]],
     return auth
 
 
-class ChunkedPayloadReader:
-    """Incremental aws-chunked decoder (minio_tpu/s3/sigv4.py
-    `ChunkedPayloadReader`; reference cmd/streaming-signature-v4.go
-    s3ChunkedReader).
+class PooledChunkedReader:
+    """Incremental aws-chunked decoder over one pooled recv buffer
+    (minio_tpu/s3/sigv4.py `PooledChunkedReader`; reference
+    cmd/streaming-signature-v4.go s3ChunkedReader).
 
     Frames `hex-size;chunk-signature=<sig>\r\n<data>\r\n` up to a
-    zero-size one are parsed as the object layer pulls bytes, so a
-    streamed PUT never holds its encoded body. With verify_signatures
-    (every streaming hash but STREAMING-UNSIGNED-PAYLOAD-TRAILER), each
-    chunk's signature chains from the previous one, starting at the
-    request's seed signature; in signed-trailer mode the final zero-size
-    chunk is checked when it carries a signature. `finalize()` consumes
-    the final chunk and parses the trailer lines into `trailers`,
-    checking x-amz-trailer-signature in signed-trailer mode; the PUT path
-    runs it from the payload's finish hook, before the commit. Raises
-    SigError: SignatureDoesNotMatch for a bad signature, IncompleteBody
-    or InvalidChunkSizeError for broken framing.
+    zero-size one are scanned (s3/hotloop.chunk_head, the verdicts of
+    the JAX package's native `mtpu_chunk_head`) straight out of a lease
+    of s3/hotloop's recv pool that the raw bytes land in once: no
+    bytearray append and trim per frame, each chunk's SHA-256 runs over
+    a view of the same buffer, and the decoded bytes are copied out
+    once, into the caller's window. A chunk larger than the buffer swaps
+    it for a larger lease (up to the 16 MiB chunk bound). With
+    verify_signatures (every streaming hash but
+    STREAMING-UNSIGNED-PAYLOAD-TRAILER), each chunk's signature chains
+    from the previous one, starting at the request's seed signature; in
+    signed-trailer mode the final zero-size chunk is checked when it
+    carries a signature. `finalize()` consumes the final chunk and parses
+    the trailer lines into `trailers`, checking x-amz-trailer-signature
+    in signed-trailer mode; the PUT path runs it from the payload's
+    finish hook, before the commit. Raises SigError:
+    SignatureDoesNotMatch for a bad signature, IncompleteBody or
+    InvalidChunkSizeError for broken framing. `close()` returns the
+    lease; the serve path calls it when the request ends, whatever the
+    body's fate.
     """
 
     _FILL = 64 * 1024
-    # The reference's bounds on one frame: without them one giant chunk
-    # or a header with no CRLF would buffer the whole body.
-    _MAX_HEADER = 4 * 1024
-    _MAX_CHUNK = 16 << 20
+    _LEASE = 256 << 10
 
     def __init__(self, raw, auth: ParsedAuth, secret: str,
                  verify_signatures: bool = True):
+        from minio_tpu_torch.s3.hotloop import recv_pool
         self._raw = raw
         self._auth = auth
         self._verify = verify_signatures
@@ -202,96 +208,136 @@ class ChunkedPayloadReader:
                                      auth.credential.service)
         self._prev_sig = auth.signature
         self._scope = auth.credential.scope()
-        self._buf = bytearray()
-        self._chunk = memoryview(b"")
+        self._pool = recv_pool()
+        self._lease = self._pool.lease(self._LEASE)
+        self._attach()
+        self._out: list = []
+        self._pos = 0              # parse cursor
+        self._end = 0              # valid bytes
+        self._data_lo = 0          # the current chunk's unread span
+        self._data_hi = 0
         self._done = False
+        self._closed = False
         self.trailers: dict[str, str] = {}
 
-    # -- buffered raw access -------------------------------------------
+    # -- buffer plumbing -------------------------------------------------
 
-    def _fill(self) -> bool:
-        data = self._raw.read(self._FILL)
-        if not data:
-            return False
-        self._buf += data
-        return True
+    def _attach(self) -> None:
+        self._buf = self._lease.raw
+        self._cap = len(self._buf)
+        self._mv = memoryview(self._buf)
 
-    def _readline(self) -> bytes:
-        while True:
-            nl = self._buf.find(b"\r\n")
-            if nl >= 0:
-                line = bytes(self._buf[:nl])
-                del self._buf[:nl + 2]
-                return line
-            if len(self._buf) > self._MAX_HEADER:
-                raise SigError("InvalidChunkSizeError",
-                               "chunk header too long")
-            if not self._fill():
-                raise SigError("IncompleteBody", "truncated chunk header")
+    def _compact(self) -> None:
+        if self._pos:
+            n = self._end - self._pos
+            self._mv[:n] = self._mv[self._pos:self._end]
+            self._pos, self._end = 0, n
 
-    def _read_raw(self, n: int) -> bytes:
-        while len(self._buf) < n:
+    def _grow(self, need: int) -> None:
+        """Swap to a larger lease holding [pos, end) (a chunk larger
+        than the buffer; bounded by the 16 MiB chunk bound)."""
+        data = bytes(self._mv[self._pos:self._end])
+        lease = self._pool.lease(need + self._FILL)
+        self._mv.release()
+        self._lease.release()
+        self._lease = lease
+        self._attach()
+        self._mv[:len(data)] = data
+        self._pos, self._end = 0, len(data)
+
+    def _fill(self) -> int:
+        """Pull more raw bytes into the buffer's tail (readinto straight
+        into it when the source has one)."""
+        if self._end == self._cap:
+            self._compact()
+            if self._end == self._cap:
+                return 0
+        want = min(self._FILL, self._cap - self._end)
+        into = getattr(self._raw, "readinto", None)
+        if into is not None:
+            n = into(self._mv[self._end:self._end + want]) or 0
+        else:
+            data = self._raw.read(want)
+            n = len(data)
+            self._mv[self._end:self._end + n] = data
+        self._end += n
+        return n
+
+    def _ensure(self, need: int) -> None:
+        """Make buf[pos:pos + need) valid (fill, compact or grow)."""
+        if need > self._cap:
+            self._grow(need)
+        while self._end - self._pos < need:
+            if self._cap - self._pos < need:
+                self._compact()
             if not self._fill():
                 raise SigError("IncompleteBody", "short chunk")
-        out = bytes(self._buf[:n])
-        del self._buf[:n]
-        return out
 
-    # -- frame parsing --------------------------------------------------
+    # -- frame parsing ---------------------------------------------------
 
     def _next_frame(self) -> None:
-        header = self._readline().decode("latin-1")
-        size_hex, _, ext = header.partition(";")
-        try:
-            size = int(size_hex, 16)
-        except ValueError:
-            raise SigError("InvalidChunkSizeError", size_hex) from None
-        if size < 0 or size > self._MAX_CHUNK:
-            raise SigError("InvalidChunkSizeError", size_hex)
-        data = self._read_raw(size)
-        if size > 0 and self._read_raw(2) != b"\r\n":
+        from minio_tpu_torch.s3.hotloop import chunk_head
+        out = self._out
+        while True:
+            r = chunk_head(self._buf, self._end, self._pos, out)
+            if r == 1:
+                break
+            if r != 0:
+                raise SigError("InvalidChunkSizeError", "bad chunk header")
+            if self._end - self._pos > self._cap - 8:
+                self._compact()
+            if not self._fill():
+                raise SigError("IncompleteBody", "truncated chunk header")
+        hlen, size, sig_off, sig_len = out
+        base = self._pos
+        self._ensure(hlen + size + (2 if size else 0))
+        if sig_off:
+            # _ensure may have moved the frame to offset 0.
+            sig_off -= base - self._pos
+        doff = self._pos + hlen
+        if size and self._buf[doff + size:doff + size + 2] != b"\r\n":
             raise SigError("IncompleteBody", "bad chunk delimiter")
         if self._verify and (
                 self._auth.payload_hash == STREAMING_PAYLOAD
                 or (self._auth.payload_hash == STREAMING_PAYLOAD_TRAILER
-                    and (size > 0 or "chunk-signature=" in ext))):
+                    and (size > 0 or sig_off > 0))):
             # Signed-trailer mode signs the final 0-chunk too and the
             # trailer signature chains from it; a bare `0` final frame
             # is tolerated, and the chain then ends at the last data
             # chunk.
-            got = next((kv[len("chunk-signature="):] for kv in ext.split(";")
-                        if kv.startswith("chunk-signature=")), "")
+            got = bytes(self._mv[sig_off:sig_off + sig_len]) \
+                .decode("latin-1") if sig_off else ""
             sts = "\n".join([
                 "AWS4-HMAC-SHA256-PAYLOAD", self._auth.amz_date,
                 self._scope, self._prev_sig, EMPTY_SHA256,
-                hashlib.sha256(data).hexdigest()])
+                hashlib.sha256(self._mv[doff:doff + size]).hexdigest()])
             want = hmac.new(self._seed_key, sts.encode(),
                             hashlib.sha256).hexdigest()
             if not hmac.compare_digest(want, got):
                 raise SigError("SignatureDoesNotMatch", "chunk signature")
             self._prev_sig = want
+        self._pos = doff + size + (2 if size else 0)
         if size == 0:
             self._done = True
         else:
-            self._chunk = memoryview(data)
+            self._data_lo, self._data_hi = doff, doff + size
 
     def read(self, n: int) -> bytes:
-        while not self._chunk and not self._done:
+        while self._data_lo >= self._data_hi and not self._done:
             self._next_frame()
-        if not self._chunk:
-            return b""
-        out = self._chunk[:n]
-        self._chunk = self._chunk[len(out):]
-        return bytes(out)
+        take = min(max(n, 0), self._data_hi - self._data_lo)
+        out = bytes(self._mv[self._data_lo:self._data_lo + take])
+        self._data_lo += take
+        return out
 
     def readinto(self, view) -> int:
         """Decoded bytes straight into `view` (one chunk's worth at
         most); 0 after the final chunk."""
-        while not self._chunk and not self._done:
+        while self._data_lo >= self._data_hi and not self._done:
             self._next_frame()
-        n = min(len(view), len(self._chunk))
-        view[:n] = self._chunk[:n]
-        self._chunk = self._chunk[n:]
+        n = min(len(view), self._data_hi - self._data_lo)
+        view[:n] = self._mv[self._data_lo:self._data_lo + n]
+        self._data_lo += n
         return n
 
     def finalize(self) -> None:
@@ -301,7 +347,7 @@ class ChunkedPayloadReader:
         upload checksums there, x-amz-checksum-crc32 and the like)."""
         while not self._done:
             self._next_frame()
-            if self._chunk:
+            if self._data_hi > self._data_lo:
                 raise SigError("IncompleteBody",
                                "body exceeds decoded content length")
         self.trailers = {}
@@ -310,13 +356,13 @@ class ChunkedPayloadReader:
         trailer_raw = bytearray()       # the lines as sent, '\n'-ended
         trailer_sig = ""
         while True:
-            nl = self._buf.find(b"\r\n")
+            nl = self._buf.find(b"\r\n", self._pos, self._end)
             if nl < 0:
                 if not self._fill():
                     break
                 continue
-            line = bytes(self._buf[:nl])
-            del self._buf[:nl + 2]
+            line = bytes(self._mv[self._pos:nl])
+            self._pos = nl + 2
             name, sep, value = line.partition(b":")
             if not sep:
                 continue
@@ -342,25 +388,35 @@ class ChunkedPayloadReader:
             if not hmac.compare_digest(want, trailer_sig):
                 raise SigError("SignatureDoesNotMatch", "trailer signature")
 
+    def close(self) -> None:
+        """Return the buffer's lease (idempotent)."""
+        if not self._closed:
+            self._closed = True
+            self._mv.release()
+            self._lease.release()
+
 
 def chunked_reader(raw, auth: ParsedAuth, secret: str,
-                   verify_signatures: bool = True) -> ChunkedPayloadReader:
+                   verify_signatures: bool = True) -> PooledChunkedReader:
     """The aws-chunked streaming decoder of the serve path."""
-    return ChunkedPayloadReader(raw, auth, secret, verify_signatures)
+    return PooledChunkedReader(raw, auth, secret, verify_signatures)
 
 
 def decode_chunked_payload(body, auth: ParsedAuth, secret: str,
                            verify_signatures: bool = True) -> bytearray:
     """Decode a whole aws-chunked body held in memory: the chunks of
-    ChunkedPayloadReader, every signature and the trailers checked as
+    PooledChunkedReader, every signature and the trailers checked as
     it checks them."""
-    reader = ChunkedPayloadReader(io.BytesIO(body), auth, secret,
-                                  verify_signatures)
-    out = bytearray()
-    while chunk := reader.read(1 << 20):
-        out += chunk
-    reader.finalize()
-    return out
+    reader = PooledChunkedReader(io.BytesIO(body), auth, secret,
+                                 verify_signatures)
+    try:
+        out = bytearray()
+        while chunk := reader.read(1 << 20):
+            out += chunk
+        reader.finalize()
+        return out
+    finally:
+        reader.close()
 
 
 def sign_headers(method: str, host: str, path: str, access_key: str,

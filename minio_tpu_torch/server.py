@@ -111,7 +111,10 @@ parent, which forwards SIGTERM to its workers) stops accepting, lets
 the requests in flight finish, stops the scanner, the bulk heals, the
 coherence thread and a migration walk (checkpointed), closes the sets,
 stamps the drives and prints the card's kernel launches while it served
-(a worker's line names the worker) and, distributed, the dsync locks it
+(a worker's line names the worker), its event loop's counters (parked
+connections at the stop, requests dispatched, hot hits answered on the
+loop, response tails offloaded to it, accepts shed, idle connections
+reaped, recv leases left) and, distributed, the dsync locks it
 took, its grid peers' breakers and its control plane (peers armed,
 pushes, escalations, resyncs, peer notices, `mig.page` batches served,
 the read caches' counters).
@@ -691,6 +694,7 @@ def main(argv=None) -> int:
         # (checkpointed) before the set closes and the drives get their
         # clean-shutdown stamps.
         srv_info = srv.info()
+        parked = (srv.eventloop_stats() or {}).get("parked")
         srv.stop()
         if srv.grid_server is not None:
             srv.grid_server.stop()
@@ -709,6 +713,22 @@ def main(argv=None) -> int:
                   "gf_apply_by_kr": since("gf_apply_by_kr"),
                   "highwayhash256": now["highwayhash256"]
                   - base["highwayhash256"]}), flush=True)
+        loop = srv.eventloop_stats()
+        if loop is not None:
+            # The event loop's counters: connections parked when the
+            # stop began, requests dispatched to the executor, hot hits
+            # answered on the loop, final writes left to it, accepts
+            # shed, idle connections reaped, and recv leases still out
+            # (0 after a clean drain).
+            print(("worker " + worker + " " if worker else "")
+                  + "front end while serving: " + json.dumps({
+                      "parked": parked, "accepted": loop["accepted_total"],
+                      "dispatched": loop["dispatch_total"],
+                      "hot_hits": loop["hot_hits_total"],
+                      "offloads": loop["offloads_total"],
+                      "shed": loop["shed_total"],
+                      "reaped": loop["reaped_idle_total"],
+                      "recv_leases": loop["recv_leases"]}), flush=True)
         if srv.distributed:
             st = dsync.ACQUIRE.state()
             print(("worker " + worker + " " if worker else "")

@@ -15,9 +15,11 @@ requests (tests/s3client.py) go to both:
     refusals (missing source, a malformed source, a range past the end):
     statuses, error codes, ETags and the bytes read back must be equal;
   * a copy onto its own key (REPLACE) and a copy of an older version over
-    the latest of its key, each with a body and empty: each finishes in
-    under 5 s (the source's GET read lock is dropped before the
-    destination commits) and answers as the JAX server does.
+    the latest of its key, each with a body and empty: the source's GET
+    read lock is dropped before the destination commits (no reader holds
+    the key when its write lock is asked for; a copy that waited on its
+    own lock would answer 503 after the 60 s LockTimeout) and each
+    answers as the JAX server does.
 
 The port's set has its MRF heal queue closed, as in
 tests/test_torch_s3_compat.py.
@@ -25,7 +27,6 @@ tests/test_torch_s3_compat.py.
 
 import re
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -42,6 +43,24 @@ VBUCKET = "copyv"
 RNG = np.random.default_rng(9)
 SRC = RNG.bytes(3 * MIB + 5)
 PARTS = [RNG.bytes(5 * MIB), RNG.bytes(5 * MIB), RNG.bytes(MIB + 7)]
+# Each package's write-lock requests: [((bucket, key), readers holding
+# the key's lock at the request)], filled by _watch_write_locks.
+WRITE_LOCKS: dict[str, list] = {"p": [], "r": []}
+
+
+def _watch_write_locks(pkg: str, es) -> None:
+    """Record, for every write lock the set asks for, how many readers
+    hold that key's lock at that moment (both packages' NSLockMap keep
+    a reader count on each key's lock)."""
+    ns = es.ns
+    inner = ns.write
+
+    def write(volume, path, *args, **kwargs):
+        lk = ns._locks.get((volume, path))
+        WRITE_LOCKS[pkg].append(((volume, path),
+                                 lk._readers if lk is not None else 0))
+        return inner(volume, path, *args, **kwargs)
+    ns.write = write
 
 
 @pytest.fixture(scope="module")
@@ -52,10 +71,13 @@ def servers(tmp_path_factory):
     port = server.boot(["--device", "cpu", "--address", "127.0.0.1:0",
                         *[str(root / "p" / f"d{i}") for i in range(12)]])
     port.objects.sets[0]._mrf_closed = True
+    _watch_write_locks("p", port.objects.sets[0])
     thread = threading.Thread(target=port.serve_forever, daemon=True)
     thread.start()
-    ref = S3Server(ErasureSet([LocalStorage(str(root / "r" / f"d{i}"))
-                               for i in range(12)]), address="127.0.0.1:0")
+    ref_set = ErasureSet([LocalStorage(str(root / "r" / f"d{i}"))
+                          for i in range(12)])
+    _watch_write_locks("r", ref_set)
+    ref = S3Server(ref_set, address="127.0.0.1:0")
     ref.start()
     try:
         addrs = {"p": port.address, "r": ref.address}
@@ -74,7 +96,12 @@ def servers(tmp_path_factory):
 
 def _both(servers, fn):
     addrs, _ = servers
-    return {p: fn(S3Client(a, timeout=300)) for p, a in addrs.items()}
+    out = {}
+    for p, a in addrs.items():
+        c = S3Client(a, timeout=300)
+        c.pkg = p
+        out[p] = fn(c)
+    return out
 
 
 def _tag(body: bytes, tag: str) -> str:
@@ -156,25 +183,32 @@ def test_copy_by_version_id(servers):
     assert got["p"][2] == bodies[0]
 
 
-def _timed_copy(c, dst, src, extra=None):
-    t0 = time.monotonic()
+def _unlocked_copy(c, dst, src, extra=None):
+    """The copy's answer, and whether the destination's write lock was
+    asked for (at least once) with no reader holding the key: the copy
+    had let go of its source's read lock before it committed."""
+    seen = WRITE_LOCKS[c.pkg]
+    seen.clear()
     out = _copy(c, dst, src, extra)
-    return out, time.monotonic() - t0 < 5
+    bucket, key = dst.lstrip("/").split("/", 1)
+    readers = [n for k, n in seen if k == (bucket, key)]
+    return out, bool(readers) and not any(readers)
 
 
 @pytest.mark.parametrize("size", [3 * MIB + 11, 0])
 def test_copy_onto_its_own_key(servers, size):
     """A copy onto its own key with REPLACE: the source's read lock is
     dropped before the destination commits, so the copy does not wait
-    out its own lock (under 5 s, the answers of the JAX server); an
-    empty body too (a folder marker's metadata update), whose stream
-    delivers no byte at all."""
+    out its own lock (no reader holds the key when its write lock is
+    asked for; the answers of the JAX server); an empty body too (a
+    folder marker's metadata update), whose stream delivers no byte at
+    all."""
     body = RNG.bytes(size)
     key = f"/{BUCKET}/self{size}"
 
     def run(c):
         assert c.request("PUT", key, body=body)[0] == 200
-        out = _timed_copy(c, key, key, {
+        out = _unlocked_copy(c, key, key, {
             "x-amz-metadata-directive": "REPLACE",
             "x-amz-meta-round": "two"})
         st, h, got = c.request("GET", key)
@@ -204,7 +238,7 @@ def test_copy_older_version_over_latest(servers, size):
             _, h, _ = c.request("PUT", f"{bucket}/k", body=b)
             vids.append({k.lower(): v for k, v in h.items()}
                         ["x-amz-version-id"])
-        out = _timed_copy(c, f"{bucket}/k",
+        out = _unlocked_copy(c, f"{bucket}/k",
                           f"{bucket}/k?versionId={vids[0]}")
         latest = c.request("GET", f"{bucket}/k")[2]
         older = [c.request("GET", f"{bucket}/k",

@@ -22,6 +22,7 @@ fleet, which the port does not have yet (ROADMAP). Tolerance: none.
 """
 
 import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -477,18 +478,25 @@ def _wal_sizes(es):
 def test_concurrent_inline_puts_coalesce_and_roundtrip(tmp_path):
     """12 threads x 8 inline PUTs a package: commits ride the lanes and
     coalesce; every body reads back; the listing shows every key, as the
-    JAX package's does; a graceful close leaves no WAL frame."""
+    JAX package's does; a graceful close leaves no WAL frame. The 12
+    writers start each of their 8 rounds together (a barrier), so that
+    their commits overlap however loaded the host is."""
     rng = np.random.default_rng(2)
     body = rng.bytes(2048)
     seen = {}
 
     def run(pkg):
         es = _mkset(pkg, tmp_path)
+        rounds = threading.Barrier(12)
+
+        def writer(t):
+            for i in range(8):
+                rounds.wait(timeout=120)
+                es.put_object(BKT, f"k-{t}-{i}", body)
         try:
             assert es.group_commit is not None
             with ThreadPoolExecutor(max_workers=12) as ex:
-                list(ex.map(lambda t: [es.put_object(BKT, f"k-{t}-{i}", body)
-                                       for i in range(8)], range(12)))
+                list(ex.map(writer, range(12)))
             st = es.group_commit.stats()
             assert st["members"] > 0, "no commit rode the lanes"
             assert st["batches"] < st["members"], "nothing coalesced"
