@@ -277,12 +277,30 @@ and prints no result line):
    clients through the loop, then through MTPU_HTTP_EVENTLOOP=off on the
    same drives, printed beside the card's name, power limit and the
    host's cores. gf_apply and highwayhash256 must have launched.
+4k. The power cut (minio_tpu_torch/storage/crashdisk.py, the double the
+   crash-point matrix of tests/test_torch_crash_matrix.py runs on the
+   CPU): an ErasureSet in this process over 12 CrashDisk-wrapped drives,
+   EC 8+4, device cuda. A 2 MiB + 777 B overwrite of a non-inline object
+   is cut at its durable sub-steps (each drive's shard stream, its
+   staging cleanup, the data dir's move, the kept journal's link, the
+   journal, the directory's sync, the settle's drop of the kept journal
+   and its reclaim of the old data dir) in tear mode at every one and in
+   drop mode at every other one; then the heal commit of one
+   wiped data-shard drive at each of its sub-steps in drop mode. After
+   each cut: recover_drives (the deep sweep on all 12, no live WAL
+   frame), a GET through the card giving the old or the new object (the
+   new one once the PUT was acknowledged; the old one at every cut of
+   the heal), the same answer after the heals recovery listed, no tmp/
+   or staging/ entry left, every pooled lease back. The points walked by
+   mode, the fired_op names with their counts and the wall time are
+   printed; gf_apply with parity rows and with r = 1 and highwayhash256
+   must have launched.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
    In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f, 4g, 4h,
-   4j and 5 every kernel's launch count is set to 0 just before the phase
+   4j, 4k and 5 every kernel's launch count is set to 0 just before the phase
    and read just after (4e's servers, 4f's and 4g's workers and 4h's
    nodes count from their start, less their boot self-tests; a
    SIGKILLed node's are not counted); each kernel of the phase's path
@@ -4751,6 +4769,176 @@ def phase_front_end(rng, root: str, device: str = "cuda") -> dict:
     return launches
 
 
+CUT_BODY = 2 * MIB + 777        # the overwrite: not inline, a ragged block
+CUT_DROP_STRIDE = 2             # drop mode's points: every other one
+
+
+def phase_power_cut(rng, root: str, device: str = "cuda") -> dict:
+    """The crash-point matrix on the card: an ErasureSet over 12
+    CrashDisk-wrapped drives at EC 8+4 (minio_tpu_torch/storage/
+    crashdisk.py), a CUT_BODY overwrite of a non-inline object cut at
+    each durable sub-step in tear mode and at every CUT_DROP_STRIDE-th
+    in drop mode, then the heal commit of
+    one wiped data-shard drive cut at each of its sub-steps in drop
+    mode. After each cut the drives are remounted through the boot's
+    recover_drives, which must take the deep sweep on all 12 and leave
+    no live WAL frame; a GET through the card must give the old or the
+    new object (the new one once the PUT was acknowledged, the old one
+    at every cut of the heal), the same after the heals recovery listed,
+    no tmp/ or staging/ entry may be left and every pooled lease must be
+    back. gf_apply (parity rows and r = 1)
+    and highwayhash256 must have launched."""
+    from minio_tpu_torch.object.erasure_object import ErasureSet
+    from minio_tpu_torch.object.types import ObjectNotFound, VersionNotFound
+    from minio_tpu_torch.io.bufpool import global_pool
+    from minio_tpu_torch.server import recover_drives
+    from minio_tpu_torch.storage.crashdisk import CrashClock, CrashDisk
+    from minio_tpu_torch.storage.local import SYS_VOL, LocalStorage
+    bkt, key, n_drives = "cut", "obj", 12
+    old, new = rng.bytes(CUT_BODY), rng.bytes(CUT_BODY)
+    base = os.path.join(root, "cut", "base")
+    pool = global_pool(device)
+
+    def drives(at: str, wrap=None) -> list:
+        ds = [LocalStorage(os.path.join(at, f"d{i}"))
+              for i in range(n_drives)]
+        return [wrap(d) for d in ds] if wrap is not None else ds
+
+    def mkset(ds: list):
+        es = ErasureSet(ds, device=device)
+        check(es.default_parity == M, "12 drives must give EC 8+4")
+        return es
+
+    def read(es):
+        try:
+            return es.get_object(bkt, key)[1]
+        except ObjectNotFound:
+            return None
+
+    es = mkset(drives(base))
+    try:
+        es.make_bucket(bkt)
+        es.put_object(bkt, key, old)
+    finally:
+        es.close()
+    # Data shard 0's drive, wiped for the heal: its rebuild is one decode
+    # row, and every GET before the heal lands reconstructs it.
+    wiped = data_holders(bkt, key, 1)[0]
+    walked = {"drop": 0, "tear": 0, "heal": 0}
+    fired: dict = {}
+
+    def sweep(mode: str, label: str, op, allowed, prepare=None,
+              stride: int = 1) -> int:
+        n = 1
+        while True:
+            at = os.path.join(root, "cut", f"{label}-{n}")
+            shutil.copytree(base, at)
+            if prepare is not None:
+                prepare(at)
+            clock = CrashClock(crash_at=n)
+            es = mkset(drives(at, lambda d: CrashDisk(d, clock, mode)))
+            es._mrf_closed = True
+            acked = False
+            try:
+                op(es)
+                acked = True
+            except Exception as e:  # noqa: BLE001 - the cut, below quorum
+                check(clock.fired, f"4k {label}: uncut op failed: {e!r}")
+            finally:
+                es.close()
+                clock.power_off()
+            where = f"4k {label} n={n} mode={mode} " \
+                f"fired_op={clock.fired_op or 'none'}"
+            rep = recover_drives(drives(at))
+            check(rep["swept"] == n_drives,
+                  f"{where}: recovery swept {rep['swept']}/{n_drives} deep")
+            for i in range(n_drives):
+                g = os.path.join(at, f"d{i}", SYS_VOL, "gcommit")
+                live = [f for f in (os.listdir(g) if os.path.isdir(g)
+                                    else []) if os.path.getsize(
+                    os.path.join(g, f))]
+                check(not live, f"{where}: live WAL frames in d{i}")
+            es = mkset(drives(at))
+            try:
+                first = None
+                for tag in ("remounted", "healed"):
+                    try:
+                        got = read(es)
+                    except Exception as e:  # noqa: BLE001 - named below
+                        raise RuntimeError(f"chip_smoke: {where} ({tag}): "
+                                           f"GET raised {e!r}") from e
+                    check(any(got == x for x in allowed(acked)),
+                          f"{where} ({tag}): GET gave "
+                          f"{None if got is None else len(got)} bytes, "
+                          f"neither of the allowed versions")
+                    check(tag == "remounted" or got == first,
+                          f"{where}: the heals moved the answer")
+                    first = got
+                    if tag == "remounted":
+                        for vol, path in {*rep["heal"], (bkt, key)}:
+                            try:
+                                es.heal_object(vol, path)
+                            except (ObjectNotFound, VersionNotFound):
+                                pass    # absent after the cut: no heal
+                if es._mrf is not None:
+                    es._mrf.drain(15)
+                    es._mrf.stop()
+            finally:
+                es.close()
+            for i in range(n_drives):
+                for sub in ("tmp", "staging"):
+                    p = os.path.join(at, f"d{i}", SYS_VOL, sub)
+                    check(not os.path.isdir(p) or not os.listdir(p),
+                          f"{where}: debris left in d{i}/{sub}")
+            t0 = time.perf_counter()
+            while pool.stats()["outstanding"] and \
+                    time.perf_counter() - t0 < 10:
+                time.sleep(0.01)
+            st = pool.stats()
+            check(st["outstanding"] == 0 and st["leaks"] == 0,
+                  f"{where}: {st['outstanding']} pooled leases "
+                  f"outstanding, {st['leaks']} leaked")
+            shutil.rmtree(at, ignore_errors=True)
+            if not clock.fired:
+                return clock.count
+            walked[label] += 1
+            fired[clock.fired_op] = fired.get(clock.fired_op, 0) + 1
+            n += stride
+
+    t0 = time.perf_counter()
+    reset_launches()
+    steps = {}
+    for mode in ("drop", "tear"):
+        # Drop mode walks every other point (CUT_DROP_STRIDE), tear mode
+        # every one.
+        steps[mode] = sweep(
+            mode, mode, lambda es: es.put_object(bkt, key, new),
+            lambda acked: [new] if acked else [old, new],
+            stride=CUT_DROP_STRIDE if mode == "drop" else 1)
+        check(steps[mode] >= 3 * n_drives,
+              f"4k {mode}: {steps[mode]} sub-steps, fewer than a shard "
+              "stream and two rename_data halves a drive")
+
+    def wipe(at: str) -> None:
+        shutil.rmtree(os.path.join(at, f"d{wiped}", bkt, key))
+    steps["heal"] = sweep("drop", "heal",
+                          lambda es: es.heal_object(bkt, key),
+                          lambda acked: [old], prepare=wipe)
+    launches = in_process_launches()
+    wall = time.perf_counter() - t0
+    log(f"power cut: sub-steps of the uncut ops {steps}; points walked "
+        f"{walked}; fired_op "
+        f"{json.dumps(dict(sorted(fired.items())))}; wall {wall:.1f} s")
+    log(f"power cut launches {launches}")
+    by_r = launches["gf_apply_by_r"]
+    check(by_r.get(str(M)) and by_r.get("1"),
+          f"4k: gf_apply did not launch with parity rows and with r = 1: "
+          f"{by_r}")
+    check(launches["highwayhash256"], "4k: highwayhash256 never launched")
+    shutil.rmtree(os.path.join(root, "cut"), ignore_errors=True)
+    return launches
+
+
 def phase_b5_entry_point(torch):
     """python -m minio_tpu_torch.experiments.rs_i8_kernel, in process."""
     from minio_tpu_torch.experiments import rs_i8_kernel
@@ -4979,6 +5167,9 @@ def main() -> int:
         for done in os.listdir(root):
             shutil.rmtree(os.path.join(root, done), ignore_errors=True)
         front = timed("4j", phase_front_end, rng, root)
+        for done in os.listdir(root):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        cut = timed("4k", phase_power_cut, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed("4 (solo dispatch)", solo_dispatch_ms, torch, rng, conc_stats)
@@ -4987,7 +5178,7 @@ def main() -> int:
 
     launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
                 + fleet[k] + pools[k] + dist[k] + elastic[k] + front[k]
-                for k in ("gf_apply", "highwayhash256")}
+                + cut[k] for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {
         "gf_apply": ("minio_tpu_torch/ops/csrc/gf_apply.cu",

@@ -119,9 +119,9 @@ from minio_tpu_torch.storage import bitrot
 from minio_tpu_torch.storage import group_commit as gc_mod
 from minio_tpu_torch.storage.group_commit import GroupOp
 from minio_tpu_torch.storage.health import DiskHealthWrapper
-from minio_tpu_torch.storage.local import (SYS_VOL, FaultyDisk, StorageError,
-                                           VolumeExists, VolumeNotEmpty,
-                                           VolumeNotFound)
+from minio_tpu_torch.storage.local import (PREV_FILE, SYS_VOL, FaultyDisk,
+                                           StorageError, VolumeExists,
+                                           VolumeNotEmpty, VolumeNotFound)
 from minio_tpu_torch.storage.meta import (KIND_DELETE_MARKER,
                                           NULL_VERSION_ID, ErasureInfo,
                                           FileInfo, FileNotFoundErr,
@@ -493,13 +493,16 @@ class ErasureSet:
     def mrf(self):
         """The lazy MRF heal queue (object/healing.MRFQueue; its worker
         starts on first use). After close(), or with _mrf_closed set
-        before the first use, enqueues go to a stopped queue: accepted,
-        persisted, but not worked."""
+        before the first use, enqueues go to a queue born stopped:
+        accepted, persisted, but not worked. (A queue started and then
+        stopped could first take a persisted entry, and its heal would
+        wait for the key lock a degraded GET calling here holds, while
+        the GET waits for the worker to stop.)"""
         if self._mrf is None:
             with self._mrf_lock:
                 if self._mrf is None:
                     from minio_tpu_torch.object.healing import MRFQueue
-                    q = MRFQueue(self)
+                    q = MRFQueue(self, start=not self._mrf_closed)
                     if self._mrf_closed:
                         q.stop()
                     self._mrf = q
@@ -885,7 +888,7 @@ class ErasureSet:
                                frames[distribution[i] - 1])
             self._commit(bucket, object_, version_id, errors, write_quorum,
                          lambda i: self.disks[i].write_metadata(
-                             bucket, object_, inline_fi(i)),
+                             bucket, object_, inline_fi(i), keep_prev=True),
                          (lambda i: GroupOp.write_meta(
                              bucket, object_, inline_fi(i)))
                          if group else None)
@@ -904,7 +907,7 @@ class ErasureSet:
                              write_quorum,
                              lambda i: self.disks[i].rename_data(
                                  SYS_VOL, staging, staged_fi(i), bucket,
-                                 object_),
+                                 object_, keep_prev=True),
                              (lambda i: GroupOp.rename(
                                  SYS_VOL, staging, staged_fi(i), bucket,
                                  object_)) if group else None)
@@ -946,7 +949,14 @@ class ErasureSet:
         version back and raise WriteQuorumError. With `group_op(i)` (the
         GroupOp of drive i) and other requests in their commit section,
         the drives' commits ride the group lanes instead, which bump the
-        bucket before they ack; otherwise the bucket is bumped here."""
+        bucket before they ack; otherwise the bucket is bumped here.
+
+        A solo commit_one keeps the journal it replaces (keep_prev) until
+        the second half here settles it: dropped once write quorum holds,
+        put back when the write fell short. A drive whose commit replaced
+        a version thus never loses it before the write is acknowledged
+        (_settle_prevs settles what a power cut left between the
+        halves)."""
         n = len(self.disks)
         gc = self.group_commit if group_op is not None else None
         used_group = False
@@ -962,19 +972,34 @@ class ErasureSet:
                 _, cerrs = self._fanout([
                     (lambda i=i: commit_one(i)) if errors[i] is None
                     else None for i in range(n)])
-        for i, err in enumerate(cerrs):
-            errors[i] = errors[i] or err
-        ok = sum(err is None for err in errors)
+            for i, err in enumerate(cerrs):
+                errors[i] = errors[i] or err
+            ok = sum(err is None for err in errors)
+            if used_group and ok < write_quorum:
+                self._fanout([
+                    (lambda d=d: d.delete_version(bucket, object_,
+                                                  version_id))
+                    if err is None else None
+                    for d, err in zip(self.disks, errors)])
+            elif not used_group:
+                self._settle_kept(bucket, object_, errors,
+                                  ok >= write_quorum)
         if ok < write_quorum:
-            self._fanout([lambda d=d: d.delete_version(bucket, object_,
-                                                       version_id)
-                          if err is None else None
-                          for d, err in zip(self.disks, errors)])
             self.metacache.bump(bucket)
             raise WriteQuorumError(bucket, object_,
                                    f"wrote {ok}/{n}, need {write_quorum}")
         if not used_group:
             self.metacache.bump(bucket)
+
+    def _settle_kept(self, bucket: str, object_: str, errors: list,
+                     stands: bool) -> None:
+        """The second half of a solo commit (keep_prev) on each drive
+        whose commit went through: its kept journal goes when the write
+        stands (write quorum), else the drive goes back to it."""
+        self._fanout([
+            (lambda d=d: d.settle_prev(bucket, object_, stands))
+            if err is None else None
+            for d, err in zip(self.disks, errors)])
 
     def _stream_framed_writes(self, payload: Payload, e: Erasure,
                               distribution: Sequence[int], part: str,
@@ -1173,6 +1198,56 @@ class ErasureSet:
                     if len(idx) >= quorum), default=None)
         return None if best is None else fis[groups[best][0]]
 
+    def _settle_prevs_locked(self, bucket: str, object_: str) -> bool:
+        """_settle_prevs under the key's write lock (a GET that found no
+        read quorum; its caller holds no lock of the key)."""
+        with self.ns.write(bucket, object_):
+            return self._settle_prevs(bucket, object_)
+
+    def _settle_prevs(self, bucket: str, object_: str) -> bool:
+        """Settle the solo commits of `object_` whose second half never ran
+        (a power cut between the halves, a drive that missed it): each
+        left the journal it replaced as PREV_FILE. The caller holds the
+        key's write lock: a commit in flight stands split between its
+        drives too, and only its own second half may settle it. What the
+        drives agree on stands: the latest version read quorum holds, or
+        the key's absence from a majority (a delete's quorum). Drives that
+        hold it drop their PREV_FILE; every other drive with one goes back
+        to it, and the heal brings it along. With neither, no commit
+        reached its write quorum, so none was acknowledged: every drive
+        with a PREV_FILE goes back to it. Returns whether any drive held
+        a PREV_FILE."""
+        n = len(self.disks)
+
+        def has_prev(d) -> bool:
+            try:
+                d.stat_info_file(bucket, f"{object_}/{PREV_FILE}")
+                return True
+            except (FileNotFoundErr, StorageError):
+                return False
+
+        prevs, _ = self._fanout([lambda d=d: has_prev(d)
+                                 for d in self.disks])
+        if not any(prevs):
+            return False
+        fis, errors = self._read_version_all(bucket, object_)
+
+        def ident(fi):
+            return None if fi is None else \
+                (fi.mod_time, fi.storage_version_id(), fi.data_dir)
+        absent = sum(isinstance(e, FileNotFoundErr) for e in errors) > n // 2
+        pick = None
+        if not absent and any(f is not None for f in fis):
+            pick = self._pick_quorum(fis, self._read_quorum(fis, n))
+        stands = None if absent else ident(pick) if pick is not None \
+            else False
+        self._fanout([
+            (lambda d=d, keep=(stands is not False and ident(fi) == stands):
+             d.settle_prev(bucket, object_, keep)) if p else None
+            for d, p, fi in zip(self.disks, prevs, fis)])
+        self.fi_cache.invalidate_bucket(bucket)
+        return True
+
     @staticmethod
     def _read_quorum(fis: list, n: int) -> int:
         """Read quorum of the version the drives report: k, at least half
@@ -1299,8 +1374,24 @@ class ErasureSet:
         cm = self.ns.read(bucket, object_)
         cm.__enter__()
         try:
-            fi, fis, errors = self._read_fileinfo(bucket, object_, True,
-                                                  opts.version_id)
+            try:
+                fi, fis, errors = self._read_fileinfo(bucket, object_, True,
+                                                      opts.version_id)
+            except ReadQuorumError:
+                if opts.version_id:
+                    raise
+                # A solo commit cut between its drives (a power cut, a
+                # crash): settle it under the write lock, read again.
+                cm.__exit__(None, None, None)
+                cm = None
+                settled = self._settle_prevs_locked(bucket, object_)
+                lock = self.ns.read(bucket, object_)
+                lock.__enter__()
+                cm = lock
+                if not settled:
+                    raise
+                fi, fis, errors = self._read_fileinfo(bucket, object_, True,
+                                                      opts.version_id)
             if any(errors):
                 # A drive misses this version's metadata: heal it in the
                 # background even though the read succeeds from the rest.
@@ -1310,7 +1401,8 @@ class ErasureSet:
             if offset < 0 or length < 0 or offset + length > fi.size:
                 raise InvalidRange(bucket, object_)
         except BaseException:
-            cm.__exit__(None, None, None)
+            if cm is not None:
+                cm.__exit__(None, None, None)
             raise
         end = offset + length
         descs = self._window_descs(fi, offset, end)
@@ -1654,13 +1746,16 @@ class ErasureSet:
         try:
             _, errors = self._fanout([
                 lambda d=d: d.delete_version(bucket, object_,
-                                             opts.version_id)
+                                             opts.version_id, keep_prev=True)
                 for d in self.disks])
+            ok = sum(e is None for e in errors)
+            missing = sum(isinstance(e, (FileNotFoundErr,
+                                         VersionNotFoundErr))
+                          for e in errors)
+            self._settle_kept(bucket, object_, errors,
+                              ok + missing >= write_quorum)
         finally:
             self.metacache.bump(bucket)
-        ok = sum(e is None for e in errors)
-        missing = sum(isinstance(e, (FileNotFoundErr, VersionNotFoundErr))
-                      for e in errors)
         if ok + missing < write_quorum:
             raise WriteQuorumError(bucket, object_,
                                    f"deleted on {ok + missing}/{n}")
@@ -1691,8 +1786,13 @@ class ErasureSet:
                     if gc is not None:
                         gc.note_solo()
                     _, errors = self._fanout(
-                        [lambda d=d: d.write_metadata(bucket, object_, fi)
+                        [lambda d=d: d.write_metadata(bucket, object_, fi,
+                                                      keep_prev=True)
                          for d in self.disks])
+                    self._settle_kept(
+                        bucket, object_, errors,
+                        sum(e is None for e in errors)
+                        >= len(self.disks) // 2 + 1)
         finally:
             if not used_group:
                 self.metacache.bump(bucket)

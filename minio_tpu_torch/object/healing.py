@@ -99,6 +99,10 @@ class HealStopped(Exception):
 
 def _heal_object_locked(es, bucket: str, object_: str, version_id: str,
                         deep: bool, stop=None) -> HealResult:
+    if not version_id:
+        # A solo commit whose second half never ran comes first: the
+        # version it settles on is the one healed.
+        es._settle_prevs(bucket, object_)
     fis, errors = es._read_version_all(bucket, object_, version_id,
                                        read_data=True)
     n = len(es.disks)
@@ -463,7 +467,9 @@ class MRFQueue:
 
     _PERSIST_EVERY = 2.0
 
-    def __init__(self, es):
+    def __init__(self, es, start: bool = True):
+        """With start=False the queue is born stopped: it loads and
+        accepts entries, and no worker runs them (a closed set's)."""
         self.es = es
         self.q: "queue.Queue[tuple]" = queue.Queue(maxsize=MRF_MAX_ITEMS)
         self.healed = 0
@@ -481,7 +487,10 @@ class MRFQueue:
         self._load()
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="mrf-heal")
-        self._worker.start()
+        if start:
+            self._worker.start()
+        else:
+            self._stop.set()
 
     def enqueue(self, bucket: str, object_: str, version_id: str = "") -> None:
         key = (bucket, object_, version_id)
@@ -624,7 +633,8 @@ class MRFQueue:
         """Stop the worker (a heal in flight gives up before its next
         window) and save what is pending."""
         self._stop.set()
-        self._worker.join()
+        if self._worker.ident is not None:
+            self._worker.join()
         try:
             self._save()
         except Exception:  # noqa: BLE001 - shutdown best effort

@@ -33,8 +33,10 @@ thread runs os.sync and truncates the WALs whose frames it covered.
 
 A batch that fails on its drive demotes each of its members, alone, to
 the solo path (write_metadata / rename_data), counted in
-`solo_demotions`; a member whose deadline passed before its batch ran
-fails alone with DeadlineExceeded (`deadline_culls`). `bump` (the
+`solo_demotions`, except after a power cut (storage/local.PowerFault):
+the node is gone, so no member is acked and each gets the fault. A
+member whose deadline passed before its batch ran fails alone with
+DeadlineExceeded (`deadline_culls`). `bump` (the
 set's MetaCache.bump) fires once per batch per bucket BEFORE any member
 is acked.
 
@@ -69,6 +71,7 @@ import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from minio_tpu_torch.storage.local import PowerFault
 from minio_tpu_torch.utils import deadline as deadline_mod
 from minio_tpu_torch.utils.deadline import DeadlineExceeded
 from minio_tpu_torch.utils.env import env_float, env_int
@@ -647,9 +650,12 @@ class GroupCommit:
         except BaseException as e:  # noqa: BLE001 - delivered per member
             batch_exc = e
         demotions = 0
+        # A power cut takes the node: nothing may commit after it, so no
+        # member is demoted and none is acked.
+        cut = isinstance(batch_exc, PowerFault)
         for k, m in enumerate(live):
             err = batch_exc if results is None else results[k]
-            if err is not None:
+            if err is not None and not cut:
                 # Demote this member, and only it, to the solo path; its
                 # own verdict is final.
                 demotions += 1

@@ -47,6 +47,13 @@ from minio_tpu_torch.storage.meta import (FileInfo, FileNotFoundErr,
 
 SYS_VOL = ".mtpu.sys"
 META_FILE = "xl.meta"
+# The journal a solo commit replaced (a PUT's, a delete's), kept (a hard
+# link to its inode; empty when the key had none) until the object layer
+# settles it (LocalStorage.settle_prev): with it a drive can go back to
+# what it held when the write fell short of quorum, so a commit cut
+# between two drives' halves never leaves fewer than read quorum on
+# both sides.
+PREV_FILE = "xl.meta.prev"
 TMP_DIR = "tmp"
 # The drive's identity and its set's layout (topology/format.py).
 FORMAT_FILE = "format.json"
@@ -85,6 +92,13 @@ class DiskAccessDenied(StorageError):
 class FaultyDisk(StorageError):
     """The drive failed an operation for reasons of its own (a deadline
     it missed, its open breaker: storage/health.py)."""
+
+
+class PowerFault(StorageError):
+    """The base of an injected power cut (storage/crashdisk.PowerCut). A
+    dead node's fault leaves commit_group whole: recorded as one
+    member's error, it would let batch-mates go on committing on a node
+    that no longer exists."""
 
 
 @dataclass
@@ -591,17 +605,27 @@ class LocalStorage:
             shutil.rmtree(os.path.join(self._obj_dir(volume, path), data_dir),
                           ignore_errors=True)
 
-    def write_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
-        """Append/replace one version in the journal (inline objects)."""
+    def write_metadata(self, volume: str, path: str, fi: FileInfo,
+                       keep_prev: bool = False, _hook=None) -> None:
+        """Append/replace one version in the journal (inline objects).
+        With `keep_prev` the journal it replaces is kept as PREV_FILE
+        (empty when there was none), with the data dirs it names, until
+        settle_prev (_land_kept; `_hook` is its power-cut seam)."""
         with self._path_lock(volume, path):
             try:
                 xl = self._read_meta(volume, path)
+                existed = True
             except FileNotFoundErr:
-                xl = XLMeta()
+                xl, existed = XLMeta(), False
             if xl.version_unchanged(fi):
                 return
             old_ddir = xl.add_version(fi)
-            self._atomic_write(self._meta_path(volume, path), xl.dump())
+            meta_path = self._meta_path(volume, path)
+            if keep_prev:
+                self._land_kept("write_metadata.journal", meta_path,
+                                xl.dump(), existed, _hook)
+                return
+            self._atomic_write(meta_path, xl.dump())
             self._reclaim_data_dir(volume, path, old_ddir)
 
     def read_version(self, volume: str, path: str, version_id: str = "",
@@ -612,31 +636,51 @@ class LocalStorage:
     def list_versions(self, volume: str, path: str) -> list[FileInfo]:
         return self._read_meta(volume, path).list_versions(volume, path)
 
-    def delete_version(self, volume: str, path: str,
-                       version_id: str = "") -> None:
+    def delete_version(self, volume: str, path: str, version_id: str = "",
+                       keep_prev: bool = False, _hook=None) -> None:
         """Remove one version, and its data dir unless another version
         still points at it; remove the object dir when the journal
-        empties."""
+        empties. The journal is the commit point and goes first: a power
+        cut between the two halves leaves a data dir no journal names
+        (which recovery_sweep removes), never a journal naming a data
+        dir that is gone. With `keep_prev` (a delete's solo commit) the
+        journal is kept as PREV_FILE and nothing is reclaimed until
+        settle_prev (_land_kept)."""
         with self._path_lock(volume, path):
             xl = self._read_meta(volume, path)
             data_dir = xl.delete_version(version_id)
-            self._reclaim_data_dir(volume, path, data_dir)
+            meta_path = self._meta_path(volume, path)
+            obj_dir = os.path.dirname(meta_path)
+            if keep_prev:
+                self._land_kept("delete_version.journal", meta_path,
+                                xl.dump() if xl.versions else None, True,
+                                _hook)
+                return
+            # A later mutation supersedes a commit never settled here.
+            self._settle_prev_locked(obj_dir, keep=True)
             if not xl.versions:
+                os.remove(meta_path)
+                if FS_OSYNC:
+                    self._fsync_dir(obj_dir)
                 self.delete(volume, path, recursive=True)
                 return
-            self._atomic_write(self._meta_path(volume, path), xl.dump())
+            self._atomic_write(meta_path, xl.dump())
+            self._reclaim_data_dir(volume, path, data_dir)
 
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
-                    dst_volume: str, dst_path: str) -> None:
+                    dst_volume: str, dst_path: str,
+                    keep_prev: bool = False, _hook=None) -> None:
         """Atomically commit staged shard data + a new version: move
         <src>/<src_path>/<data_dir> into the object dir, then write the
-        merged journal (the commit point)."""
+        merged journal (the commit point). `keep_prev` as in
+        write_metadata."""
         dst_dir = self._obj_dir(dst_volume, dst_path)
         with self._path_lock(dst_volume, dst_path):
             try:
                 xl = self._read_meta(dst_volume, dst_path)
+                existed = True
             except FileNotFoundErr:
-                xl = XLMeta()
+                xl, existed = XLMeta(), False
             if fi.data_dir:
                 src_data = os.path.join(self._obj_dir(src_volume, src_path),
                                         fi.data_dir)
@@ -646,13 +690,119 @@ class LocalStorage:
                     shutil.rmtree(dst_data)
                 os.replace(src_data, dst_data)
             old_ddir = xl.add_version(fi)
-            self._atomic_write(os.path.join(dst_dir, META_FILE), xl.dump())
-            self._reclaim_data_dir(dst_volume, dst_path, old_ddir)
+            meta_path = os.path.join(dst_dir, META_FILE)
+            if keep_prev:
+                self._land_kept("rename_data.journal", meta_path, xl.dump(),
+                                existed, _hook)
+            else:
+                self._atomic_write(meta_path, xl.dump())
+                self._reclaim_data_dir(dst_volume, dst_path, old_ddir)
         shutil.rmtree(self._obj_dir(src_volume, src_path), ignore_errors=True)
+
+    # -- the replaced journal of a solo commit (PREV_FILE) ------------------
+
+    # `_hook` is the power-cut seam of these steps (storage/crashdisk):
+    # step(op, *paths) before each durable sub-step, with the paths it
+    # changes; landed() once that change is made; synced(dir) once the
+    # directory holding it is synced.
+
+    def _land_kept(self, op: str, meta_path: str, blob, existed: bool,
+                   _hook=None) -> None:
+        """A solo commit's journal (`blob`; None removes it) that keeps
+        the one it replaces (_keep_prev), then the object's directory
+        synced: no drive drops a kept journal (settle_prev) before the
+        new one's entry is durable on every drive that committed, even
+        where the filesystem loses unsynced directory entries."""
+        self._keep_prev(meta_path, existed, _hook)
+        _step(_hook, op, meta_path)
+        if blob is None:
+            os.remove(meta_path)
+        else:
+            self._atomic_write(meta_path, blob)
+        self._sync_entries(os.path.dirname(meta_path), "keep_prev.sync",
+                           _hook)
+
+    def _sync_entries(self, obj_dir: str, op: str, _hook=None) -> None:
+        """The directory's fsync after a change of its entries."""
+        if _hook is not None:
+            _hook.landed()
+        _step(_hook, op)
+        self._fsync_dir(obj_dir)
+        if _hook is not None:
+            _hook.synced(obj_dir)
+
+    def _keep_prev(self, meta_path: str, existed: bool, _hook=None) -> None:
+        """Keep the journal about to be replaced as PREV_FILE: a link to
+        it, or an empty file when the key had none here. One left by an
+        earlier commit never settled here is settled first as kept: this
+        commit supersedes it."""
+        obj_dir = os.path.dirname(meta_path)
+        self._settle_prev_locked(obj_dir, keep=True, _hook=_hook)
+        prev = os.path.join(obj_dir, PREV_FILE)
+        _step(_hook, "keep_prev.link", prev)
+        if existed:
+            os.link(meta_path, prev)
+        else:
+            os.makedirs(obj_dir, exist_ok=True)
+            _write_raw(prev, b"")
+        if _hook is not None:
+            _hook.landed()
+
+    def settle_prev(self, volume: str, path: str, keep: bool,
+                    _hook=None) -> None:
+        """The second half of a solo commit on this drive (none when it
+        kept no PREV_FILE). keep: the new journal stands; PREV_FILE goes,
+        with the data dirs only it names. Not keep: PREV_FILE goes back
+        in place of the journal (or, empty, the journal goes), synced
+        before the data dirs only the new journal names go."""
+        with self._path_lock(volume, path):
+            self._settle_prev_locked(self._obj_dir(volume, path), keep,
+                                     self._vol_dir(volume), _hook)
+
+    def _settle_prev_locked(self, obj_dir: str, keep: bool,
+                            vol_dir: str = "", _hook=None) -> None:
+        prev = os.path.join(obj_dir, PREV_FILE)
+        meta_path = os.path.join(obj_dir, META_FILE)
+        try:
+            blob = _read_raw(prev)
+            old = XLMeta.load(blob) if blob else XLMeta()
+        except (FileNotFoundError, NotADirectoryError):
+            return
+        except (OSError, MetaError):
+            old, keep = None, True
+        try:
+            cur = XLMeta.load(_read_raw(meta_path))
+        except (OSError, MetaError):
+            cur = XLMeta()
+        if keep:
+            gone = set() if old is None else _data_dirs(old) - _data_dirs(cur)
+            _step(_hook, "settle_prev.drop", prev)
+            os.remove(prev)
+            if _hook is not None:
+                _hook.landed()
+        else:
+            gone = _data_dirs(cur) - _data_dirs(old)
+            _step(_hook, "settle_prev.restore", meta_path, prev)
+            if blob:
+                os.replace(prev, meta_path)
+            else:
+                for f in (meta_path, prev):
+                    try:
+                        os.remove(f)
+                    except FileNotFoundError:
+                        pass
+            self._sync_entries(obj_dir, "settle_prev.sync", _hook)
+        if gone:
+            _step(_hook, "settle_prev.reclaim")
+            for dd in gone:
+                shutil.rmtree(os.path.join(obj_dir, dd), ignore_errors=True)
+        if vol_dir:
+            self._rm_empty_parents(obj_dir, vol_dir)
 
     # -- the group commit protocol (storage/group_commit.py lanes) ----------
 
-    def commit_group(self, ops: list, _info: Optional[dict] = None) -> list:
+    def commit_group(self, ops: list, _info: Optional[dict] = None,
+                     _hook=None) -> list:
         """Commit a batch of write_metadata / rename_data ops
         (storage/group_commit.GroupOp) as one journal pass
         (minio_tpu/storage/local.py `commit_group`). Returns one result a
@@ -674,7 +824,11 @@ class LocalStorage:
           6. replaced data dirs are reclaimed, staging is cleared.
 
         `_info` receives the batch's accounting: objects, merged
-        (same-object members past the first), noops, fsyncs_saved."""
+        (same-object members past the first), noops, fsyncs_saved.
+        `_hook` is the power-cut seam (storage/crashdisk): called at each
+        durable sub-step, before each data-dir move, around the WAL frame
+        and around each journal write. A PowerFault it raises leaves the
+        batch whole, never as one member's error."""
         results: list = [None] * len(ops)
         info = _info if _info is not None else {}
         for key in ("objects", "merged", "noops", "fsyncs_saved"):
@@ -729,6 +883,8 @@ class LocalStorage:
                         if op.kind == "rd":
                             old = xl.add_version(op.fi)
                             if op.fi.data_dir:
+                                if _hook is not None:
+                                    _hook.step_move(op)
                                 src = os.path.join(
                                     self._obj_dir(op.src_volume, op.src_path),
                                     op.fi.data_dir)
@@ -749,6 +905,8 @@ class LocalStorage:
                                 obj_reclaims.append(old)
                             changed = True
                         ok_idxs.append(i)
+                    except PowerFault:
+                        raise
                     except Exception as e:  # noqa: BLE001 - per member
                         xl.versions, xl.inline = snap
                         results[i] = e
@@ -761,7 +919,9 @@ class LocalStorage:
             if staged:
                 try:
                     self._gc_append_wal([(v, p, b) for v, p, _, b, _, _, _
-                                         in staged])
+                                         in staged], _hook)
+                except PowerFault:
+                    raise
                 except Exception as e:  # noqa: BLE001 - batch durability
                     for *_, idxs2, _, _ in staged:
                         for i in idxs2:
@@ -769,7 +929,8 @@ class LocalStorage:
                                 results[i] = e
                     staged = []
                 try:
-                    self._land_journals(staged, reclaims, results, info)
+                    self._land_journals(staged, reclaims, results, info,
+                                        _hook)
                 finally:
                     if staged:
                         # Only now may a checkpoint retire the frame.
@@ -785,7 +946,7 @@ class LocalStorage:
         return results
 
     def _land_journals(self, staged: list, reclaims: list, results: list,
-                       info: dict) -> None:
+                       info: dict, _hook=None) -> None:
         """Steps 4 and 5 of commit_group: write each staged journal into
         place after its WAL frame is durable."""
         # One WAL fdatasync stands for one a changed journal.
@@ -795,6 +956,10 @@ class LocalStorage:
         for vol, path, meta_path, blob, idxs2, obj_reclaims, \
                 was_fresh in staged:
             try:
+                prior = None
+                if _hook is not None:
+                    _hook.step_rename(meta_path, blob)
+                    prior = _hook.meta_prior(vol, path)
                 if was_fresh:
                     # No old journal a torn write could destroy, and no
                     # member acked yet: write in place.
@@ -807,9 +972,13 @@ class LocalStorage:
                     _write_raw(tmp, blob)
                     os.replace(tmp, meta_path)
                 dirs.add(os.path.dirname(meta_path))
+                if _hook is not None:
+                    _hook.note_rename(meta_path, blob, prior)
                 # Old data dirs go only once the new journal landed: the
                 # old one still names them.
                 reclaims.extend((vol, path, dd) for dd in obj_reclaims)
+            except PowerFault:
+                raise
             except Exception as e:  # noqa: BLE001 - per object
                 for i in idxs2:
                     if results[i] is None:
@@ -822,10 +991,12 @@ class LocalStorage:
     # retire (tests); the process-wide checkpoint coordinator skips it.
     _gc_auto = True
 
-    def _gc_append_wal(self, recs: list) -> None:
+    def _gc_append_wal(self, recs: list, _hook=None) -> None:
         """Append one batch frame to this drive's WAL and fdatasync it:
         the batch's durability point. The file is made once and held
-        open; checkpoints truncate it in place (storage/group_commit)."""
+        open; checkpoints truncate it in place (storage/group_commit).
+        `_hook` (commit_group's seam) sees the frame before it is written
+        and the new file once its directory entry is made."""
         from minio_tpu_torch.storage import group_commit as gc_mod
         frame = gc_mod.encode_frame(recs)
         with self._gc_mu:
@@ -840,6 +1011,8 @@ class LocalStorage:
                     fd = os.open(path, flags, 0o644)
                 self._gc_wal_fd, self._gc_wal_path = fd, path
                 created = True
+            if _hook is not None:
+                _hook.step_wal(self._gc_wal_path, frame)
             fd = self._gc_wal_fd
             off = 0
             view = memoryview(frame)
@@ -848,6 +1021,8 @@ class LocalStorage:
             os.fdatasync(fd)
             if created and FS_OSYNC:
                 self._fsync_dir(os.path.dirname(self._gc_wal_path))
+            if created and _hook is not None:
+                _hook.note_wal(self._gc_wal_path, synced_dir=FS_OSYNC)
             self._gc_dirty += 1
             self._gc_landing += 1       # commit_group lowers it
         if self._gc_auto:
@@ -884,14 +1059,17 @@ class LocalStorage:
             self._gc_dirty = 0
         return n
 
-    def gc_checkpoint(self) -> int:
+    def gc_checkpoint(self, _hook=None) -> int:
         """Make every renamed journal durable (one os.sync) and drop the
         WAL frames that protected them; returns the frames dropped. The
         set's close runs it, so a graceful stop leaves nothing to
-        replay."""
+        replay. `_hook` (storage/crashdisk) sees the sync before it
+        runs."""
         pre = self.gc_covered()
         if not pre:
             return 0
+        if _hook is not None:
+            _hook.step_sync()
         os.sync()
         return self.gc_truncate_wal(expect=pre)
 
@@ -1035,6 +1213,19 @@ def sweep_stale_tmp(disk, min_age: float = 0.0) -> int:
     return removed
 
 
+def _step(hook, op: str, *paths: str) -> None:
+    """A durable sub-step of a kept-journal commit (LocalStorage
+    _land_kept, settle_prev), seen by its power-cut seam."""
+    if hook is not None:
+        hook.step(op, *paths)
+
+
+def _data_dirs(xl: XLMeta) -> set:
+    """The data dirs a journal's versions name."""
+    return {v["ddir"] for v in xl.versions
+            if v.get("ddir") and not v.get("inline")}
+
+
 def _only_part_files(d: str) -> bool:
     """Whether `d` holds nothing but shard part files: the shape of a
     version data dir, never of a key prefix."""
@@ -1059,7 +1250,10 @@ def recovery_sweep(disk, min_age: float = 0.0) -> dict:
          names is the uncommitted half of a rename_data: removed;
       3. a journal that does not parse is removed and its object
          reported for heal (the other drives hold the quorum copy);
-      4. a version whose data dir is missing is reported for heal.
+      4. a version whose data dir is missing is reported for heal;
+      5. a PREV_FILE (a solo commit never settled) keeps the data
+         dirs it names, and its object is reported for heal, which
+         settles it (ErasureSet._settle_prevs).
 
     Returns {"removed", "dangling", "heal": [(bucket, path)],
     "wal_replayed", "wal_repaired", "wal_discarded"}; the caller queues
@@ -1093,6 +1287,20 @@ def recovery_sweep(disk, min_age: float = 0.0) -> dict:
                     pass
                 out["heal"].append((vol, rel))
                 refs = frozenset()
+        prev_path = os.path.join(base, PREV_FILE)
+        if os.path.isfile(prev_path):
+            # A solo commit that was never settled: its replaced
+            # journal's data dirs stay, and the key's heal settles it.
+            try:
+                blob = _read_raw(prev_path)
+                kept = _data_dirs(XLMeta.load(blob)) if blob else set()
+                refs = (refs or frozenset()) | kept
+                out["heal"].append((vol, rel))
+            except (OSError, MetaError):
+                try:
+                    os.remove(prev_path)
+                except OSError:
+                    pass
         try:
             names = os.listdir(base)
         except OSError:

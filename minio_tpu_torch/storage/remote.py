@@ -280,8 +280,9 @@ class RemoteStorage:
 
     # -- version journal -------------------------------------------------
 
-    def write_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
-        self._call("write_metadata", volume, path, fi_to_wire(fi))
+    def write_metadata(self, volume: str, path: str, fi: FileInfo,
+                       keep_prev: bool = False) -> None:
+        self._call("write_metadata", volume, path, fi_to_wire(fi), keep_prev)
 
     def read_version(self, volume: str, path: str, version_id: str = "",
                      read_data: bool = False) -> FileInfo:
@@ -292,14 +293,18 @@ class RemoteStorage:
         return [fi_from_wire(d)
                 for d in self._call("list_versions", volume, path)]
 
-    def delete_version(self, volume: str, path: str,
-                       version_id: str = "") -> None:
-        self._call("delete_version", volume, path, version_id)
+    def delete_version(self, volume: str, path: str, version_id: str = "",
+                       keep_prev: bool = False) -> None:
+        self._call("delete_version", volume, path, version_id, keep_prev)
 
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
-                    dst_volume: str, dst_path: str) -> None:
+                    dst_volume: str, dst_path: str,
+                    keep_prev: bool = False) -> None:
         self._call("rename_data", src_volume, src_path, fi_to_wire(fi),
-                   dst_volume, dst_path)
+                   dst_volume, dst_path, keep_prev)
+
+    def settle_prev(self, volume: str, path: str, keep: bool) -> None:
+        self._call("settle_prev", volume, path, keep)
 
     # -- listing ---------------------------------------------------------
 
@@ -334,7 +339,7 @@ class StorageRPCService:
 
     _UNARY = ("read_format write_format disk_id make_vol make_vol_if_missing "
               "delete_vol write_all read_all delete rename_file list_dir "
-              "delete_version").split()
+              "delete_version settle_prev").split()
 
     def __init__(self, disks: dict[str, LocalStorage]):
         self.disks = dict(disks)     # drive path -> LocalStorage
@@ -379,8 +384,9 @@ class StorageRPCService:
         return {"size": st.st_size, "mtime": st.st_mtime}
 
     def _write_metadata(self, payload):
-        vol, path, fid = payload["a"]
-        self._disk(payload).write_metadata(vol, path, fi_from_wire(fid))
+        vol, path, fid, keep_prev = payload["a"]
+        self._disk(payload).write_metadata(vol, path, fi_from_wire(fid),
+                                           keep_prev=keep_prev)
 
     def _read_version(self, payload):
         return fi_to_wire(self._disk(payload).read_version(*payload["a"]))
@@ -390,9 +396,10 @@ class StorageRPCService:
                 for fi in self._disk(payload).list_versions(*payload["a"])]
 
     def _rename_data(self, payload):
-        src_vol, src_path, fid, dst_vol, dst_path = payload["a"]
+        src_vol, src_path, fid, dst_vol, dst_path, keep_prev = payload["a"]
         self._disk(payload).rename_data(src_vol, src_path, fi_from_wire(fid),
-                                        dst_vol, dst_path)
+                                        dst_vol, dst_path,
+                                        keep_prev=keep_prev)
 
     def _disk_info(self, payload):
         di = self._disk(payload).disk_info()

@@ -417,8 +417,8 @@ def test_checkpoint_between_wal_append_and_journal_writes(tmp_path):
     mid = []
     append = d._gc_append_wal
 
-    def append_then_checkpoint(recs):
-        append(recs)
+    def append_then_checkpoint(recs, *hook):
+        append(recs, *hook)
         mid.append((d.gc_pending(), d.gc_checkpoint(), os.path.getsize(wal)))
     d._gc_append_wal = append_then_checkpoint
     ops = [port_gc.GroupOp.write_meta(BKT, k, mkfi("p", k, T0))
