@@ -163,7 +163,12 @@ and prints no result line):
    holds a context within 30 s, no read failing. 40 coherence rounds,
    alternating a 1 KiB and a 1 MiB key: PUT new bytes, 8 GETs on fresh
    connections return them; DELETE, 8 GETs answer 404; PUT again, a
-   listing from a fresh connection names the key; 0 stale reads.
+   listing from a fresh connection names the key; 0 stale reads. Before
+   the SIGKILL, the observability plane across the fleet: an admin
+   trace subscriber on one worker receives the entries of 64 HEADs sent
+   on fresh connections from all 4 workers (the parent's trace pump),
+   and two scrapes of /minio/v2/metrics/cluster through fresh
+   connections each count all 64 (every worker's snapshot, merged).
    SIGTERM to the parent: it exits 0 within 20 s, every worker printed
    its launches (each must have launched gf_apply and highwayhash256)
    and every drive carries the clean-shutdown stamp. Then the same two
@@ -204,7 +209,12 @@ and prints no result line):
    open (GET /minio/admin/v3/info). 16 clients, client t through node t
    mod 4, load 8 x 16 MiB, 64 MiB + 1 B, a 4 x 8 MiB multipart and 50
    keys of 1 KiB; every key is read back through the node after its
-   writer: 0 lost, 0 differing. 8 keys of 1 MiB and 64 KiB are
+   writer: 0 lost, 0 differing. An armed GET (admin trace
+   ?types=all on node 0) of a 16 MiB object through node 0: its tree
+   holds `wire` spans with the subtrees of the other nodes it read from
+   (two or more) stitched under them, each span tagged with its node; /minio/v2/metrics/cluster
+   ?cluster=true through node 0 carries minio_tpu_cluster_node_up 1 for
+   the 4 nodes. 8 keys of 1 MiB and 64 KiB are
    overwritten through node 1 in 4 rounds and read and HEAD through
    nodes 0 (both workers), 2 and 3: 0 stale, with fileinfo-cache and
    hot-cache hits on nodes 2 and 3 and on both of node 0's workers
@@ -217,7 +227,8 @@ and prints no result line):
    with node 3 down are printed, and every key reads back through
    nodes 0-2 (decode rows); every gate of nodes 0-2 is then shut. Node
    2 SIGKILLed too: a PUT and a GET answer 503 within the 10 s drive
-   deadline. Nodes 2 and 3 restart (time until they serve), an admin
+   deadline, and an armed grid trace on node 0 shows the calls the
+   kills cut as `wire` spans tagged with a fault. Nodes 2 and 3 restart (time until they serve), an admin
    heal through node 3 brings every key written while node 3 was down
    to its drives, every node is armed again (nodes 0 and 1 through new
    resyncs) and the overwrite rounds show 0 stale; node 0 SIGKILLed,
@@ -256,7 +267,10 @@ and prints no result line):
    four restart on pool 2 alone, an admin heal through node 1 brings
    its drives up to date, and every key and version reads back byte
    for byte through each node. gf_apply must have launched at
-   k = 12, r = 4 on the nodes.
+   k = 12, r = 4 on the nodes. The nodes of both pools run with
+   MTPU_SLOW_OP_MS=100; printed only: the ten span names with the most
+   summed time among the records the survivors logged for spans that
+   started after the resume, and the slowest record's ancestry.
 4j. The front end every server phase above serves through (the event
    loop, the default): a server on 12 drives, EC 8+4, with the
    MTPU_HTTP_KEEPALIVE_S=2 and MTPU_MAX_CONNS=16 of its environment: a
@@ -286,7 +300,11 @@ and prints no result line):
    journal, the directory's sync, the settle's drop of the kept journal
    and its reclaim of the old data dir) in tear mode at every one and in
    drop mode at every other one; then the heal commit of one
-   wiped data-shard drive at each of its sub-steps in drop mode. After
+   wiped data-shard drive at each of its sub-steps in drop mode; a
+   multipart completion over the key (one 2 MiB + 777 B part) at every
+   CUT_MP_STRIDE-th sub-step and four concurrent inline overwrites
+   committed as one lane batch a drive at every CUT_LANE_STRIDE-th, both
+   in drop mode (an acknowledged member must read its new body). After
    each cut: recover_drives (the deep sweep on all 12, no live WAL
    frame), a GET through the card giving the old or the new object (the
    new one once the PUT was acknowledged; the old one at every cut of
@@ -295,12 +313,37 @@ and prints no result line):
    mode, the fired_op names with their counts and the wall time are
    printed; gf_apply with parity rows and with r = 1 and highwayhash256
    must have launched.
+4l. The observability plane: the S3 server in this process on 12
+   drives, EC 8+4, with MTPU_SLOW_OP_MS=50 and drive 5's journal
+   commits delayed 80 ms (4e's SleepyDisk under its health wrapper); an
+   admin trace?types=all subscriber; a profile started. 16 clients for
+   8 s, each round a 1 MiB PUT and its GET, a GET of one of 16 1 MiB keys
+   with data shards on drives 2 and 9, whose copies are moved away
+   (decode rows), and a 1 KiB PUT (the lanes), 100 ms apart (paced, so
+   that the subscriber keeps up). Every 1 MiB PUT's tree has a write
+   span of each of the 12 drives under the request; every 1 MiB PUT
+   and GET has a `batcher.dispatch` kernel span whose lane_ms (CUDA
+   events on the lane's stream around the dispatch) is above 0 and
+   within its service_ms (the lane's host clock around the same call)
+   plus 0.25 ms, and service_ms within the span; every degraded GET one
+   whose op is reconstruct; a slow-op record names the delayed drive;
+   the scrape parses as Prometheus text and its per-API counts over the
+   load equal the requests sent; admin info's SLO snapshot has the GET
+   and PUT objectives; speedtest answers; the downloaded profile is a
+   zip whose local/profile.txt names put_object. Then two unpaced
+   windows of the same rounds from 16 clients, OBS_UNPACED_S each,
+   disarmed and then armed (a types=all subscriber): printed, no claim,
+   the rounds, the 1 MiB PUT and GET p50 of each, and for the armed one
+   the entries received, the whole request trees among them and the
+   entries the server dropped for the subscriber. Then 0 pooled leases
+   are out. Printed, no claim: one-thread 1 KiB and 1 MiB PUT p50,
+   disarmed and armed, two turns each, in one run.
 5. B5's own entry point (python -m minio_tpu_torch.experiments.rs_i8_kernel):
    rs_i8 against make_encoder32, the mma rate probe (binary m16n8k128
    and s8 m16n8k32 mma.sync, with the time each shape's product needs at
    256 blocks), then both kernels timed at 256 blocks.
    In phases 3, 4, 4b, 4c, 4d (the restarted server), 4e, 4f, 4g, 4h,
-   4j, 4k and 5 every kernel's launch count is set to 0 just before the phase
+   4j, 4k, 4l and 5 every kernel's launch count is set to 0 just before the phase
    and read just after (4e's servers, 4f's and 4g's workers and 4h's
    nodes count from their start, less their boot self-tests; a
    SIGKILLed node's are not counted); each kernel of the phase's path
@@ -2057,12 +2100,14 @@ def in_process_launches() -> dict:
 class SleepyDisk:
     """A drive whose every call first waits on `release` for up to
     HUNG_SLEEP seconds while `hang` is set: a drive that hangs instead
-    of dying."""
+    of dying; and whose calls of an op in `delays` first sleep that
+    long: a slow drive."""
 
     def __init__(self, disk):
         self._disk = disk
         self.hang = False
         self.release = threading.Event()
+        self.delays: dict = {}      # op -> seconds each call sleeps first
 
     @property
     def root(self):
@@ -2080,6 +2125,9 @@ class SleepyDisk:
         def call(*a, **kw):
             if self.hang:
                 self.release.wait(HUNG_SLEEP)
+            delay = self.delays.get(name)
+            if delay:
+                time.sleep(delay)
             return attr(*a, **kw)
         return call
 
@@ -2587,6 +2635,43 @@ def fleet_rates(c: "Client", rng, tag: str) -> tuple[float, float, float]:
             CONC_THREADS * RATE_KEYS / wall_p)
 
 
+FLEET_HEADS = 64                # HEADs on fresh connections for 1b
+
+
+def scrape_counts(c: "Client") -> dict:
+    """Per-API request counts of one scrape (a fresh connection)."""
+    st, text, _ = c.send("GET", "/minio/v2/metrics/cluster")
+    check(st == 200, f"metrics scrape: {st}")
+    return api_counts(prometheus_samples(text.decode()))
+
+
+def fleet_observability(c: "Client", pids: dict, key: str) -> None:
+    """4f's step 1b: a trace subscriber on one worker receives the
+    requests of every worker, and one scrape through any worker counts
+    every worker's requests (the parent's control pipes)."""
+    before = scrape_counts(c)
+    tail = TraceTail(c.address, "s3")
+    t0 = time.perf_counter()
+    for _ in range(FLEET_HEADS):
+        check(c("HEAD", f"/flt/{key}")[0] == 200, "fleet HEAD")
+    wall = time.perf_counter() - t0
+    entries = tail.stop()
+    heads = [e for e in entries if e.get("api") == "HEAD:object"]
+    seen = sorted({e["worker"] for e in heads})
+    log(f"fleet trace: a subscriber on one worker got {len(heads)} of "
+        f"{FLEET_HEADS} HEADs (sent on fresh connections in {wall:.2f} s) "
+        f"from workers {seen}, pids {[pids.get(w) for w in seen]}")
+    check(len(heads) == FLEET_HEADS and seen == sorted(pids),
+          f"fleet trace: {len(heads)} HEAD entries from workers {seen}")
+    for turn in range(2):
+        got = scrape_counts(c).get("HEAD:object", 0) \
+            - before.get("HEAD:object", 0)
+        check(got == FLEET_HEADS, f"fleet scrape {turn}: {got} HEADs "
+              f"counted, {FLEET_HEADS} sent")
+    log(f"fleet metrics: two scrapes through fresh connections each count "
+        f"the {FLEET_HEADS} HEADs over all {len(pids)} workers")
+
+
 def phase_fleet(rng, root: str, device: str = "cuda") -> dict:
     """The pre-forked fleet (phase 4f): `python -m minio_tpu_torch.server`
     with MTPU_HTTP_WORKERS=4 and the caches on, on 12 fresh drives;
@@ -2653,6 +2738,10 @@ def phase_fleet(rng, root: str, device: str = "cuda") -> dict:
         total = sum(map(len, data.values())) / MIB
         log(f"fleet: 96 objects ({total:.1f} MiB) PUT by 16 clients in "
             f"{wall_put:.2f} s, GET byte-identical in {wall_get:.2f} s")
+
+        # 1b. The fleet's observability plane: one worker's trace
+        # subscriber sees every worker, any worker's scrape sums them.
+        fleet_observability(c, pids, keys[0][0])
 
         # 2. A sibling SIGKILLed while 16 clients read: it comes back.
         victim = pids[FLEET_WORKERS - 1]
@@ -3545,6 +3634,60 @@ def lock_bodies(t: int, n: int) -> bytes:
     return head + np.random.default_rng(seed).bytes(DI_LOCK_BODY - len(head))
 
 
+def dist_observability(nodes: list, path: str, body: bytes) -> None:
+    """4h's step 1c: an armed GET through node 0 carries a `wire` span
+    for each call to another node with that node's subtree stitched
+    under it and tagged with its node; `?cluster=true` metrics through
+    node 0 carry all four nodes."""
+    n0 = nodes[0].client
+    tail = TraceTail(n0.address, "all")
+    t0 = time.perf_counter()
+    check(n0("GET", path) == (200, body), f"4h armed GET {path}")
+    get_s = time.perf_counter() - t0
+    entries = tail.stop()
+    roots = [e for e in entries if e.get("span") == 0
+             and e.get("api") == "GET:object" and e.get("path") == path]
+    check(len(roots) == 1, f"4h: {len(roots)} trace roots of the GET")
+    me = roots[0].get("node")
+    tree = [e for e in entries if e.get("trace") == roots[0]["trace"]]
+    by_id = {e["span"]: e for e in tree}
+    wires = {e["span"] for e in tree if e.get("api") == "wire"}
+
+    def under_wire(e) -> bool:
+        seen = set()
+        while e is not None and e["parent"] not in seen:
+            if e["parent"] in wires:
+                return True
+            seen.add(e["parent"])
+            e = by_id.get(e["parent"])
+        return False
+    remote = [e for e in tree if e.get("node") not in (None, me)]
+    peers = sorted({e["node"] for e in remote})
+    check(remote and all(under_wire(e) for e in remote),
+          f"4h: remote spans outside a wire span: "
+          f"{[(e['api'], e['parent']) for e in remote if not under_wire(e)]}")
+    # Node 0 holds 4 of the 16 shards: at least 8 of the 12 data shards
+    # a healthy GET reads lie on two other nodes or more (the third may
+    # hold parity only, and a fileinfo-cache hit reads no journal).
+    check(len(peers) >= 2 and me not in peers,
+          f"4h: the GET's tree holds subtrees of nodes {peers} only")
+    names: dict = {}
+    for e in remote:
+        names[e["api"]] = names.get(e["api"], 0) + 1
+    log(f"4h armed GET {path} through node 0 ({me}) in {get_s:.3f} s: "
+        f"{len(tree)} spans, {len(wires)} wire spans, {len(remote)} "
+        f"remote spans stitched under them from nodes {peers}: {names}")
+    st, text, _ = n0.send("GET", "/minio/v2/metrics/cluster",
+                          query={"cluster": "true"})
+    check(st == 200, f"4h cluster metrics: {st}")
+    up = {labels: v for (name, labels), v in
+          prometheus_samples(text.decode()).items()
+          if name == "minio_tpu_cluster_node_up"}
+    log(f"4h ?cluster=true metrics through node 0: node_up {up}")
+    check(len(up) == len(nodes) and all(v == 1 for v in up.values()),
+          f"4h: cluster metrics carry nodes {up}")
+
+
 def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
     """Four port nodes serving one EC 12+4 set (phase 4h); the launches
     the surviving nodes and the one-node server printed at their clean
@@ -3639,6 +3782,10 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
         check(len(hits[0]) == DI_HTTP_WORKERS[0] and
               all(sum(h) > 0 for h in hits[0].values()),
               f"4h coherence: a worker of node 0 served no hit: {hits[0]}")
+
+        # -- 1c. the observability plane over the grid -----------------
+        dist_observability(nodes, "/g4h/big/000",
+                           bytes(objs["big/000"]))
 
         # -- 2. locks: 16 clients overwrite 8 keys through all nodes ---
         written: dict = {}
@@ -3737,6 +3884,8 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
         resyncs0 = {i: a["resyncs"] for i, a in armed.items()}
 
         # -- 4. two nodes lost: 503, within the drive deadline ---------
+        # An armed grid trace on node 0 sees the calls the kill cut.
+        cut_tail = TraceTail(nodes[0].client.address, "grid")
         nodes[2].kill()
         for method, path, data in (("PUT", "/g4h/two-down", b"x" * MIB),
                                    ("GET", "/g4h/big/000", b"")):
@@ -3747,6 +3896,16 @@ def phase_distributed(rng, root: str, device: str = "cuda") -> dict:
                 f"{dt:.3f} s")
             check(st == 503 and dt < DI_DRIVE_TIMEOUT,
                   f"4h two nodes down: {method} answered {st} in {dt:.2f} s")
+        faults: dict = {}
+        for e in cut_tail.stop():
+            f = (e.get("tags") or {}).get("fault") \
+                if e.get("api") == "wire" else None
+            if f:
+                key = (e["tags"].get("peer"), f)
+                faults[key] = faults.get(key, 0) + 1
+        log(f"4h armed calls cut by the SIGKILLed nodes, wire spans by "
+            f"(peer, fault): {faults}")
+        check(faults, "4h: no armed call was annotated as a fault")
 
         # -- 5. nodes back, then the admin heal ------------------------
         t0 = time.perf_counter()
@@ -3882,6 +4041,38 @@ EL_ENV = {"MTPU_FILEINFO_CACHE": "on", "MTPU_HOT_CACHE": "on",
           "MTPU_MIG_BATCH": "1", "PYTHONFAULTHANDLER": "1"}
 
 
+EL_SLOW_MS = 100                # the slow-op log's threshold in 4i
+
+
+def slow_after_resume(nodes: list, since: float) -> None:
+    """4i, print only: the slow-op records (MTPU_SLOW_OP_MS=EL_SLOW_MS)
+    the survivors logged for spans that started after the resume: the
+    ten span names with the most summed time, and the slowest record's
+    ancestry. Each process logs at most 20 records a second."""
+    recs = []
+    for p in nodes:
+        for ln in list(p.lines):
+            if "mtpu slow-op: " in ln:
+                try:
+                    recs.append(json.loads(ln.split("mtpu slow-op: ", 1)[1]))
+                except ValueError:
+                    continue
+    recs = [r for r in recs if not r.get("event")
+            and r.get("start", 0) >= since]
+    total: dict = {}
+    for r in recs:
+        total[r["name"]] = total.get(r["name"], 0.0) + r["duration_ms"]
+    top = sorted(total.items(), key=lambda kv: -kv[1])[:10]
+    log(f"4i slow-op log after the resume: {len(recs)} records over "
+        f"{EL_SLOW_MS} ms on nodes 0, 2, 3; summed ms by span name "
+        + ", ".join(f"{n} {v:.1f}" for n, v in top))
+    if recs:
+        worst = max(recs, key=lambda r: r["duration_ms"])
+        log(f"4i slowest record: {worst['name']} {worst['duration_ms']} ms "
+            f"on {worst.get('node')}, tags {worst.get('tags')}, ancestry "
+            f"{worst.get('ancestry')}")
+
+
 def dump_nodes(nodes: list, what: str) -> None:
     """After a failed check: SIGABRT to each live node's processes,
     whose fault handler prints every thread's stack, and the tail of
@@ -3950,10 +4141,10 @@ def phase_elastic_fleet(rng, root: str, device: str = "cuda") -> dict:
             launches["gf_apply_by_kr"][kr] = \
                 launches["gf_apply_by_kr"].get(kr, 0) + v
 
-    def boot(pools: list, what: str) -> list:
+    def boot(pools: list, what: str, env: dict = EL_ENV) -> list:
         t0 = time.perf_counter()
         nodes = [ServerProc([args[x] for x in pools], extra, device,
-                            EL_HTTP_WORKERS[i], EL_ENV, port=ports[i],
+                            EL_HTTP_WORKERS[i], env, port=ports[i],
                             wait=False) for i in range(EL_NODES)]
         try:
             for p in nodes:
@@ -4076,7 +4267,10 @@ def phase_elastic_fleet(rng, root: str, device: str = "cuda") -> dict:
         nodes = []
 
         # -- 2. restarted with pool 2 appended ---------------------------
-        nodes = boot([1, 2], "4i boot on pools 1 and 2")
+        # The slow-op log armed on every node for the walks (read for
+        # the drain after the resume, below).
+        nodes = boot([1, 2], "4i boot on pools 1 and 2",
+                     {**EL_ENV, "MTPU_SLOW_OP_MS": str(EL_SLOW_MS)})
         check("pool 0: EC 12+4; pool 1: EC 12+4" in
               nodes[0].line("serving S3 on"),
               f"4i: the expanded layout {nodes[0].line('serving S3 on')}")
@@ -4221,6 +4415,7 @@ def phase_elastic_fleet(rng, root: str, device: str = "cuda") -> dict:
         objs.update(live_keys)
         survivors = [nodes[i] for i in (0, 2, 3)]
         sums = stop_all(survivors)
+        slow_after_resume(survivors, t_kill + resumed_s)
         nodes[1] = None
         nodes = []
         pages = {i: sum(c["mig_pages_served"]["batches"]
@@ -4771,6 +4966,8 @@ def phase_front_end(rng, root: str, device: str = "cuda") -> dict:
 
 CUT_BODY = 2 * MIB + 777        # the overwrite: not inline, a ragged block
 CUT_DROP_STRIDE = 2             # drop mode's points: every other one
+CUT_MP_STRIDE = 7               # a multipart completion's points walked
+CUT_LANE_STRIDE = 11            # a 12-drive lane batch's points walked
 
 
 def phase_power_cut(rng, root: str, device: str = "cuda") -> dict:
@@ -4824,15 +5021,16 @@ def phase_power_cut(rng, root: str, device: str = "cuda") -> dict:
     # Data shard 0's drive, wiped for the heal: its rebuild is one decode
     # row, and every GET before the heal lands reconstructs it.
     wiped = data_holders(bkt, key, 1)[0]
-    walked = {"drop": 0, "tear": 0, "heal": 0}
+    walked = {"drop": 0, "tear": 0, "heal": 0, "multipart": 0, "lane": 0}
     fired: dict = {}
 
     def sweep(mode: str, label: str, op, allowed, prepare=None,
-              stride: int = 1) -> int:
+              stride: int = 1, src: str = base, answer=read,
+              heals=((bkt, key),)) -> int:
         n = 1
         while True:
             at = os.path.join(root, "cut", f"{label}-{n}")
-            shutil.copytree(base, at)
+            shutil.copytree(src, at)
             if prepare is not None:
                 prepare(at)
             clock = CrashClock(crash_at=n)
@@ -4863,19 +5061,18 @@ def phase_power_cut(rng, root: str, device: str = "cuda") -> dict:
                 first = None
                 for tag in ("remounted", "healed"):
                     try:
-                        got = read(es)
+                        got = answer(es)
                     except Exception as e:  # noqa: BLE001 - named below
                         raise RuntimeError(f"chip_smoke: {where} ({tag}): "
                                            f"GET raised {e!r}") from e
                     check(any(got == x for x in allowed(acked)),
-                          f"{where} ({tag}): GET gave "
-                          f"{None if got is None else len(got)} bytes, "
-                          f"neither of the allowed versions")
+                          f"{where} ({tag}): the GET gave none of the "
+                          f"allowed versions")
                     check(tag == "remounted" or got == first,
                           f"{where}: the heals moved the answer")
                     first = got
                     if tag == "remounted":
-                        for vol, path in {*rep["heal"], (bkt, key)}:
+                        for vol, path in {*rep["heal"], *heals}:
                             try:
                                 es.heal_object(vol, path)
                             except (ObjectNotFound, VersionNotFound):
@@ -4924,6 +5121,73 @@ def phase_power_cut(rng, root: str, device: str = "cuda") -> dict:
     steps["heal"] = sweep("drop", "heal",
                           lambda es: es.heal_object(bkt, key),
                           lambda acked: [old], prepare=wipe)
+
+    # A multipart completion over the key (C.3's first case).
+    mp_body = rng.bytes(CUT_BODY)
+
+    def complete(es) -> None:
+        from minio_tpu_torch.object.types import PutOptions
+        uid = es.new_multipart_upload(bkt, key, PutOptions())
+        part = es.put_object_part(bkt, key, uid, 1, mp_body)
+        es.complete_multipart_upload(bkt, key, uid, [(1, part.etag)])
+    steps["multipart"] = sweep(
+        "drop", "multipart", complete,
+        lambda acked: [mp_body] if acked else [old, mp_body],
+        stride=CUT_MP_STRIDE)
+
+    # Four concurrent inline overwrites, one lane batch a drive (C.2).
+    import itertools
+    lane_keys = [f"lane{i}" for i in range(4)]
+    lane_old = [rng.bytes(1000 + i) for i in range(4)]
+    lane_new = [rng.bytes(1100 + i) for i in range(4)]
+    lane_base = os.path.join(root, "cut", "lane-base")
+    with env_set(MTPU_GROUP_COMMIT_WAIT_MS="20000"):
+        es = mkset(drives(lane_base))
+        try:
+            es.make_bucket(bkt)
+            for k, b in zip(lane_keys, lane_old):
+                es.put_object(bkt, k, b)
+        finally:
+            es.close()
+        members: dict = {}
+
+        def lanes(es) -> None:
+            members.clear()
+            es.group_commit.worth_batching = lambda: True
+            gate = threading.Barrier(4)
+
+            def put(i: int) -> None:
+                gate.wait()
+                try:
+                    es.put_object(bkt, lane_keys[i], lane_new[i])
+                    members[i] = True
+                except Exception:  # noqa: BLE001 - the cut
+                    pass
+            ts = [threading.Thread(target=put, args=(i,)) for i in range(4)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(120)
+            if len(members) < 4:
+                raise RuntimeError("a lane member was not acknowledged")
+
+        def lane_answer(es) -> tuple:
+            out = []
+            for k in lane_keys:
+                try:
+                    out.append(es.get_object(bkt, k)[1])
+                except ObjectNotFound:
+                    out.append(None)
+            return tuple(out)
+        # An acknowledged member reads its new body; the others either.
+        steps["lane"] = sweep(
+            "drop", "lane", lanes,
+            lambda acked: list(itertools.product(*[
+                [lane_new[i]] if members.get(i) else [lane_old[i],
+                                                      lane_new[i]]
+                for i in range(4)])),
+            stride=CUT_LANE_STRIDE, src=lane_base, answer=lane_answer,
+            heals=[(bkt, k) for k in lane_keys])
     launches = in_process_launches()
     wall = time.perf_counter() - t0
     log(f"power cut: sub-steps of the uncut ops {steps}; points walked "
@@ -4936,6 +5200,401 @@ def phase_power_cut(rng, root: str, device: str = "cuda") -> dict:
           f"{by_r}")
     check(launches["highwayhash256"], "4k: highwayhash256 never launched")
     shutil.rmtree(os.path.join(root, "cut"), ignore_errors=True)
+    return launches
+
+
+# -- 4l: the observability plane ---------------------------------------------
+
+OBS_CLIENTS = 16
+OBS_LOAD_S = 8.0                # seconds of the 16 clients' load
+OBS_PAUSE = 0.1                 # seconds between a client's rounds
+OBS_SLOW_MS = 50                # the phase's MTPU_SLOW_OP_MS
+OBS_DELAY_S = 0.08              # the delayed drive's rename_data, above it
+OBS_DEG_KEYS = 16               # 1 MiB keys read with two drives away
+OBS_P50_PUTS = 25               # one-thread PUTs a turn of the p50 pairs
+OBS_UNPACED_S = 4.0             # seconds of each unpaced 16-client window
+# A drive's write of a PUT: its shard stream, or its journal's commit.
+OBS_WRITES = ("disk.create_file", "disk.write_metadata", "disk.rename_data",
+              "commit.group")
+
+
+class TraceTail:
+    """A live admin trace (GET /minio/admin/v3/trace?types=...) read on
+    a thread of its own: its JSON entries collect in `entries` until
+    stop()."""
+
+    def __init__(self, address: str, types: str = "all"):
+        import socket
+        from minio_tpu_torch.s3 import sigv4
+        q = {"types": types}
+        uri, headers = sigv4.sign_headers(
+            "GET", address, "/minio/admin/v3/trace", "minioadmin",
+            "minioadmin", hashlib.sha256(b"").hexdigest(),
+            query={k: [v] for k, v in q.items()})
+        host, _, port = address.rpartition(":")
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=600)
+        self.conn.request("GET", uri + "?" + urllib.parse.urlencode(q),
+                          headers=headers)
+        self.sock = self.conn.sock
+        self.resp = self.conn.getresponse()
+        check(self.resp.status == 200,
+              f"admin trace through {address}: {self.resp.status}")
+        self._shut = socket.SHUT_RDWR
+        self.entries: list = []
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        # Large reads, split into lines here: a line at a time through
+        # the chunked decoder falls behind a loaded server, whose queue
+        # for this subscriber then drops its oldest entries.
+        buf = b""
+        try:
+            while True:
+                got = self.resp.read1(1 << 20)
+                if not got:
+                    return
+                buf += got
+                *lines, buf = buf.split(b"\n")
+                self.entries.extend(json.loads(ln) for ln in lines
+                                    if ln.strip())
+        except (OSError, ValueError, http.client.HTTPException):
+            pass            # stop() shut the socket
+
+    def stop(self, settle: float = 0.5) -> list:
+        """The entries, once none came for `settle` seconds."""
+        n, t0 = -1, time.perf_counter()
+        while n != len(self.entries) and time.perf_counter() - t0 < 30:
+            n = len(self.entries)
+            time.sleep(settle)
+        try:
+            self.sock.shutdown(self._shut)
+        except OSError:
+            pass
+        self.thread.join(10)
+        self.conn.close()
+        return self.entries
+
+
+def trace_trees(entries: list) -> dict:
+    """trace id -> (root entry, [its spans' entries])."""
+    roots, spans = {}, {}
+    for e in entries:
+        if e.get("span") == 0:
+            roots[e["trace"]] = e
+        elif "trace" in e:
+            spans.setdefault(e["trace"], []).append(e)
+    return {t: (r, spans.get(t, [])) for t, r in roots.items()}
+
+
+def under_root(span: dict, tree: list) -> bool:
+    """Whether the span's parent chain reaches the request (span 0)."""
+    by_id = {e["span"]: e for e in tree}
+    seen, cur = set(), span
+    while cur["parent"] and cur["parent"] not in seen:
+        seen.add(cur["parent"])
+        cur = by_id.get(cur["parent"])
+        if cur is None:
+            return False
+    return cur["parent"] == 0
+
+
+def prometheus_samples(text: str) -> dict:
+    """{(name, labels): value} of an exposition; raises on a line that
+    is neither a HELP/TYPE comment nor a sample."""
+    import re
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                        r'(-?[0-9.eE+-]+|NaN|[+-]Inf)$')
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        m = sample.match(ln)
+        check(m is not None, f"not Prometheus text: {ln!r}")
+        out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def api_counts(samples: dict) -> dict:
+    import re
+    out: dict = {}
+    for (name, labels), v in samples.items():
+        if name == "minio_tpu_http_requests_total":
+            api = re.search(r'api="([^"]+)"', labels).group(1)
+            out[api] = out.get(api, 0) + int(v)
+    return out
+
+
+def p50(xs):
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def wait_disarmed(tracing) -> None:
+    """The server drops a closed subscription at its next write to the
+    stream (a heartbeat within 1 s)."""
+    t0 = time.perf_counter()
+    while tracing.ACTIVE and time.perf_counter() - t0 < 10:
+        time.sleep(0.05)
+
+
+def unpaced_window(c, srv, bodies, small, deg, deg_body,
+                   armed: bool) -> dict:
+    """4l's rounds from OBS_CLIENTS clients with no pause for
+    OBS_UNPACED_S: the rounds done, the 1 MiB PUT and GET p50 ms and,
+    armed (a types=all subscriber), the entries it received, the whole
+    request trees among them and what the server dropped for it."""
+    from minio_tpu_torch.utils import tracing
+    if not armed:
+        wait_disarmed(tracing)      # the paced window's subscriber
+    tail = TraceTail(srv.address, "all") if armed else None
+    check(tracing.ACTIVE == armed, f"4l unpaced: tracing.ACTIVE "
+          f"{tracing.ACTIVE}, armed {armed}")
+    dropped0 = srv.tracer.dropped
+    lat: dict = {"put": [], "get": []}
+    mu = threading.Lock()
+    end = time.monotonic() + OBS_UNPACED_S
+
+    def load(t: int, _item) -> None:
+        n = 0
+        while time.monotonic() < end:
+            key = f"/obs/unpaced/c{t:02d}/k{n % 4}"
+            b = bodies[(t + n) % 4]
+            t0 = time.perf_counter()
+            check(c("PUT", key, b)[0] == 200, f"4l unpaced PUT {key}")
+            t1 = time.perf_counter()
+            check(c("GET", key) == (200, b), f"4l unpaced GET {key}")
+            t2 = time.perf_counter()
+            dk = deg[(t + n) % len(deg)]
+            check(c("GET", f"/obsdeg/{dk}") == (200, deg_body[dk]),
+                  f"4l unpaced degraded GET {dk}")
+            check(c("PUT", f"/obs/unpaced/c{t:02d}/s{n:03d}",
+                    small)[0] == 200, "4l unpaced 1 KiB PUT")
+            with mu:
+                lat["put"].append((t1 - t0) * 1e3)
+                lat["get"].append((t2 - t1) * 1e3)
+            n += 1
+    wall = run_clients(load, [[None]] * OBS_CLIENTS)
+    out = {"rounds": len(lat["put"]), "wall_s": round(wall, 3),
+           "requests": 4 * len(lat["put"]),
+           "put_1mib_p50_ms": round(p50(lat["put"]), 3),
+           "get_1mib_p50_ms": round(p50(lat["get"]), 3)}
+    if tail is not None:
+        entries = tail.stop()
+        wait_disarmed(tracing)
+        trees = trace_trees(entries)
+        out.update(entries=len(entries), trees=len(trees),
+                   dropped=srv.tracer.dropped - dropped0)
+    return out
+
+
+def phase_observability(rng, root: str, device: str = "cuda") -> dict:
+    """4l, see the module docstring."""
+    import io
+    import zipfile
+    from minio_tpu_torch.utils import tracing
+    reset_launches()
+    with env_set(MTPU_SLOW_OP_MS=str(OBS_SLOW_MS)):
+        s = Server(root, "obs", device=device)
+    try:
+        c, es, srv = s.client, s.es, s.srv
+        check(tracing.ACTIVE and tracing.slow_ms() == OBS_SLOW_MS,
+              "4l: MTPU_SLOW_OP_MS did not arm the slow-op log")
+        slow_drive = 5
+        sleepy = SleepyDisk(es.disks[slow_drive]._disk)
+        es.disks[slow_drive]._disk = sleepy
+        for b in ("obs", "obsdeg"):
+            check(c("PUT", f"/{b}")[0] == 200, f"4l: make bucket {b}")
+        # Keys with a data shard on one of the two drives taken away.
+        away = (2, 9)
+        deg, i = [], 0
+        while len(deg) < OBS_DEG_KEYS:
+            k = f"deg{i:03d}"
+            if set(data_holders("obsdeg", k, K)) & set(away):
+                deg.append(k)
+            i += 1
+        deg_body = {k: rng.bytes(MIB) for k in deg}
+        for k in deg:
+            check(c("PUT", f"/obsdeg/{k}", deg_body[k])[0] == 200,
+                  f"4l: PUT obsdeg/{k}")
+        for d in away:
+            vol = os.path.join(s.drives[d], "obsdeg")
+            os.rename(vol, vol + ".away")
+        check(c("POST", "/minio/admin/v3/start-profiling")[0] == 200,
+              "4l: start-profiling")
+        scrape0 = prometheus_samples(c.send(
+            "GET", "/minio/v2/metrics/cluster")[1].decode())
+        tail = TraceTail(srv.address, "all")
+        time.sleep(0.3)
+        bodies = [rng.bytes(MIB) for _ in range(4)]
+        small = rng.bytes(1024)
+        sent: dict = {}
+        mu = threading.Lock()
+        end = time.monotonic() + OBS_LOAD_S
+        sleepy.delays.update({op: OBS_DELAY_S for op in (
+            "write_metadata", "rename_data", "commit_group")})
+
+        def load(t: int, _item) -> None:
+            n = 0
+            while time.monotonic() < end:
+                key = f"/obs/big/c{t:02d}/k{n % 4}"
+                b = bodies[(t + n) % 4]
+                check(c("PUT", key, b)[0] == 200, f"4l PUT {key}")
+                check(c("GET", key) == (200, b), f"4l GET {key}")
+                dk = deg[(t + n) % len(deg)]
+                check(c("GET", f"/obsdeg/{dk}") == (200, deg_body[dk]),
+                      f"4l degraded GET {dk}")
+                check(c("PUT", f"/obs/small/c{t:02d}/k{n:03d}",
+                        small)[0] == 200, "4l 1 KiB PUT")
+                with mu:
+                    sent["PUT:object"] = sent.get("PUT:object", 0) + 2
+                    sent["GET:object"] = sent.get("GET:object", 0) + 2
+                n += 1
+                time.sleep(OBS_PAUSE)
+        wall = run_clients(load, [[None]] * OBS_CLIENTS)
+        sleepy.delays.clear()
+        entries = tail.stop()
+        scrape1_text = c.send("GET", "/minio/v2/metrics/cluster")[1].decode()
+        scrape1 = prometheus_samples(scrape1_text)
+        got = api_counts(scrape1)
+        base = api_counts(scrape0)
+        delta = {a: got.get(a, 0) - base.get(a, 0) for a in sent}
+        log(f"4l load: {OBS_CLIENTS} clients {wall:.2f} s, requests sent "
+            f"{sent}, the scrape's counts over the load {delta} "
+            f"({len(scrape1)} samples parsed)")
+        check(delta == sent, f"4l: the scrape's per-API counts {delta} "
+              f"are not the requests sent {sent}")
+        st, z = c.send("GET", "/minio/admin/v3/download-profiling")[:2]
+        check(st == 200, f"4l download-profiling: {st}")
+        prof = zipfile.ZipFile(io.BytesIO(z))
+        text = prof.read("local/profile.txt").decode()
+        check("put_object" in text, "4l: the profile names no put_object:"
+              f" {text[:3000]}")
+        log(f"4l profile: {prof.namelist()}, {len(text)} bytes of text "
+            "naming put_object")
+
+        # -- the trees ----------------------------------------------------
+        trees = trace_trees(entries)
+        kinds = {"put": 0, "get": 0, "deg": 0, "small": 0}
+        dev_ms: dict = {"put": [], "get": [], "deg": []}
+        svc_ms: dict = {"put": [], "get": [], "deg": []}
+        lanes = 0
+        for root_e, tree in trees.values():
+            path = root_e.get("path", "")
+            kern = [e for e in tree if e.get("api") == "batcher.dispatch"]
+            if root_e["api"] == "PUT:object" and path.startswith("/obs/big"):
+                kind = "put"
+                # 1 MiB at 8+4 goes inline: each drive's write is its
+                # journal's (solo, or in a lane batch).
+                writes = {e["tags"]["drive"] for e in tree
+                          if e.get("api") in OBS_WRITES
+                          and under_root(e, tree)}
+                check(len(writes) == 12, f"4l: a PUT's tree has write "
+                      f"spans of {len(writes)} drives: {path}")
+            elif root_e["api"] == "GET:object" and path.startswith("/obs/"):
+                kind = "get"
+            elif root_e["api"] == "GET:object":
+                kind = "deg"
+                check(any(e["tags"].get("op") == "reconstruct"
+                          for e in kern), f"4l: a degraded GET's tree has "
+                      f"no reconstruct kernel span: {path}")
+            elif root_e["api"] == "PUT:object":
+                kinds["small"] += 1
+                lanes += any(e.get("api") == "commit.group" for e in tree)
+                continue
+            else:
+                continue
+            kinds[kind] += 1
+            timed = [e for e in kern if "lane_ms" in e["tags"]]
+            # The CPU (a rehearsal) has no lane stream to time. The
+            # events bracket the dispatch inside the lane's service.
+            check(kern and (device == "cpu" or timed and all(
+                0 < e["tags"]["lane_ms"] <= e["tags"]["service_ms"] + 0.25
+                and e["tags"]["service_ms"] <= e["durationMs"]
+                for e in timed)), f"4l: {kind} {path}: kernel spans "
+                  f"{[e['tags'] for e in kern]}")
+            dev_ms[kind] += [e["tags"]["lane_ms"] for e in timed]
+            svc_ms[kind] += [e["tags"]["service_ms"] for e in timed]
+        n_put = sent["PUT:object"] // 2
+        check(kinds["put"] == n_put and kinds["get"] == n_put
+              and kinds["deg"] == n_put and kinds["small"] == n_put,
+              f"4l: trees received {kinds}, {n_put} of each sent")
+        log(f"4l trace: {len(entries)} entries, {len(trees)} request trees "
+            f"{kinds}; every 1 MiB PUT's tree with a write span of each "
+            f"of the 12 drives under it; kernel lane_ms/service_ms p50 "
+            f"put {p50(dev_ms['put']):.3f}/{p50(svc_ms['put']):.3f}, "
+            f"get {p50(dev_ms['get']):.3f}/{p50(svc_ms['get']):.3f}, "
+            f"reconstruct {p50(dev_ms['deg']):.3f}/"
+            f"{p50(svc_ms['deg']):.3f}; 1 KiB PUTs with a commit.group "
+            f"span {lanes} of {kinds['small']}")
+        # The delayed drive's write: a solo commit's `disk.<op>` span, or
+        # the lane batch's `commit.group` span of that drive.
+        slow = [r for r in tracing.slow_ops()
+                if r.get("name") in OBS_WRITES[1:]
+                + ("disk.commit_group",)
+                and (r.get("tags") or {}).get("drive")
+                == s.drives[slow_drive]]
+        check(slow, "4l: no slow-op record names the delayed drive")
+        log(f"4l slow-op: {tracing.slow_total} records; the delayed drive's "
+            f"{slow[-1]['name']} {slow[-1]['duration_ms']} ms on "
+            f"{slow[-1]['tags']['drive']}, ancestry {slow[-1]['ancestry']}")
+        st, body, _ = c.send("GET", "/minio/admin/v3/info")
+        info = json.loads(body)
+        names = {o["name"] for o in info["slo"]["objectives"]}
+        check({"get-availability", "put-availability"} <= names,
+              f"4l: the SLO snapshot's objectives {names}")
+        st, body, _ = c.send("POST", "/minio/admin/v3/speedtest",
+                             query={"size": str(MIB), "count": "4"})
+        check(st == 200, f"4l speedtest: {st} {body[:200]!r}")
+        log(f"4l SLO verdict {info['slo']['verdict']} over "
+            f"{sorted(names)}; speedtest {json.loads(body)}")
+
+        # -- unpaced: 16 clients as fast as they go, disarmed then armed --
+        tracing.set_slow_ms(0)
+        for armed in (False, True):
+            got = unpaced_window(c, srv, bodies, small, deg, deg_body,
+                                 armed)
+            log(f"4l unpaced {'armed' if armed else 'disarmed'}: {got}")
+        for d in away:
+            vol = os.path.join(s.drives[d], "obsdeg")
+            os.rename(vol + ".away", vol)
+
+        # -- the disarmed path's cost, one thread -------------------------
+        check(not tracing.ACTIVE, "4l: tracing still armed")
+        p50s: dict = {}
+        for size in (1024, MIB):
+            body = rng.bytes(size)
+            for turn in ("disarmed", "armed", "disarmed", "armed"):
+                tail = TraceTail(srv.address, "all") \
+                    if turn == "armed" else None
+                check((tail is not None) == tracing.ACTIVE,
+                      f"4l: tracing.ACTIVE {tracing.ACTIVE} {turn}")
+                ts = []
+                for n in range(OBS_P50_PUTS):
+                    t0 = time.perf_counter()
+                    check(c("PUT", f"/obs/p50/{size}/{n}", body)[0] == 200,
+                          "4l p50 PUT")
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                if tail is not None:
+                    tail.stop(settle=0.2)
+                    wait_disarmed(tracing)
+                p50s.setdefault((size, turn), []).append(p50(ts))
+        log("4l one-thread PUT p50 ms, disarmed and armed (a types=all "
+            "trace subscriber), two turns each: " + "; ".join(
+                f"{'1 KiB' if size == 1024 else '1 MiB'} {turn} "
+                f"{', '.join(f'{v:.3f}' for v in vs)}"
+                for (size, turn), vs in p50s.items())
+            + f" ({smi('--query-gpu=name,power.limit')})")
+    finally:
+        tracing.set_slow_ms(0)
+        s.stop()
+    check_pool_idle("4l")
+    launches = in_process_launches()
+    log(f"4l launches {launches}")
+    by_r = launches["gf_apply_by_r"]
+    check(by_r.get(str(M)) and any(by_r.get(str(r)) for r in (1, 2)),
+          f"4l: gf_apply without parity or decode rows: {by_r}")
+    check(launches["highwayhash256"], "4l: highwayhash256 never launched")
+    shutil.rmtree(os.path.join(root, "obs"), ignore_errors=True)
     return launches
 
 
@@ -5170,6 +5829,9 @@ def main() -> int:
         for done in os.listdir(root):
             shutil.rmtree(os.path.join(root, done), ignore_errors=True)
         cut = timed("4k", phase_power_cut, rng, root)
+        for done in os.listdir(root):
+            shutil.rmtree(os.path.join(root, done), ignore_errors=True)
+        obs = timed("4l", phase_observability, rng, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timed("4 (solo dispatch)", solo_dispatch_ms, torch, rng, conc_stats)
@@ -5178,7 +5840,7 @@ def main() -> int:
 
     launches = {k: seq[k] + conc[k] + mph[k] + ns[k] + crash[k] + dp[k]
                 + fleet[k] + pools[k] + dist[k] + elastic[k] + front[k]
-                + cut[k] for k in ("gf_apply", "highwayhash256")}
+                + cut[k] + obs[k] for k in ("gf_apply", "highwayhash256")}
     launches["rs_i8"] = b5["rs_i8"]
     meta = {
         "gf_apply": ("minio_tpu_torch/ops/csrc/gf_apply.cu",

@@ -23,6 +23,15 @@ Environment:
   MTPU_GRID_COOLDOWN      base breaker cooldown seconds (default 0.5)
 
 The doubled cooldown stops at COOLDOWN_MAX seconds.
+
+While tracing is armed and a request's trace is bound, a call or stream
+is one `grid.<handler>` span; its request frame carries the trace
+context ("tc", grid/wire.py), the peer ships its span subtree back
+("ts"), and the subtree is stitched under a `wire` span that splits
+serialize, transit, peer queue and peer service time. A call that a
+dead peer or a timeout cut closes its `wire` span with a `fault` tag.
+Disarmed, the one `tracing.ACTIVE` check is a call's whole tracing cost
+and its frames carry no trace bytes.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Iterator, Optional
 from minio_tpu_torch.grid import chaos, loop, wire
 from minio_tpu_torch.grid.wire import GridError, RemoteCallError
 from minio_tpu_torch.utils import deadline as deadline_mod
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.deadline import DeadlineExceeded
 from minio_tpu_torch.utils.env import env_num as _env_num
 
@@ -297,8 +307,15 @@ class GridClient:
 
     # -- calls ---------------------------------------------------------
 
-    def _send(self, msg: dict, mux: int, q) -> None:
-        frame = wire.pack_frame(msg)
+    def _send(self, msg: dict, mux: int, q, tstats=None) -> None:
+        if tstats is None:
+            frame = wire.pack_frame(msg)
+        else:
+            # An armed call times the encode, so that its wire span can
+            # split serialize out of transit.
+            t_ser = time.perf_counter()
+            frame = wire.pack_frame(msg)
+            tstats["ser"] = time.perf_counter() - t_ser
         with self._mu:
             self._connect_locked()
             s = self._sock
@@ -326,7 +343,8 @@ class GridClient:
             self._pending.pop(mux, None)
 
     def _send_with_retry(self, kind: int, handler: str, payload,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None,
+                         tc: Optional[dict] = None, tstats=None):
         """Send one request frame, retrying transient connect/send
         failures with jittered exponential backoff. Returns (mux, q).
 
@@ -355,8 +373,10 @@ class GridClient:
             msg = {"t": kind, "m": mux, "h": handler, "p": payload}
             if window:
                 msg["w"] = window
+            if tc is not None:
+                msg["tc"] = tc
             try:
-                self._send(msg, mux, q)
+                self._send(msg, mux, q, tstats)
                 return mux, q
             except RemoteCallError:
                 raise
@@ -421,7 +441,10 @@ class GridClient:
 
     def call(self, handler: str, payload=None,
              timeout: Optional[float] = None):
-        """Unary call; raises RemoteCallError with the remote's code."""
+        """Unary call; raises RemoteCallError with the remote's code.
+        Disarmed, the `tracing.ACTIVE` check is its whole tracing cost."""
+        if tracing.ACTIVE and tracing.current() is not None:
+            return self._call_traced(handler, payload, timeout)
         mux, q = self._send_with_retry(wire.T_REQ, handler, payload)
         try:
             msg = self._recv(q, handler, timeout, mux)
@@ -438,6 +461,89 @@ class GridClient:
             raise RemoteCallError(code, msg.get("msg", ""))
         finally:
             self._finish(mux)
+
+    @staticmethod
+    def _trace_tc(ctx, parent: int) -> dict:
+        tc = {"i": ctx.trace_id, "s": parent, "a": 1}
+        if tracing.NODE:
+            tc["n"] = tracing.NODE
+        return tc
+
+    def _wire_tags(self, total_ms: float, ser_ms: float, ts,
+                   fault: Optional[str]) -> dict:
+        """The `wire` span's tags: the peer, and the timing split from
+        the reply's piggyback, or the fault that cut the call."""
+        tags = {"peer": f"{self.host}:{self.port}"}
+        if ser_ms is not None:
+            tags["serialize_ms"] = round(ser_ms, 3)
+        if fault is not None:
+            tags["fault"] = fault
+        elif ts:
+            q_ms = float(ts.get("q", 0.0))
+            v_ms = float(ts.get("v", 0.0))
+            tags["peer_queue_ms"] = round(q_ms, 3)
+            tags["peer_service_ms"] = round(v_ms, 3)
+            tags["transit_ms"] = round(
+                max(0.0, total_ms - (ser_ms or 0.0) - q_ms - v_ms), 3)
+        return tags
+
+    def _stitch(self, ctx, t_wall: float, t0: float, tstats: dict,
+                ts: Optional[dict], fault: Optional[str] = None) -> None:
+        """Record the `wire` span under the current parent (the call's
+        grid.<handler> span) and graft the peer's shipped subtree into
+        it; with `fault` (the transport cut the call) the fault is
+        annotated instead, so a partition still closes the tree."""
+        total_ms = (time.monotonic() - t0) * 1000.0
+        tags = self._wire_tags(total_ms, tstats.get("ser", 0.0) * 1000.0,
+                               ts, fault)
+        tracing.stitch_wire(ctx, tracing.current_parent(), t_wall,
+                            total_ms, tags, None if fault else ts)
+
+    def _call_traced(self, handler: str, payload,
+                     timeout: Optional[float]):
+        """call() under an armed, bound trace: the request frame
+        carries the trace context, the peer runs its handler's spans
+        under it and ships the subtree back, and the reply is stitched
+        into this request's tree. A stale reply never stitches:
+        _finish() unregisters the mux before its queue is dropped."""
+        ctx = tracing.current()
+        with tracing.span("grid", f"grid.{handler}",
+                          {"peer": f"{self.host}:{self.port}"}):
+            tc = self._trace_tc(ctx, tracing.current_parent())
+            tstats: dict = {}
+            t_wall = time.time()
+            t0 = time.monotonic()
+            try:
+                mux, q = self._send_with_retry(
+                    wire.T_REQ, handler, payload, tc=tc, tstats=tstats)
+            except (DeadlineExceeded, GridError) as e:
+                self._stitch(ctx, t_wall, t0, tstats, None,
+                             fault=type(e).__name__)
+                raise
+            try:
+                try:
+                    msg = self._recv(q, handler, timeout, mux)
+                except (DeadlineExceeded, GridError) as e:
+                    self._stitch(ctx, t_wall, t0, tstats, None,
+                                 fault=type(e).__name__)
+                    raise
+                if msg["t"] == wire.T_RESP:
+                    self._stitch(ctx, t_wall, t0, tstats, msg.get("ts"))
+                    self._ok()
+                    return msg.get("p")
+                code = msg.get("e", "Internal")
+                if code == _SENTINEL_ERR:
+                    self._stitch(ctx, t_wall, t0, tstats, None,
+                                 fault="conn_lost")
+                    self._fault()
+                    raise GridError("connection lost mid-call")
+                # The peer answered: its handler raised, and its spans
+                # up to the raise still stitch.
+                self._stitch(ctx, t_wall, t0, tstats, msg.get("ts"))
+                self._ok()
+                raise RemoteCallError(code, msg.get("msg", ""))
+            finally:
+                self._finish(mux)
 
     def _grant(self, s, mux: int, n: int) -> None:
         """Replenish a response stream's credit window (best-effort:
@@ -466,10 +572,30 @@ class GridClient:
         are yielded as (payload, lease) pairs: payload is a memoryview
         into a pooled buffer and the caller MUST release() the lease.
         With raw=False they are flattened to bytes and the lease is
-        released here."""
+        released here.
+
+        Armed and bound, the open frame carries the trace context and
+        the peer ships its subtree back on the EOF or error frame. The
+        `grid.<handler>` span is recorded at close (a generator's `with`
+        would leave the thread's parent pointing into this stream
+        between pulls); it covers the send through the EOF or
+        abandonment, with the chunk count in its tags."""
         window = loop.STREAM_WINDOW
-        mux, q = self._send_with_retry(wire.T_SREQ, handler, payload,
-                                       window=window)
+        t_wall = time.time()
+        t0 = time.monotonic()
+        chunks = 0
+        ctx, parent = tracing.capture() if tracing.ACTIVE else (None, 0)
+        tc = self._trace_tc(ctx, parent) if ctx is not None else None
+        ts: Optional[dict] = None
+        fault: Optional[str] = None
+        try:
+            mux, q = self._send_with_retry(wire.T_SREQ, handler, payload,
+                                           window=window, tc=tc)
+        except (DeadlineExceeded, GridError) as e:
+            if ctx is not None:
+                self._stream_spans(ctx, parent, handler, t_wall, t0, 0,
+                                   None, type(e).__name__)
+            raise
         with self._mu:
             ent = self._pending.get(mux)
         s = ent[0] if ent is not None else None
@@ -479,6 +605,7 @@ class GridClient:
                 msg = self._recv(q, handler, timeout, mux)
                 t = msg["t"]
                 if t == wire.T_CHUNK:
+                    chunks += 1
                     pulled += 1
                     if pulled >= max(1, window // 2):
                         self._grant(s, mux, pulled)
@@ -495,17 +622,42 @@ class GridClient:
                     else:
                         yield msg.get("p")
                 elif t == wire.T_EOF:
+                    ts = msg.get("ts")
                     self._ok()
                     return
                 else:
+                    ts = msg.get("ts")
                     code = msg.get("e", "Internal")
                     if code == _SENTINEL_ERR:
+                        ts, fault = None, "conn_lost"
                         self._fault()
                         raise GridError("connection lost mid-stream")
                     self._ok()
                     raise RemoteCallError(code, msg.get("msg", ""))
+        except RemoteCallError:
+            raise               # the peer answered: its subtree stitches
+        except (DeadlineExceeded, GridError) as e:
+            if fault is None:
+                ts, fault = None, type(e).__name__
+            raise
         finally:
             self._finish(mux)
+            if ctx is not None:
+                self._stream_spans(ctx, parent, handler, t_wall, t0,
+                                   chunks, ts, fault)
+
+    def _stream_spans(self, ctx, parent: int, handler: str, t_wall: float,
+                      t0: float, chunks: int, ts, fault) -> None:
+        """A stream's grid.<handler> span and, under it, its `wire` span
+        with the peer's subtree (or the fault that cut it)."""
+        dur = (time.monotonic() - t0) * 1000.0
+        peer = f"{self.host}:{self.port}"
+        sid = tracing.record_span(
+            ctx, parent, "grid", f"grid.{handler}", t_wall, dur,
+            tags={"peer": peer, "stream": 1, "chunks": chunks})
+        tracing.stitch_wire(ctx, sid, t_wall, dur,
+                            self._wire_tags(dur, None, ts, fault),
+                            None if fault else ts)
 
     def push_raw(self, handler: str, payload, items,
                  timeout: Optional[float] = None):

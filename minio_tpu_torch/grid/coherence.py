@@ -59,6 +59,7 @@ import uuid as uuid_mod
 from typing import Callable, Optional
 
 from minio_tpu_torch.grid.wire import GridError
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.env import env_float as _env_float
 
 # Shared push pool: invalidation fan-outs ride fixed daemon workers
@@ -313,8 +314,8 @@ class PeerCoherence:
         payload = {"n": self.node_id, "i": self.instance_id,
                    "c": cls, "b": bucket, "g": gen}
         pool = _shared_push_pool()
-        futs = [pool.submit(self._push_one, c, payload)
-                for c in self.peers.values()]
+        futs = [pool.submit(self._push_one, pid, c, payload)
+                for pid, c in self.peers.items()]
         deadline = time.monotonic() + self.ack_timeout + 0.5
         for f in futs:
             try:
@@ -322,15 +323,15 @@ class PeerCoherence:
             except Exception:  # noqa: BLE001 - outcome counted in push
                 pass
 
-    def _push_one(self, client, payload) -> None:
+    def _push_one(self, pid: str, client, payload) -> None:
         try:
             client.call(INV_HANDLER, payload, timeout=self.ack_timeout)
             with self._mu:
                 self.inv_sent += 1
-        except Exception:  # noqa: BLE001 - escalated below
-            self._escalate()
+        except Exception as e:  # noqa: BLE001 - escalated below
+            self._escalate(pid, payload, e)
 
-    def _escalate(self) -> None:
+    def _escalate(self, pid: str, payload, err) -> None:
         """A peer did not ack an invalidation. We cannot force a remote
         cache to drop, but the failure is made loud (counted in
         `escalations`) and the local generation already advanced
@@ -347,6 +348,11 @@ class PeerCoherence:
         with self._mu:
             self.inv_failed += 1
             self.escalations += 1
+        tracing.slow_event(
+            "grid", "peer.invalidation-failed",
+            tags={"peer": pid, "class": payload.get("c", ""),
+                  "bucket": payload.get("b", ""),
+                  "error": f"{type(err).__name__}: {err}"})
 
     # -- receiving side ------------------------------------------------
 

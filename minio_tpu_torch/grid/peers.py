@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import threading
 
+from minio_tpu_torch.utils import tracing
+
 RELOAD_HANDLER = "peer.reload"
 
 # Reload kinds a peer understands.
@@ -68,9 +70,17 @@ class PeerNotifier:
     def _one(self, client, payload: dict) -> None:
         try:
             client.call(RELOAD_HANDLER, payload, timeout=self._timeout)
-        except Exception:  # noqa: BLE001 - peer down: TTL fallback
+        except Exception as e:  # noqa: BLE001 - peer down: TTL fallback
             with _stats_mu:
                 _counts["failed"] += 1
+            # Counted and named: a best-effort path that always fails
+            # is an outage.
+            tracing.slow_event(
+                "grid", "peer.notify-failed",
+                tags={"peer": f"{getattr(client, 'host', '?')}:"
+                              f"{getattr(client, 'port', '?')}",
+                      "kind": payload.get("kind", ""),
+                      "error": f"{type(e).__name__}: {e}"})
             return
         with _stats_mu:
             _counts["sent"] += 1

@@ -16,6 +16,13 @@ Accepted connections park on the process-wide grid poller
 in the open frame) pauses after `window` unacknowledged frames: a walk
 whose client stopped draining stalls in its worker slot instead of
 head-of-line-blocking lock traffic.
+
+A request frame that carries a trace context ("tc", an armed caller)
+runs its handler under a context seeded with the caller's trace id,
+armed for that call alone; the handler's spans ship back on the reply,
+the EOF or the error frame ("ts", at most MTPU_TRACE_REMOTE_MAX
+spans), with the frame's wait for a worker and the handler's service
+time. A frame without "tc" costs no tracing work at all.
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ import os
 import queue as queue_mod
 import socket
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
 from minio_tpu_torch.grid import chaos, loop, wire
+from minio_tpu_torch.utils import tracing
 
 # exception class -> wire code (extended by storage/remote.py, dsync).
 ERROR_CODES: dict[type, str] = {}
@@ -190,6 +199,10 @@ class GridServer:
         t = msg.get("t")
         if t in (wire.T_REQ, wire.T_SREQ) and chaos.drop_inbound():
             return
+        if t in (wire.T_REQ, wire.T_SREQ) and "tc" in msg:
+            # An armed caller: the frame's receipt, so that the reply
+            # reports its wait for a worker apart from the handler.
+            msg["_rx"] = time.monotonic()
         if t == wire.T_PING:
             state.send({"t": wire.T_PONG})
         elif t == wire.T_REQ:
@@ -226,14 +239,55 @@ class GridServer:
                 send({"t": wire.T_ERR, "m": mux, "e": "NoSuchHandler",
                       "msg": str(msg.get("h"))})
                 return
-            out = fn(msg.get("p"))
-            send({"t": wire.T_RESP, "m": mux, "p": out})
+            if "tc" not in msg:
+                out = fn(msg.get("p"))
+                send({"t": wire.T_RESP, "m": mux, "p": out})
+                return
+            tctx, t_start, q_ms = self._trace_open(msg)
+            err = None
+            try:
+                with tracing.bind(tctx, 0):
+                    out = fn(msg.get("p"))
+            except Exception as e:  # noqa: BLE001 - shipped as T_ERR
+                err = e
+            finally:
+                tracing.disarm(tctx)
+            ts = self._trace_ship(tctx, t_start, q_ms)
+            if err is None:
+                send({"t": wire.T_RESP, "m": mux, "p": out, "ts": ts})
+            else:
+                send({"t": wire.T_ERR, "m": mux, "e": _code_for(err),
+                      "msg": str(err)[:512], "ts": ts})
         except Exception as e:  # noqa: BLE001 - mapped onto the wire
             try:
                 send({"t": wire.T_ERR, "m": mux, "e": _code_for(e),
                       "msg": str(e)[:512]})
             except OSError:
                 pass
+
+    @staticmethod
+    def _trace_open(msg: dict):
+        """(ctx, start, queue ms) of an armed caller's call: a context
+        seeded with the caller's trace id, armed for this call only
+        (the context is its own arm token)."""
+        tc = msg.get("tc") or {}
+        rx = msg.get("_rx")
+        ctx = tracing.TraceContext(trace_id=str(tc.get("i", "")))
+        t_start = time.monotonic()
+        q_ms = (t_start - rx) * 1000.0 if rx is not None else 0.0
+        tracing.arm(ctx)
+        return ctx, t_start, q_ms
+
+    @staticmethod
+    def _trace_ship(ctx, t_start: float, q_ms: float) -> dict:
+        """The reply's "ts": the handler's spans (capped), its queue
+        wait and service, and this node's name."""
+        ts = tracing.export_spans(ctx)
+        ts["q"] = round(max(0.0, q_ms), 3)
+        ts["v"] = round((time.monotonic() - t_start) * 1000.0, 3)
+        if tracing.NODE:
+            ts["node"] = tracing.NODE
+        return ts
 
     # -- response streams ----------------------------------------------
 
@@ -247,30 +301,48 @@ class GridServer:
             with state.mu:
                 state.credits[mux] = credit
         stall = loop.STREAM_STALL_S
+        # An armed caller: the generator's spans record under the
+        # shipped context and go back on the EOF or error frame.
+        tctx = None
+        t_start = q_ms = 0.0
+        if "tc" in msg and fn is not None:
+            tctx, t_start, q_ms = self._trace_open(msg)
         try:
             if fn is None:
                 state.send({"t": wire.T_ERR, "m": mux,
                             "e": "NoSuchHandler", "msg": str(msg.get("h"))})
                 return
-            for item in fn(msg.get("p")):
-                if isinstance(item, wire.RawFile):
-                    self._send_raw_file(state, mux, item, credit, stall)
-                elif isinstance(item, wire.RawBytes):
-                    loop.send_raw_buf(state.sock, state.wlock, mux,
-                                      item.data, credit, stall)
-                else:
-                    if credit is not None and not credit.take(stall):
-                        raise wire.GridError(
-                            "stream credit stall (receiver not draining)")
-                    state.send({"t": wire.T_CHUNK, "m": mux, "p": item})
-            state.send({"t": wire.T_EOF, "m": mux})
+            with tracing.bind(tctx, 0):
+                for item in fn(msg.get("p")):
+                    if isinstance(item, wire.RawFile):
+                        self._send_raw_file(state, mux, item, credit,
+                                            stall)
+                    elif isinstance(item, wire.RawBytes):
+                        loop.send_raw_buf(state.sock, state.wlock, mux,
+                                          item.data, credit, stall)
+                    else:
+                        if credit is not None and not credit.take(stall):
+                            raise wire.GridError(
+                                "stream credit stall "
+                                "(receiver not draining)")
+                        state.send({"t": wire.T_CHUNK, "m": mux,
+                                    "p": item})
+            eof = {"t": wire.T_EOF, "m": mux}
+            if tctx is not None:
+                eof["ts"] = self._trace_ship(tctx, t_start, q_ms)
+            state.send(eof)
         except Exception as e:  # noqa: BLE001 - mapped onto the wire
             try:
-                state.send({"t": wire.T_ERR, "m": mux, "e": _code_for(e),
-                            "msg": str(e)[:512]})
+                errf = {"t": wire.T_ERR, "m": mux, "e": _code_for(e),
+                        "msg": str(e)[:512]}
+                if tctx is not None:
+                    errf["ts"] = self._trace_ship(tctx, t_start, q_ms)
+                state.send(errf)
             except OSError:
                 pass
         finally:
+            if tctx is not None:
+                tracing.disarm(tctx)
             if credit is not None:
                 with state.mu:
                     state.credits.pop(mux, None)

@@ -15,8 +15,20 @@ big-endian length and one MessagePack map (utils/mpack.py):
       T_PING / T_PONG                            keepalive
       T_WIN    {"n": credits}                    grant stream credits
 
-These are the frames the JAX grid's untraced callers emit, byte for
-byte; the port has no tracing plane, so it sends no "tc" and no "ts".
+Trace propagation (armed callers only; a disarmed caller's frames carry
+no trace bytes):
+
+      T_REQ/T_SREQ may carry  "tc": {"i": trace_id, "s": parent_span,
+                                     "a": 1, "n": caller_node}
+      T_RESP/T_ERR/T_EOF may carry back
+                              "ts": {"spans": [...], "dropped": n,
+                                     "q": queue_wait_ms,
+                                     "v": service_ms, "node": peer}
+
+The peer runs the handler under a trace context seeded from "tc" and
+ships its span subtree back ("ts", capped at MTPU_TRACE_REMOTE_MAX);
+the caller stitches it under a `wire` span (utils/tracing.stitch_wire).
+Every frame, armed or not, encodes to the JAX grid's bytes.
 
 A raw frame is the same length word with the high bit set, a 4-byte
 mux id, then ``(length & 0x7fffffff) - 4`` payload bytes:

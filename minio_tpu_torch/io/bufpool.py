@@ -258,3 +258,23 @@ def global_pool(device="cpu") -> BufferPool:
             if pool is None:
                 pool = _GLOBAL[pinned] = BufferPool(pinned=pinned)
     return pool
+
+
+def pools_stats() -> dict:
+    """The process's staging pools (those made so far) summed: the
+    metrics and admin-info view, which must not create a pool."""
+    with _GLOBAL_MU:
+        pools = list(_GLOBAL.values())
+    out = {"enabled": False, "pinned": False, "hits": 0, "misses": 0,
+           "oversized": 0, "outstanding": 0, "leaks": 0,
+           "double_releases": 0, "idle_bytes": 0}
+    for pool in pools:
+        st = pool.stats()
+        for k in out:
+            if isinstance(out[k], bool):
+                out[k] = out[k] or bool(st.get(k))
+            else:
+                out[k] += st.get(k, 0)
+    total = out["hits"] + out["misses"]
+    out["hit_rate"] = (out["hits"] / total) if total else 0.0
+    return out

@@ -44,19 +44,41 @@ else is. Its SIGTERM drain stops accepting, closes the parked
 connections, and lets the dispatched requests and the response tails
 the loop drains finish before the drives are stamped.
 
+The control plane (minio_tpu/io/workers.py): each worker has two
+socketpairs to the parent, made before the fork, carrying framed JSON
+(a 4-byte length, then the object). On the query pipe the parent asks a
+worker for its snapshot (`stat`: _worker_stat) or drains its trace
+relay (`trace_drain`, `trace_stop`), answered by a thread of the worker
+that never touches its event loop. On the hub pipe a worker asks the
+parent for the fleet: `cluster_stats` (every worker's snapshot, which
+any worker's metrics scrape and admin info merge) and the trace
+subscription verbs (`trace_sub`, `trace_poll`, `trace_unsub`). While a
+subscription lives, the parent's pump drains every worker's relay every
+_TRACE_POLL_S seconds into each subscriber's bounded buffer, so one
+worker's admin trace sees every sibling. Every exchange is tagged with
+a request id, and a reply that comes after its request timed out is
+discarded (`_drain_stale`), so one stall never desynchronises a pipe.
+
+The parent stays one thread (it forks): its supervise loop serves the
+hubs, runs the pump's ticks and reaps children in turn, each exchange
+bounded by a timeout.
+
 MTPU_HTTP_WORKERS: worker count (default = cores; 0/1 = one process,
-as the tests run it). The fleet's control pipes (cluster stats, trace
-relay) are not ported yet: they serve the port's metrics and tracing,
-which come later.
+as the tests run it).
 """
 
 from __future__ import annotations
 
+import collections
 import errno
 import fcntl
+import itertools
+import json
 import os
+import selectors
 import signal
 import socket
+import struct
 import sys
 import threading
 import time
@@ -72,6 +94,13 @@ _READY_TIMEOUT = 180.0          # worker 0's boot: self-tests on its card
 _DRAIN_TIMEOUT = 15.0
 _MAX_RESPAWNS = 10
 _NEVER = float("-inf")          # a poll time no clock reading falls near
+# The fleet trace pump: its drain period, and the entries a subscriber's
+# buffer holds between two polls (the oldest go first).
+_TRACE_POLL_S = 0.2
+_TRACE_BUF = 4000
+# A subscription not polled for this long (its handler died) expires, so
+# the fleet disarms instead of pumping forever.
+_TRACE_SUB_TTL = 30.0
 
 
 def worker_count_from_env(env=os.environ) -> int:
@@ -312,11 +341,169 @@ def _wire_set(s, shared_dir: str, list_gen: SharedGen,
     s.get_bucket_meta = get_bucket_meta
 
 
+# ---------------------------------------------------------------------------
+# the control plane (parent <-> workers)
+# ---------------------------------------------------------------------------
+
+def _send_msg(sock: socket.socket, obj) -> None:
+    blob = json.dumps(obj).encode()
+    sock.sendall(struct.pack(">I", len(blob)) + blob)
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        got = sock.recv(n - len(buf))
+        if not got:
+            raise ConnectionError("control peer closed")
+        buf += got
+    return buf
+
+
+def _recv_msg(sock: socket.socket, timeout: float = 5.0):
+    sock.settimeout(timeout)
+    (n,) = struct.unpack(">I", _recv_exact(sock, 4))
+    return json.loads(_recv_exact(sock, n))
+
+
+def _drain_stale(sock: socket.socket, grace: float = 0.25) -> None:
+    """After a timed-out exchange: give the peer a short grace to finish
+    writing its late (maybe partial) reply, then discard whatever came,
+    so that the next exchange starts on a frame boundary."""
+    deadline = time.monotonic() + grace
+    try:
+        while time.monotonic() < deadline:
+            sock.settimeout(max(0.01, deadline - time.monotonic()))
+            if not sock.recv(65536):
+                return
+    except (socket.timeout, OSError):
+        pass
+
+
+def _rpc(sock: socket.socket, rids, msg: dict, timeout: float) -> dict:
+    """One rid-tagged request and its reply; replies to earlier requests
+    that timed out are skipped, and a timeout drains the pipe."""
+    rid = next(rids)
+    msg = dict(msg, rid=rid)
+    _send_msg(sock, msg)
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise socket.timeout("control rpc timeout")
+            reply = _recv_msg(sock, timeout=left)
+            if reply.get("rid") == rid:
+                reply.pop("rid", None)
+                return reply
+    except socket.timeout:
+        _drain_stale(sock)
+        raise
+
+
+def _worker_stat(server, worker_id: int) -> dict:
+    """One worker's control-plane snapshot (minio_tpu/io/workers.py
+    `_worker_stat`): its metrics registry's state, admission, staging
+    pools, per-drive engine rows, fileinfo and hot caches, group-commit
+    lanes, event loop, grid breakers and drive heal. JSON-safe."""
+    from minio_tpu_torch.grid import client as grid_client
+    from minio_tpu_torch.io.bufpool import pools_stats
+    from minio_tpu_torch.storage import group_commit
+    engine, fileinfo = [], []
+    for si, s in enumerate(layer_sets(server.objects)):
+        io_eng = getattr(s, "io", None)
+        if io_eng is not None:
+            engine.extend({"set": si, "drive": di, **st}
+                          for di, st in enumerate(io_eng.stats()))
+        fileinfo.append(s.fi_cache.stats())
+    stat = {"worker": worker_id, "pid": os.getpid(),
+            "in_flight": server._inflight,
+            "metrics": server.metrics.state(),
+            "admission": server.admission.snapshot(),
+            "bufpool": pools_stats(),
+            "engine": engine,
+            "fileinfo_cache": fileinfo,
+            "hot_cache": server.hot_cache.stats(),
+            "group_commit": group_commit.aggregate_stats()}
+    loop_st = server.eventloop_stats()
+    if loop_st is not None:
+        stat["connections"] = loop_st
+    gp = grid_client.peer_stats()
+    if gp:
+        stat["grid"] = gp
+    dh = getattr(server, "drive_heal", None)
+    if dh is not None:
+        # The bulk heal runs on worker 0, but scrapes land on any worker.
+        stat["drive_heal"] = dh.status()
+    return stat
+
+
 class WorkerContext:
     """Everything a forked worker wires into its S3Server."""
 
-    def __init__(self, total: int):
+    def __init__(self, total: int, worker_id: int,
+                 query_sock: socket.socket, hub_sock: socket.socket):
         self.total = total
+        self.worker_id = worker_id
+        self._query = query_sock       # the parent asks this worker
+        self._hub = hub_sock           # this worker asks the parent
+        self._hub_mu = threading.Lock()
+        self._hub_rids = itertools.count(1)
+
+    def _hub_rpc(self, msg: dict, timeout: float = 5.0) -> dict:
+        with self._hub_mu:
+            return _rpc(self._hub, self._hub_rids, msg, timeout)
+
+    def cluster_stats(self) -> list[dict]:
+        """Every worker's snapshot, this one's included, through the
+        parent."""
+        return self._hub_rpc({"op": "cluster_stats"},
+                             timeout=10.0).get("stats", [])
+
+    def trace_sub(self, types) -> int:
+        # The parent arms every worker before it answers, so requests
+        # made right after subscribing are seen.
+        return self._hub_rpc({"op": "trace_sub", "types": list(types)},
+                             timeout=15.0)["sub"]
+
+    def trace_poll(self, sub_id: int) -> list[dict]:
+        return self._hub_rpc({"op": "trace_poll", "sub": sub_id}) \
+            .get("entries", [])
+
+    def trace_unsub(self, sub_id: int) -> None:
+        self._hub_rpc({"op": "trace_unsub", "sub": sub_id})
+
+    def _serve_queries(self, server) -> None:
+        """Answer the parent's queries, on a thread of its own: neither
+        a snapshot nor a relay drain runs on the event loop."""
+        while True:
+            try:
+                msg = _recv_msg(self._query, timeout=3600.0)
+            except socket.timeout:
+                continue
+            except (ConnectionError, OSError, ValueError):
+                return
+            op = msg.get("op")
+            try:
+                if op == "stat":
+                    reply = _worker_stat(server, self.worker_id)
+                elif op == "trace_drain":
+                    # Each drain re-arms, so a respawned worker relays
+                    # from the pump's next tick on.
+                    server.tracer.arm_remote(msg.get("types") or ["s3"])
+                    reply = {"entries": server.tracer.drain_remote()}
+                elif op == "trace_stop":
+                    server.tracer.disarm_remote()
+                    reply = {"ok": 1}
+                else:
+                    reply = {"error": f"unknown op {op!r}"}
+            except Exception as e:  # noqa: BLE001 - answered, not fatal
+                reply = {"error": f"{type(e).__name__}: {e}"}
+            reply["rid"] = msg.get("rid")
+            try:
+                _send_msg(self._query, reply)
+            except OSError:
+                return
 
     def attach(self, server, finish) -> None:
         """Wire the worker's server: divided admission, cross-process
@@ -325,6 +512,12 @@ class WorkerContext:
         accepting, drain, stop the background work, stamp the drives,
         print the launches), then exit."""
         server.admission = server.admission.divided(self.total)
+        # Any worker's scrape, admin info and admin trace see the fleet
+        # through the parent.
+        server.cluster_stats = self.cluster_stats
+        server.cluster_trace = self
+        threading.Thread(target=self._serve_queries, args=(server,),
+                         daemon=True, name="worker-control").start()
         shared = os.path.join(server.drives[0].root, ".mtpu.sys", "workers")
         list_path = os.path.join(shared, "list.gen")
         # Every set of every pool, each with observers of its own:
@@ -378,8 +571,18 @@ class WorkerPool:
         self._pids: tuple = ()
         self._stopping = False
         self._respawns = 0
+        # The control plane: pid -> {worker, pid, query, hub} (the
+        # parent's ends of the worker's two pipes), and the fleet trace
+        # subscriptions: sub id -> {types, t (last poll), buf}.
+        self._ctl: dict[int, dict] = {}
+        self._sel = selectors.DefaultSelector()
+        self._rids = itertools.count(1)
+        self._trace_subs: dict[int, dict] = {}
+        self._trace_seq = itertools.count(1)
+        self._next_pump = 0.0
 
-    def _run_child(self, worker_id: int, respawn: bool) -> None:
+    def _run_child(self, worker_id: int, respawn: bool, query_sock,
+                   hub_sock) -> None:
         os.environ["MTPU_HTTP_WORKERS"] = "1"
         os.environ["MTPU_WORKER_ID"] = str(worker_id)
         os.environ["MTPU_WORKER_TOTAL"] = str(self.n)
@@ -393,7 +596,8 @@ class WorkerPool:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         signal.signal(signal.SIGINT, signal.default_int_handler)
         try:
-            self.boot(self.address, WorkerContext(self.n))
+            self.boot(self.address, WorkerContext(self.n, worker_id,
+                                                  query_sock, hub_sock))
         except BaseException as e:  # noqa: BLE001 - child must not return
             print(f"worker {worker_id} boot failed: {e!r}", file=sys.stderr,
                   flush=True)
@@ -403,17 +607,151 @@ class WorkerPool:
     def _spawn(self, worker_id: int, respawn: bool = False) -> int:
         sys.stdout.flush()
         sys.stderr.flush()
+        query_parent, query_child = socket.socketpair()
+        hub_parent, hub_child = socket.socketpair()
         pid = os.fork()
         if pid == 0:
             self._reserve.close()
-            self._children, self._pids = {}, ()
+            # The child keeps only its own pipes' ends.
+            for sock in [query_parent, hub_parent] + [
+                    r[k] for r in self._ctl.values() for k in ("query",
+                                                               "hub")]:
+                sock.close()
+            self._children, self._pids, self._ctl = {}, (), {}
             try:
-                self._run_child(worker_id, respawn)
+                self._run_child(worker_id, respawn, query_child, hub_child)
             finally:
                 os._exit(1)
+        query_child.close()
+        hub_child.close()
         self._children[pid] = worker_id
         self._pids = tuple(self._children)
+        rec = {"worker": worker_id, "pid": pid, "query": query_parent,
+               "hub": hub_parent}
+        self._ctl[pid] = rec
+        self._sel.register(hub_parent, selectors.EVENT_READ, rec)
         return pid
+
+    def _forget(self, pid: int) -> None:
+        rec = self._ctl.pop(pid, None)
+        if rec is None:
+            return
+        try:
+            self._sel.unregister(rec["hub"])
+        except (KeyError, ValueError):
+            pass
+        rec["hub"].close()
+        rec["query"].close()
+
+    # -- the parent's side of the control plane ---------------------------
+
+    def _query(self, rec: dict, msg: dict, timeout: float) -> dict:
+        return _rpc(rec["query"], self._rids, msg, timeout)
+
+    def _serve_hub(self, rec: dict) -> None:
+        """One request from a worker's hub pipe, answered; a worker
+        whose pipe closed is forgotten."""
+        try:
+            msg = _recv_msg(rec["hub"], timeout=5.0)
+        except (ConnectionError, OSError, ValueError):
+            self._forget(rec["pid"])
+            return
+        op = msg.get("op")
+        if op == "cluster_stats":
+            reply = {"stats": self._collect_stats()}
+        elif op == "trace_sub":
+            reply = {"sub": self._trace_sub(msg.get("types") or ["s3"])}
+        elif op == "trace_poll":
+            reply = {"entries": self._trace_poll(msg.get("sub"))}
+        elif op == "trace_unsub":
+            self._trace_subs.pop(msg.get("sub"), None)
+            reply = {"ok": 1}
+        else:
+            reply = {"error": f"unknown op {op!r}"}
+        reply["rid"] = msg.get("rid")
+        try:
+            _send_msg(rec["hub"], reply)
+        except OSError:
+            self._forget(rec["pid"])
+
+    def _collect_stats(self) -> list[dict]:
+        out = []
+        for rec in sorted(self._ctl.values(), key=lambda r: r["worker"]):
+            try:
+                out.append(self._query(rec, {"op": "stat"}, timeout=3.0))
+            except (OSError, ConnectionError, ValueError):
+                out.append({"worker": rec["worker"], "pid": rec["pid"],
+                            "unreachable": True})
+        return out
+
+    def _trace_sub(self, types) -> int:
+        sid = next(self._trace_seq)
+        self._trace_subs[sid] = {
+            "types": set(types), "t": time.monotonic(),
+            "buf": collections.deque(maxlen=_TRACE_BUF)}
+        # Arm the fleet before answering: a request made right after the
+        # subscribe must not fall before the pump's first tick.
+        self._trace_drain_once()
+        return sid
+
+    def _trace_poll(self, sid) -> list[dict]:
+        sub = self._trace_subs.get(sid)
+        if sub is None:
+            return []
+        sub["t"] = time.monotonic()
+        out = list(sub["buf"])
+        sub["buf"].clear()
+        return out
+
+    def _trace_drain_once(self) -> None:
+        """One drain of every worker's relay, which also arms it with the
+        wanted types; the entries go to each subscriber that wants them
+        (a `broadcast` entry to every one)."""
+        union = set()
+        for sub in self._trace_subs.values():
+            union |= sub["types"]
+        if not union:
+            return
+        for rec in list(self._ctl.values()):
+            try:
+                reply = self._query(rec, {"op": "trace_drain",
+                                          "types": sorted(union)},
+                                    timeout=2.0)
+            except (OSError, ConnectionError, ValueError):
+                continue
+            for e in reply.get("entries", []):
+                et = e.get("trace_type", "s3")
+                for sub in self._trace_subs.values():
+                    if e.get("broadcast") or et in sub["types"]:
+                        sub["buf"].append(e)
+
+    def _trace_tick(self) -> None:
+        """The pump: expire subscriptions nobody polls, drain while any
+        lives, and stop every relay when the last one goes."""
+        now = time.monotonic()
+        if not self._trace_subs or now < self._next_pump:
+            return
+        self._next_pump = now + _TRACE_POLL_S
+        self._trace_subs = {sid: sub for sid, sub in
+                            self._trace_subs.items()
+                            if now - sub["t"] <= _TRACE_SUB_TTL}
+        if self._trace_subs:
+            self._trace_drain_once()
+            return
+        for rec in list(self._ctl.values()):
+            try:
+                self._query(rec, {"op": "trace_stop"}, timeout=2.0)
+            except (OSError, ConnectionError, ValueError):
+                continue
+
+    def _serve_control(self, wait: float) -> None:
+        """Up to `wait` seconds of the control plane: the hub requests
+        that came, then the pump's tick."""
+        if self._trace_subs:
+            wait = min(wait, max(0.0, self._next_pump - time.monotonic()))
+        for key, _ in self._sel.select(timeout=wait):
+            self._serve_hub(key.data)
+        self._trace_tick()
 
     def start(self) -> None:
         """Fork worker 0, wait until it accepts (its boot initializes
@@ -435,6 +773,7 @@ class WorkerPool:
             if done:
                 self._children.pop(pid0, None)
                 self._pids = tuple(self._children)
+                self._forget(pid0)
                 raise RuntimeError(
                     f"worker 0 died during boot (status {status})")
             try:
@@ -448,17 +787,22 @@ class WorkerPool:
             raise RuntimeError("worker 0 never started accepting")
 
     def supervise(self) -> int:
-        """Reap children; respawn unexpected deaths (bounded); return
-        once all children are gone after stop()."""
+        """Serve the control plane, reap children and respawn unexpected
+        deaths (bounded); return once all children are gone after
+        stop()."""
         while True:
             try:
-                pid, status = os.wait()
+                pid, status = os.waitpid(-1, os.WNOHANG)
             except ChildProcessError:
                 return 0
             except InterruptedError:
                 continue
+            if pid == 0:
+                self._serve_control(0.1)
+                continue
             wid = self._children.pop(pid, None)
             self._pids = tuple(self._children)
+            self._forget(pid)
             if wid is None:
                 continue
             if self._stopping:

@@ -74,6 +74,14 @@ caller pins a route to the host (MTPU_BATCH_FORCE=host, or force(False)),
 and such windows are counted as host windows. A device exception fails
 the request; nothing retries it on the host. The on-disk bytes are
 identical to the TPU package's for the same objects.
+
+While tracing is armed (utils/tracing.ACTIVE) a request's tree holds one
+`engine.op` storage span a drive call of each fan-out (with its wait for
+a pool worker), re-bound in the worker beside the deadline, with the
+health wrapper's `disk.<op>` under it; the batcher's `batcher.dispatch`
+kernel span for each batched launch, and a `device.*` kernel span for
+each launch made on the request's thread (`_kernel_span`). Readahead
+windows and streamed shard writers carry the request's trace scope.
 """
 
 from __future__ import annotations
@@ -132,6 +140,7 @@ from minio_tpu_torch.storage.remote import RemoteStorage
 from minio_tpu_torch.storage.meta_scan import (FLAG_DELETED, FLAG_INLINE,
                                                PREFIX_MARK,
                                                summary_sufficient)
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.highwayhash import MAGIC_KEY, highwayhash256_many
 from minio_tpu_torch.utils.streams import Payload
 
@@ -218,6 +227,15 @@ def _mesh_framer_for(k: int, m: int, device: str):
     (ops/hh_device.make_mesh_framer)."""
     return hh_device.make_mesh_framer(gf256.parity_matrix(k, m),
                                       device=device)
+
+
+def _kernel_span(name: str, tags: dict):
+    """A `kernel` span around a launch made on the request's own thread
+    (a ragged tail, a survivor verify outside the get batcher): the
+    batched launches have the batcher's `batcher.dispatch` span."""
+    if not tracing.ACTIVE:
+        return tracing.NOOP
+    return tracing.span("kernel", name, tags)
 
 
 def _batcher_for(k: int, m: int, device: str) -> StripeBatcher:
@@ -590,11 +608,33 @@ class ErasureSet:
         return {"routes": merge_route_stats([sb.stats() for sb in sbs]),
                 "lane": kernel_lane().stats(), "windows": windows}
 
+    def _submit(self, i: int, fn, pool=None):
+        """fn() on the fan-out pool (or `pool`) for drive i. While
+        tracing is armed the caller's trace scope is re-bound in the
+        worker, and the call is one `engine.op` storage span of the
+        drive with its wait for a worker (queue_wait_ms): the drive
+        layer's span, over the health wrapper's `disk.<op>`."""
+        pool = self.pool if pool is None else pool
+        if not tracing.ACTIVE:
+            return pool.submit(fn)
+        tctx, tparent = tracing.capture()
+        if tctx is None:
+            return pool.submit(fn)
+        t_sub = time.perf_counter()
+
+        def run():
+            with tracing.bind(tctx, tparent), tracing.span(
+                    "storage", "engine.op",
+                    {"drive": i, "queue_wait_ms": round(
+                        (time.perf_counter() - t_sub) * 1000.0, 3)}):
+                return fn()
+        return pool.submit(run)
+
     def _fanout(self, fns) -> tuple[list, list]:
         """Run one callable per drive in parallel (None = skip). Returns
         aligned (results, errors)."""
-        futs = [self.pool.submit(fn) if fn is not None else None
-                for fn in fns]
+        futs = [self._submit(i, fn) if fn is not None else None
+                for i, fn in enumerate(fns)]
         results: list = [None] * len(fns)
         errors: list = [None] * len(fns)
         for i, f in enumerate(futs):
@@ -743,7 +783,8 @@ class ErasureSet:
         """Whether any drive holds the bucket: the first drive that
         answers yes decides, so a drive that hangs holds the check up
         only when no other drive has the bucket."""
-        futs = [self.pool.submit(d.stat_vol, bucket) for d in self.disks]
+        futs = [self._submit(i, functools.partial(d.stat_vol, bucket))
+                for i, d in enumerate(self.disks)]
         return any(f.exception() is None for f in as_completed(futs))
 
     def _check_bucket(self, bucket: str) -> None:
@@ -797,14 +838,16 @@ class ErasureSet:
                 self._count("put", sb.last_route())
             if buf.size > full * BLOCK_SIZE:
                 data = e.split(buf[full * BLOCK_SIZE:])           # [k, per]
-                shards = rs_device.host_tensor(data).to(self.device)
-                if m:
-                    parity = rs_device.gf_apply(gf256.parity_matrix(k, m),
-                                                shards[None])[0]
-                    shards = torch.cat([shards, parity])
-                digs = hh_device.hash_blocks_device(MAGIC_KEY, shards)
-                held, (parity, digs) = rs_device.to_host_lease(
-                    pool, shards[k:], digs)
+                with _kernel_span("device.put_tail",
+                                  {"bytes": int(data.size), "k": k, "m": m}):
+                    shards = rs_device.host_tensor(data).to(self.device)
+                    if m:
+                        parity = rs_device.gf_apply(
+                            gf256.parity_matrix(k, m), shards[None])[0]
+                        shards = torch.cat([shards, parity])
+                    digs = hh_device.hash_blocks_device(MAGIC_KEY, shards)
+                    held, (parity, digs) = rs_device.to_host_lease(
+                        pool, shards[k:], digs)
                 leases += held
                 blocks = list(data) + list(parity)
                 for i in range(n):
@@ -958,38 +1001,45 @@ class ErasureSet:
         (_settle_prevs settles what a power cut left between the
         halves)."""
         n = len(self.disks)
-        gc = self.group_commit if group_op is not None else None
-        used_group = False
         with self.ns.write(bucket, object_):
-            if gc is not None and gc.worth_batching():
-                used_group = True
-                cerrs = gc.commit_fanout([
-                    group_op(i) if errors[i] is None else None
-                    for i in range(n)])
-            else:
-                if gc is not None:
-                    gc.note_solo()
-                _, cerrs = self._fanout([
-                    (lambda i=i: commit_one(i)) if errors[i] is None
-                    else None for i in range(n)])
-            for i, err in enumerate(cerrs):
-                errors[i] = errors[i] or err
-            ok = sum(err is None for err in errors)
-            if used_group and ok < write_quorum:
-                self._fanout([
-                    (lambda d=d: d.delete_version(bucket, object_,
-                                                  version_id))
-                    if err is None else None
-                    for d, err in zip(self.disks, errors)])
-            elif not used_group:
-                self._settle_kept(bucket, object_, errors,
-                                  ok >= write_quorum)
+            ok, used_group = self._commit_locked(
+                bucket, object_, errors, write_quorum, commit_one, group_op)
         if ok < write_quorum:
             self.metacache.bump(bucket)
             raise WriteQuorumError(bucket, object_,
                                    f"wrote {ok}/{n}, need {write_quorum}")
         if not used_group:
             self.metacache.bump(bucket)
+
+    def _commit_locked(self, bucket: str, object_: str, errors: list,
+                       write_quorum: int, commit_one, group_op=None
+                       ) -> tuple[int, bool]:
+        """_commit's fan-out and settle, under the key's write lock held
+        by the caller; returns (drives committed, whether the lanes
+        ran it). Every journal-replacing commit of the set settles here:
+        PUTs, multipart completions and restore_version."""
+        n = len(self.disks)
+        gc = self.group_commit if group_op is not None else None
+        used_group = False
+        if gc is not None and gc.worth_batching():
+            used_group = True
+            cerrs = gc.commit_fanout([
+                group_op(i) if errors[i] is None else None
+                for i in range(n)], write_quorum)
+        else:
+            if gc is not None:
+                gc.note_solo()
+            _, cerrs = self._fanout([
+                (lambda i=i: commit_one(i)) if errors[i] is None
+                else None for i in range(n)])
+        for i, err in enumerate(cerrs):
+            errors[i] = errors[i] or err
+        ok = sum(err is None for err in errors)
+        if not used_group:
+            # The lanes settle their batches in commit_fanout.
+            self._settle_kept(bucket, object_, errors,
+                              ok >= write_quorum)
+        return ok, used_group
 
     def _settle_kept(self, bucket: str, object_: str, errors: list,
                      stands: bool) -> None:
@@ -1034,6 +1084,10 @@ class ErasureSet:
         dead = [False] * n
         sentinel_seen = [False] * n
         md5 = hashlib.md5()
+        # The writers' threads carry the request's trace scope: each
+        # drive's stream is one `engine.op` span (with `disk.create_file`
+        # under it where the drive is health-wrapped).
+        tctx, tparent = tracing.capture() if tracing.ACTIVE else (None, 0)
 
         def got_sentinel(i: int, c) -> bool:
             # Sticky: put back on receipt, so every later get() of this
@@ -1065,7 +1119,13 @@ class ErasureSet:
                         yield dig
                         yield blk
             try:
-                self.disks[i].create_file(SYS_VOL, part, pieces())
+                if tctx is None:
+                    self.disks[i].create_file(SYS_VOL, part, pieces())
+                else:
+                    with tracing.bind(tctx, tparent), tracing.span(
+                            "storage", "engine.op",
+                            {"drive": i, "queue_wait_ms": 0.0}):
+                        self.disks[i].create_file(SYS_VOL, part, pieces())
             except Exception as exc:  # noqa: BLE001 - collected for quorum
                 errors[i] = exc
                 dead[i] = True
@@ -1150,9 +1210,9 @@ class ErasureSet:
             payload.readinto(buf)        # the last read runs finish()
             rows, more = self._frame_window(e, buf)
             held += more
-            futs = [self.pool.submit(
+            futs = [self._submit(i, functools.partial(
                 self.disks[i].create_file, SYS_VOL, part,
-                [p for pair in rows[distribution[i] - 1] for p in pair])
+                [p for pair in rows[distribution[i] - 1] for p in pair]))
                 for i in range(n)]
             etag = hashlib.md5(buf).hexdigest()
             for i, f in enumerate(futs):
@@ -1183,11 +1243,15 @@ class ErasureSet:
                                        read_data=read_data)
             for d in self.disks])
 
-    @staticmethod
-    def _pick_quorum(fis: list, quorum: int) -> Optional[FileInfo]:
-        """The latest version agreed by >= quorum drives, or None
-        (reference findFileInfoInQuorum, keyed on mod time and data
-        layout)."""
+    @classmethod
+    def _pick_quorum(cls, fis: list, n: int) -> Optional[FileInfo]:
+        """The latest version agreed by its read quorum of the n drives
+        (_read_quorum of that version), or None (reference
+        findFileInfoInQuorum, keyed on mod time and data layout). Each
+        version is held to its own quorum: where a cut left a delete
+        marker on some drives and a version with data on the others, the
+        data version needs k drives to be read, whichever drive answered
+        first."""
         groups: dict[tuple, list[int]] = {}
         for i, fi in enumerate(fis):
             if fi is not None:
@@ -1195,7 +1259,8 @@ class ErasureSet:
                                    fi.data_dir, fi.deleted, fi.size),
                                   []).append(i)
         best = max((key for key, idx in groups.items()
-                    if len(idx) >= quorum), default=None)
+                    if len(idx) >= cls._read_quorum(fis[idx[0]], n)),
+                   default=None)
         return None if best is None else fis[groups[best][0]]
 
     def _settle_prevs_locked(self, bucket: str, object_: str) -> bool:
@@ -1238,7 +1303,7 @@ class ErasureSet:
         absent = sum(isinstance(e, FileNotFoundErr) for e in errors) > n // 2
         pick = None
         if not absent and any(f is not None for f in fis):
-            pick = self._pick_quorum(fis, self._read_quorum(fis, n))
+            pick = self._pick_quorum(fis, n)
         stands = None if absent else ident(pick) if pick is not None \
             else False
         self._fanout([
@@ -1249,11 +1314,10 @@ class ErasureSet:
         return True
 
     @staticmethod
-    def _read_quorum(fis: list, n: int) -> int:
-        """Read quorum of the version the drives report: k, at least half
-        the set; a majority for a version with no erasure layout."""
-        any_fi = next((f for f in fis if f is not None), None)
-        k = any_fi.erasure.data_blocks if any_fi is not None else 0
+    def _read_quorum(fi: Optional[FileInfo], n: int) -> int:
+        """Read quorum of a version: k, at least half the set; a majority
+        for a version with no erasure layout (a delete marker)."""
+        k = fi.erasure.data_blocks if fi is not None else 0
         return max(k, n // 2) if k else n // 2 + 1
 
     def _quorum_fileinfo(self, bucket: str, object_: str, read_data: bool,
@@ -1291,9 +1355,10 @@ class ErasureSet:
             raise VersionNotFound(bucket, object_)
         if all(f is None for f in fis):
             raise ReadQuorumError(bucket, object_, "no readable metadata")
-        quorum = self._read_quorum(fis, n)
-        fi = self._pick_quorum(fis, quorum)
+        fi = self._pick_quorum(fis, n)
         if fi is None:
+            quorum = self._read_quorum(
+                next(f for f in fis if f is not None), n)
             raise ReadQuorumError(bucket, object_,
                                   f"no version agreed by {quorum} drives")
         if all(e is None for e in errors):
@@ -1406,9 +1471,14 @@ class ErasureSet:
             raise
         end = offset + length
         descs = self._window_descs(fi, offset, end)
+        # A window read ahead runs on the readahead pool under the
+        # request's trace scope.
+        tctx, tparent = tracing.capture() if tracing.ACTIVE else (None, 0)
 
         def read(desc):
-            return self._read_window(bucket, object_, fi, fis, *desc[:4])
+            with tracing.bind(tctx, tparent):
+                return self._read_window(bucket, object_, fi, fis,
+                                         *desc[:4])
 
         def chunk(desc, win):
             lo = desc[4] + desc[2] * BLOCK_SIZE
@@ -1640,14 +1710,18 @@ class ErasureSet:
                 verdict, _ = sb.frame(fa)
                 self._count("get", sb.last_route())
             else:
-                digs = hh_device.framed_digests_device(
-                    [fa.reshape(full * count, frame)], device=self.device)
+                with _kernel_span("device.verify",
+                                  {"blocks": full, "shards": count}):
+                    digs = hh_device.framed_digests_device(
+                        [fa.reshape(full * count, frame)],
+                        device=self.device)
                 verdict = (digs.reshape(full, count, DIGEST)
                            == fa[:, :, :DIGEST]).all(axis=2)
             ok &= verdict.all(axis=0)
         if ta.shape[1]:
-            digs = hh_device.hash_blocks_device(MAGIC_KEY, ta[:, DIGEST:],
-                                                device=self.device)
+            with _kernel_span("device.verify_tail", {"shards": count}):
+                digs = hh_device.hash_blocks_device(
+                    MAGIC_KEY, ta[:, DIGEST:], device=self.device)
             ok &= (digs == ta[:, :DIGEST]).all(axis=1)
         return ok.tolist()
 
@@ -1709,8 +1783,10 @@ class ErasureSet:
             for r, i in enumerate(missing):
                 fulls[i] = out[:, r]
         if tail:
-            tout = self.backend.apply_matrix(
-                rows, np.stack([tails[i] for i in use]))
+            with _kernel_span("device.decode_tail",
+                              {"k": k, "rows": len(missing)}):
+                tout = self.backend.apply_matrix(
+                    rows, np.stack([tails[i] for i in use]))
             for r, i in enumerate(missing):
                 tails[i] = tout[r]
         return leases
@@ -1781,7 +1857,7 @@ class ErasureSet:
                     used_group = True
                     errors = gc.commit_fanout(
                         [GroupOp.write_meta(bucket, object_, fi)
-                         for _ in self.disks])
+                         for _ in self.disks], len(self.disks) // 2 + 1)
                 else:
                     if gc is not None:
                         gc.note_solo()
@@ -2090,11 +2166,12 @@ class ErasureSet:
             with self.ns.write(bucket, object_):
                 if newer_null_exists():
                     return
-                _, errors = self._fanout(
-                    [lambda d=d: d.write_metadata(bucket, object_, fi)
-                     for d in self.disks])
+                ok, _ = self._commit_locked(
+                    bucket, object_, [None] * n, n // 2 + 1,
+                    lambda i: self.disks[i].write_metadata(
+                        bucket, object_, fi, keep_prev=True))
             self.metacache.bump(bucket)
-            if sum(e is None for e in errors) < n // 2 + 1:
+            if ok < n // 2 + 1:
                 raise WriteQuorumError(bucket, object_)
             return
         m = self.default_parity
@@ -2132,18 +2209,11 @@ class ErasureSet:
             with self.ns.write(bucket, object_):
                 if newer_null_exists():
                     return
-                _, cerrs = self._fanout([
-                    (lambda i=i: self.disks[i].rename_data(
-                        SYS_VOL, staging, staged_fi(i), bucket, object_))
-                    if errors[i] is None else None for i in range(n)])
-                for i, err in enumerate(cerrs):
-                    errors[i] = errors[i] or err
-                ok = sum(err is None for err in errors)
-                if ok < write_quorum:
-                    self._fanout([lambda d=d: d.delete_version(
-                        bucket, object_, src_fi.version_id)
-                        if err is None else None
-                        for d, err in zip(self.disks, errors)])
+                ok, _ = self._commit_locked(
+                    bucket, object_, errors, write_quorum,
+                    lambda i: self.disks[i].rename_data(
+                        SYS_VOL, staging, staged_fi(i), bucket, object_,
+                        keep_prev=True))
             self.metacache.bump(bucket)
         finally:
             self._fanout([functools.partial(_quiet, functools.partial(

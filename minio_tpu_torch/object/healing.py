@@ -55,6 +55,7 @@ from minio_tpu_torch.storage.local import SYS_VOL
 from minio_tpu_torch.storage.meta import (FileInfo, FileNotFoundErr,
                                           ObjectPartInfo, VersionNotFoundErr,
                                           new_uuid)
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.highwayhash import MAGIC_KEY
 
 DRIVE_STATE_OK = "ok"
@@ -87,8 +88,13 @@ def heal_object(es, bucket: str, object_: str, version_id: str = "",
 
     Normal mode (deep=False) classifies shard files by stat, existence
     and exact framed size, and reads only when a rebuild is needed; deep
-    mode reads and verifies every block of every surviving shard."""
-    with es.ns.write(bucket, object_):
+    mode reads and verifies every block of every surviving shard. One
+    `heal.object` span (utils/tracing.op_span: the request's tree, or a
+    trace of its own for the MRF's and the scanner's heals)."""
+    with tracing.op_span("heal", "heal.object",
+                         {"bucket": bucket, "object": object_,
+                          "deep": int(deep)}), \
+            es.ns.write(bucket, object_):
         return _heal_object_locked(es, bucket, object_, version_id, deep)
 
 
@@ -124,7 +130,7 @@ def _heal_present(es, bucket: str, object_: str, fis: list, errors: list,
     n = len(es.disks)
     if all(f is None for f in fis):
         raise ObjectNotFound(bucket, object_)
-    fi = es._pick_quorum(fis, es._read_quorum(fis, n))
+    fi = es._pick_quorum(fis, n)
     if fi is None:
         raise ReadQuorumError(bucket, object_)
     if fi.deleted:

@@ -292,7 +292,7 @@ def complete_multipart_upload(es, bucket: str, object_: str, upload_id: str,
             erasure=ErasureInfo(data_blocks=k, parity_blocks=m,
                                 block_size=BLOCK_SIZE,
                                 index=dist[i], distribution=tuple(dist))),
-            bucket, object_)
+            bucket, object_, keep_prev=True)
 
     errors: list = [None] * n
     try:

@@ -34,6 +34,8 @@ import time
 from itertools import groupby
 from typing import Callable, Optional, Sequence
 
+from minio_tpu_torch.utils import tracing
+
 SYS_VOL = ".mtpu.sys"
 USAGE_PATH = "scanner/usage.json"
 DEEP_EVERY = 1024     # reference healObjectSelectProb (data-scanner.go:59)
@@ -331,7 +333,13 @@ class Scanner:
 
     def scan_cycle(self) -> DataUsage:
         """One full pass over every set: format checks, walk, heals,
-        usage roll-up, persisted."""
+        usage roll-up, persisted; one `scanner.cycle` span (a trace of
+        its own, published as it ends)."""
+        with tracing.op_span("scanner", "scanner.cycle",
+                             {"sets": len(self.sets)}):
+            return self._scan_cycle_inner()
+
+    def _scan_cycle_inner(self) -> DataUsage:
         check_drive_formats(self.sets)
         usage = DataUsage()
         state = {"deep_every": self.deep_every, "stop": self._stop,

@@ -67,9 +67,11 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from minio_tpu_torch import device as device_mod
 from minio_tpu_torch.io.bufpool import LeasedRows, leases_of
 from minio_tpu_torch.io.engine import EngineSaturated, kernel_lane
 from minio_tpu_torch.utils import deadline as deadline_mod
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.deadline import DeadlineExceeded
 from minio_tpu_torch.utils.latency import Histogram
 
@@ -134,7 +136,7 @@ def _default_concat(rows, chunk):
 
 class _Pending:
     __slots__ = ("stacked", "count", "rows", "exc", "event", "expires_at",
-                 "t_enq", "route_taken")
+                 "tctx", "tparent", "t_enq", "route_taken")
 
     def __init__(self, stacked: np.ndarray,
                  dl: Optional[deadline_mod.Deadline]):
@@ -144,6 +146,8 @@ class _Pending:
         self.exc: Optional[BaseException] = None
         self.event = threading.Event()
         self.expires_at = dl.expires_at if dl is not None else None
+        self.tctx, self.tparent = tracing.capture() if tracing.ACTIVE \
+            else (None, 0)
         self.t_enq = time.perf_counter()
         self.route_taken = "host"      # resolved by _run_batch
 
@@ -208,12 +212,18 @@ def merge_route_stats(stats: list[dict]) -> dict:
 
 def aggregate_stats() -> dict:
     """Occupancy stats across every live batcher in the process, per
-    route, with each route's MTPU_BATCH_FORCE verdict."""
+    route, with each route's MTPU_BATCH_FORCE verdict: what the metrics
+    render reads (s3/metrics.py, the minio_tpu_batcher_* series)."""
     sbs = list(_REGISTRY)
+    routes = merge_route_stats([sb.stats() for sb in sbs])
     return {
-        "routes": merge_route_stats([sb.stats() for sb in sbs]),
+        "routes": routes,
         "mesh_devices": max([sb.mesh_devices for sb in sbs], default=0),
         "forced": {r: batch_force_mode(r) for r in ROUTES},
+        # The decode routes' share of the kernel lane (the metrics'
+        # minio_tpu_kernel_lane_decode_service_seconds).
+        "decode_lane_hist": Histogram.merge(
+            [routes[r]["lane_service_hist"] for r in ("get", "reconstruct")]),
     }
 
 
@@ -576,24 +586,35 @@ class StripeBatcher:
             stacked[off:] = 0
         return lease, stacked
 
-    def _lane_dispatch(self, stacked: np.ndarray):
+    def _lane_dispatch(self, stacked: np.ndarray, timed: bool = False):
         """Run the device function through the process-wide kernel lane
         (serialised device access), keeping the dispatch's round trip,
         queue wait and service; a direct call (no wait) if the lane is
-        saturated or closed."""
+        saturated or closed. Returns (result, lane ms, service s): with
+        `timed` (tracing armed and a member traced) the call runs
+        between a pair of CUDA events on the lane's stream
+        (device.lane_timed); the ms is None untimed and on the CPU."""
+        def call():
+            if not timed:
+                return self._device_fn(stacked), None
+            return device_mod.lane_timed(
+                getattr(self._device_fn, "device", None), self._device_fn,
+                stacked)
         t0 = time.perf_counter()
         try:
-            fut = kernel_lane().submit(lambda: self._device_fn(stacked))
+            fut = kernel_lane().submit(call)
         except EngineSaturated:
             fut = None
+        service = None
         try:
-            return self._device_fn(stacked) if fut is None else fut.result()
+            out, lane_ms = call() if fut is None else fut.result()
         finally:
             rt = time.perf_counter() - t0
+            service = rt if fut is None else fut.service_s
             self._lane_rt_hist.observe(rt)
             self._lane_wait_hist.observe(0.0 if fut is None else fut.wait_s)
-            self._lane_service_hist.observe(rt if fut is None
-                                            else fut.service_s)
+            self._lane_service_hist.observe(service)
+        return out, lane_ms, service
 
     def _run_batch(self, batch: list[_Pending]) -> None:
         # Cull members whose budget is already spent: they fail ALONE
@@ -619,13 +640,17 @@ class StripeBatcher:
         total = sum(counts)
         bucket = _bucket(max(total, self.mesh_devices))
         route = "host"
+        lane_ms = service_s = None
+        traced = tracing.ACTIVE and any(p.tctx is not None for p in live)
+        t_wall = time.time()
         t0 = time.perf_counter()
         try:
             if total >= self._min_device_blocks and self._device_ok:
                 route = "device"
                 lease, stacked = self._stage(live, bucket)
                 try:
-                    rows_all = self._lane_dispatch(stacked)
+                    rows_all, lane_ms, service_s = self._lane_dispatch(
+                        stacked, traced)
                 finally:
                     # The device function returns host arrays: its copy
                     # back synchronises the lane's stream, so every copy
@@ -686,12 +711,28 @@ class StripeBatcher:
             for p in live:
                 p.exc = e
         finally:
-            # The JAX batcher also fans one `kernel` span into each
-            # member's trace here (tracing.record_into); the port has no
-            # tracing plane yet.
+            dur_ms = (time.perf_counter() - t0) * 1000.0
             for p in live:
                 p.route_taken = route
-                self._wait_hist.observe(max(0.0, t0 - p.t_enq))
+                wait_s = max(0.0, t0 - p.t_enq)
+                self._wait_hist.observe(wait_s)
+                if p.tctx is not None:
+                    # ONE kernel span fanned into each member's tree;
+                    # a device dispatch adds its lane service (host
+                    # clock) and, on the card, its time on the lane's
+                    # stream (device.lane_timed).
+                    tags = {"blocks": p.count, "batch_blocks": total,
+                            "bucket": bucket, "members": len(live),
+                            "route": route, "op": self.route,
+                            "mesh_devices": self.mesh_devices,
+                            "wait_ms": round(wait_s * 1000.0, 3)}
+                    if service_s is not None:
+                        tags["service_ms"] = round(service_s * 1000.0, 3)
+                    if lane_ms is not None:
+                        tags["lane_ms"] = round(lane_ms, 3)
+                    tracing.record_into(
+                        p.tctx, p.tparent, "kernel", "batcher.dispatch",
+                        t_wall, dur_ms, tags=tags)
                 p.event.set()
 
     def close(self, timeout: float | None = 60.0) -> None:

@@ -523,6 +523,7 @@ def make_mesh_framer(matrix: np.ndarray, device=None):
         with device_mod.lane_stream(dev):
             return frame(data)
 
+    run.device = dev
     run.mesh_devices = len(mesh_batch_devices(dev))
     return run
 
@@ -539,5 +540,6 @@ def make_mesh_deframer(k: int, device=None):
         with device_mod.lane_stream(dev):
             return verify(framed)
 
+    run.device = dev
     run.mesh_devices = len(mesh_batch_devices(dev))
     return run

@@ -274,6 +274,7 @@ def make_mesh_matrix(matrix, device=None):
             data = host_tensor(stacked).to(dev, non_blocking=True)
             return to_host(gf_apply(m, data))
 
+    run.device = dev
     run.mesh_devices = len(mesh_batch_devices(dev))
     return run
 

@@ -56,6 +56,18 @@ entry (set, drives online, write quorum, healing drives) for each set
 where fewer drives answer than its write quorum or a replaced drive is
 still being refilled.
 
+Observability, as minio_tpu/s3/server.py serves it: every request is
+recorded once (s3/metrics.Metrics, utils/slo.SLOEngine, and while
+somebody watches a trace entry whose span tree the request built),
+whichever path answered it (pooled windows, the hot short circuit on the
+loop, a tail the loop drains). `GET /minio/v2/metrics/cluster` is the
+unsigned Prometheus scrape (a fleet merges every worker's registry, a
+distributed node every node's unless `?cluster=false`); the admin
+`trace` streams the records (`?types=`, `?count=`, `?cluster=true`),
+`speedtest` times PUTs and GETs through the object layer, and
+`start-profiling` / `download-profiling` capture a CPU profile of every
+node (s3/profiling.py).
+
 The bucket namespace, as minio_tpu/s3/server.py serves it: `GET /` lists
 the buckets; `GET /<bucket>` is ListObjects V1, or V2 with
 `?list-type=2` (continuation tokens); `GET ?versions` is
@@ -109,10 +121,15 @@ from minio_tpu_torch.object.rebalance import RebalanceError
 from minio_tpu_torch.s3 import checksum as ck
 from minio_tpu_torch.s3 import eventloop as eventloop_mod
 from minio_tpu_torch.s3 import hotloop, sigv4
+from minio_tpu_torch.s3 import metrics as metrics_mod
+from minio_tpu_torch.s3 import profiling as prof_mod
 from minio_tpu_torch.s3.admission import (AdmissionController, AdmissionShed,
                                           class_for, path_class)
+from minio_tpu_torch.s3.trace import TraceBroadcaster, make_entry
 from minio_tpu_torch.storage.health import DiskHealthWrapper
 from minio_tpu_torch.utils import deadline as deadline_mod
+from minio_tpu_torch.utils import tracing
+from minio_tpu_torch.utils.slo import SLOEngine
 from minio_tpu_torch.utils.streams import (ChunkReader, HashingReader,
                                            HttpChunkedReader, LimitedReader,
                                            Payload)
@@ -318,6 +335,7 @@ def _hot_probe(handler, head):
     gate declines here too. The port has only root credentials, so a
     request whose signature verifies needs no policy walk; one that does
     not declines, and the handler answers its error."""
+    t0 = time.perf_counter()
     srv = handler.s3
     hc = srv.hot_cache
     if not hc.enabled:
@@ -339,7 +357,8 @@ def _hot_probe(handler, head):
     if entry is None or entry.head_prefix is None:
         return None
     try:
-        sigv4.verify_request("GET", target, {}, d, srv.credentials.get)
+        auth = sigv4.verify_request("GET", target, {}, d,
+                                    srv.credentials.get)
     except Exception:  # noqa: BLE001 - any auth failure: the handler
         return None
     suffix = entry.head_suffix
@@ -357,7 +376,35 @@ def _hot_probe(handler, head):
         close = False
     else:
         close = conntype != "keep-alive"
+    # The loop path never enters _dispatch: its accounting (metrics,
+    # path split, keep-alive reuse, SLO, trace and audit) is here.
+    handler._count_request()
+    handler._account("GET", target, bucket, key, "GET:object", 200,
+                     time.perf_counter() - t0, 0, len(entry.body),
+                     auth.credential.access_key, None, "hotcache")
     return bufs, close
+
+
+def _trace_relay(name, client, types, out_q, stop) -> None:
+    """A `?cluster=true` trace's relay of one peer node: its grid
+    `trace.stream`, batches funneled into the merge queue; ends with the
+    stream (the response goes on with the other nodes). A full queue
+    drops entries: a diagnostics tail."""
+    import queue as queue_mod
+    try:
+        for batch in client.stream("trace.stream", {"types": types},
+                                   timeout=10.0):
+            if stop.is_set():
+                break
+            for entry in batch or []:
+                if isinstance(entry, dict):
+                    entry.setdefault("node", name)
+                try:
+                    out_q.put_nowait(entry)
+                except queue_mod.Full:
+                    pass
+    except Exception:  # noqa: BLE001 - the peer is gone, the stream cut
+        pass
 
 
 class S3Server:
@@ -417,6 +464,30 @@ class S3Server:
         self.node_id = ""
         self.coherence = None
         self.coherence_gate = None
+        # Observability (s3/metrics.py, s3/trace.py, utils/slo.py,
+        # s3/profiling.py): the registry every request records into;
+        # the live trace broadcaster, which background spans publish to
+        # as well; the audit webhook (the boot sets it); the SLO engine
+        # (MTPU_SLO); the profiler. A fleet worker's control plane sets
+        # cluster_stats and cluster_trace (io/workers.py); a distributed
+        # node lists its peers' grid clients in profile_peers
+        # [(node, client)] for the cluster metrics, trace and profiles.
+        self.metrics = metrics_mod.Metrics()
+        self.tracer = TraceBroadcaster()
+        tracing.set_publisher(self.tracer.publish)
+        self.audit = None
+        self.slo = SLOEngine.from_env()
+        if self.slo is not None:
+            self.slo.start(metrics=self.metrics)
+        self.profiler = prof_mod.Profiler()
+        self.cluster_stats = None
+        self.cluster_trace = None
+        self.profile_peers: list = []
+        self.worker_id = int(os.environ.get("MTPU_WORKER_ID", "0") or 0)
+
+    @property
+    def object_layer(self):
+        return self.objects
 
     @property
     def address(self) -> str:
@@ -463,6 +534,10 @@ class S3Server:
         manager, wait for a heal sweep in flight, close the set and the
         health wrappers' pools."""
         self.httpd.server_close()
+        if self.slo is not None:
+            self.slo.stop()
+        if self.audit is not None:
+            self.audit.stop()
         if self.coherence is not None:
             self.coherence.stop()
         for bg in (self.scanner, self.drive_heal):
@@ -476,11 +551,15 @@ class S3Server:
                 d.close()
 
     def info(self) -> dict:
-        """`GET /minio/admin/v3/info`: the answering process's node,
-        worker and pid, its cross-node coherence (worker 0: the
-        protocol's stats; a sibling: its gate's verdict), its read
-        caches' counters summed over the sets, and its event loop's
-        (`front_end`, None on the thread path)."""
+        """`GET /minio/admin/v3/info`: the node's summary
+        (s3/metrics.node_info: drives, usage, heals, admission, the
+        last-minute latency a API, the slow-op records, the SLOs, the
+        connection plane as `http` (Metrics.http_conn_stats) and
+        `connections` (the event loop's), both fleet-merged in worker
+        mode, group commit, the workers), and the answering process's
+        node, worker and pid, its cross-node coherence (worker 0: the
+        protocol's stats; a sibling: its gate's verdict) and its read
+        caches' counters summed over the sets."""
         sets = layer_sets(self.objects)
 
         def summed(stats: list) -> dict:
@@ -497,13 +576,13 @@ class S3Server:
             coherence = {"gate": bool(self.coherence_gate())}
         else:
             coherence = None
-        return {"node": self.node_id,
-                "worker": os.environ.get("MTPU_WORKER_ID", ""),
-                "pid": os.getpid(), "coherence": coherence,
-                "fi_cache": summed([s.fi_cache.stats() for s in sets]),
-                "metacache": summed([s.metacache.stats() for s in sets]),
-                "hot_cache": self.hot_cache.stats(),
-                "front_end": self.eventloop_stats()}
+        info = metrics_mod.node_info(self)
+        info.update({"node": self.node_id,
+                     "worker": os.environ.get("MTPU_WORKER_ID", ""),
+                     "pid": os.getpid(), "coherence": coherence,
+                     "fi_cache": summed([s.fi_cache.stats() for s in sets]),
+                     "hot_cache": self.hot_cache.stats()})
+        return info
 
     def readiness(self) -> tuple[int, dict]:
         """/minio/health/ready (minio_tpu/s3/server.py `_health_ready`;
@@ -587,12 +666,22 @@ class _Handler(BaseHTTPRequestHandler):
         except OSError:
             pass
         self._conn = self.rfile = hotloop.ConnReader(self.connection)
+        self._requests_served = 0
+        self._last_status = self._sent_bytes = 0
+        self._path_kind = None
+        self.s3.metrics.conn_open()
 
     def finish(self):
         try:
             super().finish()
         finally:
             self._conn.close()
+            self.s3.metrics.conn_close()
+
+    def _count_request(self) -> None:
+        self._requests_served += 1
+        if self._requests_served > 1:
+            self.s3.metrics.keepalive_reuse()
 
     def handle_one_request(self):
         """The thread path's request (and the loop's, for bytes the
@@ -605,6 +694,7 @@ class _Handler(BaseHTTPRequestHandler):
             self.connection.settimeout(self.loop_keepalive_s)
             head = self._conn.parse_head()
         except hotloop._Fallback:
+            self.s3.metrics.parse_fallback()
             return self._stock_request()
         except OSError:                   # the idle deadline, a reset
             self.close_connection = True
@@ -633,6 +723,7 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = conntype != "keep-alive"
         if http11 and d.get("expect", "").lower() == "100-continue":
             self.wfile.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+        self._count_request()
         mname = "do_" + method
         if not hasattr(self, mname):
             self.send_error(501, f"Unsupported method ({method!r})")
@@ -645,8 +736,16 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _stock_request(self):
         """The stdlib parse of a head the framer refused, from the same
-        buffered bytes."""
-        return super().handle_one_request()
+        buffered bytes; a request it read counts as one served."""
+        self.raw_requestline = b""
+        rv = super().handle_one_request()
+        if self.raw_requestline:
+            self._count_request()
+        return rv
+
+    def send_response(self, code, message=None):
+        self._last_status = code
+        super().send_response(code, message)
 
     def flush_headers(self):
         # The head as it goes on the wire: the hot cache keeps a plain
@@ -671,11 +770,14 @@ class _Handler(BaseHTTPRequestHandler):
         last write: under the event loop a full socket buffer then hands
         the rest to the loop's EPOLLOUT drain (offload_final) and the
         executor thread goes back to the pool."""
+        self._sent_bytes += sum(len(b) for b in bufs[1:])
         lc = self._loop_conn
         if final and lc is not None:
             self.server.offload_final(lc, bufs)
         else:
             hotloop.send_gathered(self.connection, bufs)
+        if final:
+            self.s3.metrics.response_path(self._path_kind or "pooled")
 
     def do_PUT(self):
         self._dispatch("PUT")
@@ -707,11 +809,22 @@ class _Handler(BaseHTTPRequestHandler):
         configured."""
         raw_path, _, qs = self.path.partition("?")
         srv = self.s3
+        pc = path_class(raw_path)
+        self._last_status = 0
+        self._sent_bytes = 0
+        self._auth_key = ""
+        self._path_kind = None
+        self._resource = urllib.parse.unquote(raw_path)
+        t0 = time.perf_counter()
+        # The span context: armed only while somebody watches (a trace
+        # subscriber wanting internal types, a worker's remote relay, a
+        # slow-op threshold); disarmed, the request pays this check.
+        tctx = tracing.TraceContext() if tracing.ACTIVE else None
         with srv._inflight_mu:
             srv._inflight += 1
         try:
             try:
-                gate = srv.admission.enter(class_for(path_class(raw_path)))
+                gate = srv.admission.enter(class_for(pc))
             except AdmissionShed as shed:
                 self._resource = urllib.parse.unquote(raw_path)
                 self._drain_unread_body()
@@ -722,13 +835,63 @@ class _Handler(BaseHTTPRequestHandler):
             try:
                 budget = srv.admission.request_timeout
                 with deadline_mod.bind(deadline_mod.Deadline(budget)
-                                       if budget > 0 else None):
-                    self._route(method, raw_path, qs)
+                                       if budget > 0 else None), \
+                        tracing.bind(tctx):
+                    self._route(method, raw_path, qs, pc)
             finally:
                 gate.leave()
         finally:
             with srv._inflight_mu:
                 srv._inflight -= 1
+            try:
+                rx = int(self.headers.get("content-length") or 0)
+            except ValueError:
+                rx = 0
+            bucket, _, key = self._resource.lstrip("/").partition("/")
+            if pc != "s3":
+                api = f"{method}:{pc}"
+            else:
+                api = f"{method}:" + ("object" if key else
+                                      "bucket" if bucket else "service")
+            self._account(method, raw_path, bucket, key, api,
+                          self._last_status or 500,
+                          time.perf_counter() - t0, rx, self._sent_bytes,
+                          self._auth_key, tctx)
+
+    def _account(self, method, path, bucket, key, api, status, dt, rx, tx,
+                 access_key, tctx, path_kind=None) -> None:
+        """One request's accounting (minio_tpu/s3/server.py's `_route`
+        finally): the metrics registry, the SLO engine, and, while
+        somebody watches, the trace entry (the root of the request's
+        span tree, span 0, with the tree's spans after it when a
+        subscriber wants internal types) and the audit record. The hot
+        short circuit on the loop passes `path_kind` ("hotcache")."""
+        srv = self.s3
+        srv.metrics.record(api, status, dt, rx=rx, tx=tx)
+        if path_kind is not None:
+            srv.metrics.response_path(path_kind)
+        if srv.slo is not None:
+            srv.slo.observe(api, status)
+        if not srv.tracer.active and srv.audit is None:
+            return
+        entry = make_entry(api, method, path, bucket, key, status, dt,
+                           self.client_address[0] if self.client_address
+                           else "", access_key, rx=rx, tx=tx)
+        entry["worker"] = srv.worker_id
+        if srv.node_id:
+            entry["node"] = srv.node_id
+        if tctx is not None:
+            entry["trace_type"] = "s3"
+            entry["trace"] = tctx.trace_id
+            entry["span"] = 0
+            srv.tracer.publish(entry)
+            if srv.tracer.wants_internal():
+                for se in tracing.entries_from(tctx, worker=srv.worker_id):
+                    srv.tracer.publish(se)
+        else:
+            srv.tracer.publish(entry)
+        if srv.audit is not None:
+            srv.audit.submit(entry)
 
     def _drain_unread_body(self) -> None:
         """Discard an unread Content-Length body, bounded by _DRAIN_CAP
@@ -750,7 +913,8 @@ class _Handler(BaseHTTPRequestHandler):
         except OSError:
             pass        # a stalled or gone client; the close handles it
 
-    def _route(self, method: str, raw_path: str, qs: str) -> None:
+    def _route(self, method: str, raw_path: str, qs: str,
+               pc: str = "") -> None:
         if raw_path in (HEALTH_LIVE, HEALTH_READY) and method in ("GET",
                                                                    "HEAD"):
             # Unauthenticated probes (reference healthcheck-handler.go).
@@ -763,6 +927,9 @@ class _Handler(BaseHTTPRequestHandler):
             return
         self._resource = urllib.parse.unquote(raw_path)
         self._query = urllib.parse.parse_qs(qs, keep_blank_values=True)
+        if pc == "metrics" and method == "GET":
+            # Unsigned, as the JAX package serves it (a scrape).
+            return self._metrics()
         bucket, _, key = self._resource.lstrip("/").partition("/")
         admin = self._resource.startswith(ADMIN_PREFIX)
         data_put = method == "PUT" and bool(key) and not admin
@@ -781,6 +948,7 @@ class _Handler(BaseHTTPRequestHandler):
                 body_hash=hashlib.sha256(body).hexdigest()
                 if method in ("PUT", "POST") and not data_put
                 and not streaming else None)
+            self._auth_key = auth.credential.access_key
             if method == "PUT" and streaming and not data_put:
                 body = self._decode_aws_chunked(body, auth, headers)
             if admin:
@@ -1308,14 +1476,22 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _admin(self, method: str, op: str) -> None:
         """The admin API (minio_tpu/s3/server.py `_admin_op`): the heal
-        (POST starts a sweep, GET polls it), the pool verbs and `info`
-        (S3Server.info)."""
+        (POST starts a sweep, GET polls it), the pool verbs, `info`
+        (S3Server.info), the live `trace`, `speedtest`, and
+        `start-profiling` / `download-profiling`."""
         verb = self._POOL_VERBS.get((method, op))
         if verb is not None:
             return self._admin_pools(verb)
         if (method, op) == ("GET", "info"):
             return self._send(200, {"Content-Type": "application/json"},
                               json.dumps(self.s3.info()).encode())
+        obs = {("GET", "trace"): self._admin_trace,
+               ("POST", "speedtest"): self._admin_speedtest,
+               ("POST", "start-profiling"): self._start_profiling,
+               ("GET", "download-profiling"): self._download_profiling
+               }.get((method, op))
+        if obs is not None:
+            return obs()
         if op != "heal" or method not in ("POST", "GET"):
             raise S3Error("NotImplemented", f"admin {method} {op}")
         if method == "POST":
@@ -1363,6 +1539,250 @@ class _Handler(BaseHTTPRequestHandler):
         body = json.dumps(result).encode() \
             if verb.endswith("_status") and result is not None else b""
         self._send(200, {"Content-Type": "application/json"}, body)
+
+    # -- observability (minio_tpu/s3/server.py's handlers) ---------------
+
+    def _metrics(self) -> None:
+        """`GET /minio/v2/metrics/cluster`, unsigned: the Prometheus
+        text of s3/metrics.Metrics.render. A fleet worker merges every
+        worker's snapshot (the parent's control plane, io/workers.py); a
+        distributed node adds every peer node's (`peer.metrics`) with
+        node labels, unless `?cluster=false`."""
+        srv = self.s3
+        peers = None
+        if srv.cluster_stats is not None:
+            try:
+                peers = srv.cluster_stats()
+            except Exception:  # noqa: BLE001 - control plane down: own view
+                peers = None
+        nodes = None
+        if srv.profile_peers and self._q("cluster").lower() not in (
+                "false", "0", "off", "no"):
+            nodes = self._cluster_metrics_states()
+        text = srv.metrics.render(object_layer=srv.objects,
+                                  scanner=srv.scanner, server=srv,
+                                  peer_states=peers, node_states=nodes)
+        self._send(200, {"Content-Type": "text/plain; version=0.0.4"},
+                   text.encode())
+
+    def _cluster_metrics_states(self) -> list:
+        """This node's snapshot (every worker's, flagged local) and one
+        `peer.metrics` call a peer node, concurrently; a peer that does
+        not answer is an `unreachable` stub (cluster_node_up 0)."""
+        srv = self.s3
+        local = metrics_mod.peer_metrics_state(srv)
+        local["local"] = True
+        nodes = [local]
+        mu = threading.Lock()
+
+        def fetch(name, client):
+            try:
+                st = client.call("peer.metrics", {}, timeout=3)
+                if not isinstance(st, dict):
+                    raise ValueError("bad peer snapshot")
+            except Exception:  # noqa: BLE001 - a peer that is down
+                st = {"node": name, "states": [], "unreachable": True}
+            st.setdefault("node", name)
+            with mu:
+                nodes.append(st)
+        ts = [threading.Thread(target=fetch, args=(n, c), daemon=True)
+              for n, c in srv.profile_peers]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=4)
+        return nodes
+
+    def _admin_trace(self) -> None:
+        """The live trace stream (the `mc admin trace` shape): chunked
+        JSON lines until the client goes or `?count=N` entries went.
+        `?types=` filters (s3 by default: the request records; `all`:
+        every type, the internal spans too). A fleet worker subscribes
+        fleet-wide through the parent's trace pump; `?cluster=true` on a
+        distributed node adds every peer node's stream (`trace.stream`),
+        its entries tagged with their node."""
+        import queue as queue_mod
+        srv = self.s3
+        try:
+            limit = int(self._q("count", "0") or 0)
+        except ValueError:
+            limit = 0
+        raw = self._q("types").strip()
+        if not raw:
+            types = {"s3"}
+        elif raw == "all":
+            types = set(tracing.TRACE_TYPES)
+        else:
+            types = {t.strip() for t in raw.split(",") if t.strip()} \
+                & set(tracing.TRACE_TYPES) or {"s3"}
+        relay_q = relay_stop = None
+        if srv.profile_peers and self._q("cluster").lower() in (
+                "true", "1", "yes", "on"):
+            relay_q = queue_mod.Queue(maxsize=4096)
+            relay_stop = threading.Event()
+            for name, client in srv.profile_peers:
+                threading.Thread(target=_trace_relay,
+                                 args=(name, client, sorted(types), relay_q,
+                                       relay_stop), daemon=True).start()
+        hub = srv.cluster_trace
+        sub = sub_id = None
+        if hub is not None:
+            try:
+                sub_id = hub.trace_sub(sorted(types))
+            except Exception:  # noqa: BLE001 - control plane down
+                hub = None
+        if hub is None:
+            sub = srv.tracer.subscribe(types)
+        try:
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            sent = 0
+            idle_since = time.monotonic()
+            while not limit or sent < limit:
+                entries = []
+                if hub is not None:
+                    entries = hub.trace_poll(sub_id)
+                else:
+                    try:
+                        # Then what else is queued, in one write: a
+                        # stream that writes an entry at a time falls
+                        # behind a loaded server and drops.
+                        entries = [sub.get(timeout=0.2)]
+                        while len(entries) < 1024:
+                            entries.append(sub.get_nowait())
+                    except queue_mod.Empty:
+                        pass
+                if relay_q is not None:
+                    try:
+                        while len(entries) < 1024:
+                            entries.append(relay_q.get_nowait())
+                    except queue_mod.Empty:
+                        pass
+                if not entries:
+                    if time.monotonic() - idle_since > 1.0:
+                        # A heartbeat chunk: on an idle server the only
+                        # way a gone client surfaces (EPIPE).
+                        self.wfile.write(b"1\r\n\n\r\n")
+                        self.wfile.flush()
+                        idle_since = time.monotonic()
+                    if hub is not None:
+                        time.sleep(0.2)
+                    continue
+                idle_since = time.monotonic()
+                if limit:
+                    entries = entries[:limit - sent]
+                # The batch's lines as one chunk: one write a batch.
+                lines = b"".join(json.dumps(e).encode() + b"\n"
+                                 for e in entries)
+                self.wfile.write(b"%x\r\n" % len(lines) + lines + b"\r\n")
+                sent += len(entries)
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except OSError:
+            pass                # the client went away
+        finally:
+            if relay_stop is not None:
+                relay_stop.set()
+            if hub is not None:
+                try:
+                    hub.trace_unsub(sub_id)
+                except Exception:  # noqa: BLE001 - best effort
+                    pass
+            else:
+                srv.tracer.unsubscribe(sub)
+            self.close_connection = True
+
+    def _admin_speedtest(self) -> None:
+        """Self-measured object throughput (`mc admin speedtest`,
+        reference cmd/perf-tests.go): timed PUTs, then GETs, of
+        synthetic objects through the whole object layer, removed after.
+        `size` (1 KiB to 256 MiB, default 4 MiB) and `count` (1 to 64,
+        default 8) are clamped as in the JAX package."""
+        try:
+            size = int(self._q("size", str(4 << 20)))
+            count = int(self._q("count", "8"))
+        except ValueError:
+            raise S3Error("InvalidArgument") from None
+        size = max(1 << 10, min(size, 256 << 20))
+        count = max(1, min(count, 64))
+        layer = self.s3.objects
+        bucket = "mtpu-speedtest-tmp"
+        try:
+            layer.make_bucket(bucket)
+        except ot.BucketExists:
+            pass        # shared across runs; keys are run-unique
+        body = os.urandom(size)
+        run = os.urandom(6).hex()
+        keys = [f"obj-{run}-{i}" for i in range(count)]
+        try:
+            t0 = time.perf_counter()
+            for k in keys:
+                layer.put_object(bucket, k, body, ot.PutOptions())
+            put_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for k in keys:
+                layer.get_object(bucket, k)
+            get_s = time.perf_counter() - t0
+        finally:
+            for k in keys:
+                try:
+                    layer.delete_object(bucket, k)
+                except Exception:  # noqa: BLE001 - best effort
+                    pass
+            try:
+                layer.delete_bucket(bucket)
+            except Exception:  # noqa: BLE001 - another run is active
+                pass
+        total = size * count
+        result = {"object_size": size, "objects": count,
+                  "put_seconds": round(put_s, 4),
+                  "get_seconds": round(get_s, 4),
+                  "put_mibps": round(total / put_s / (1 << 20), 2),
+                  "get_mibps": round(total / get_s / (1 << 20), 2)}
+        self._send(200, {"Content-Type": "application/json"},
+                   json.dumps(result).encode())
+
+    def _start_profiling(self) -> None:
+        """Start this node's profile (s3/profiling.py) and each peer
+        node's (`peer.profile`)."""
+        srv = self.s3
+        try:
+            srv.profiler.start()
+        except prof_mod.ProfileError as e:
+            raise S3Error("InvalidRequest", str(e)) from None
+        for _name, client in srv.profile_peers:
+            try:
+                client.call(prof_mod.PROFILE_HANDLER, {"action": "start"},
+                            timeout=5)
+            except Exception:  # noqa: BLE001 - a peer that is down
+                pass
+        self._send(200, {"Content-Type": "application/json"},
+                   json.dumps({"started": True}).encode())
+
+    def _download_profiling(self) -> None:
+        """Stop the profiles and answer the zip bundle: `local/` and a
+        folder a peer node that answered."""
+        srv = self.s3
+        per_node = {}
+        try:
+            per_node["local"] = srv.profiler.stop()
+        except prof_mod.ProfileError as e:
+            raise S3Error("InvalidRequest", str(e)) from None
+        for name, client in srv.profile_peers:
+            try:
+                rec = client.call(prof_mod.PROFILE_HANDLER,
+                                  {"action": "stop"}, timeout=10)
+                if rec.get("ok"):
+                    per_node[name] = {
+                        "stats": base64.b64decode(rec.get("stats_b64", "")),
+                        "text": rec.get("text", "")}
+            except Exception:  # noqa: BLE001 - a peer that is down
+                pass
+        self._send(200, {"Content-Type": "application/zip"},
+                   prof_mod.bundle(per_node))
 
     def _live_peer_state(self, kind: str):
         """The state of a walk of `kind` that a peer drives now, or None
@@ -1593,6 +2013,7 @@ class _Handler(BaseHTTPRequestHandler):
             "x-amz-checksum-mode", "").upper() != "ENABLED"
         token = admit = None
         if entry is not None:
+            self._path_kind = "hotcache"
             info = entry.info
             spec, start, length = self._resolve(spec, info, bucket, key)
             chunks = (w for w in (memoryview(entry.body)

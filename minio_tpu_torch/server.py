@@ -118,6 +118,16 @@ reaped, recv leases left) and, distributed, the dsync locks it
 took, its grid peers' breakers and its control plane (peers armed,
 pushes, escalations, resyncs, peer notices, `mig.page` batches served,
 the read caches' counters).
+
+Observability (s3/metrics.py, s3/trace.py, s3/profiling.py,
+utils/tracing.py, utils/slo.py): MTPU_SLOW_OP_MS arms the slow-op log
+(every span over the threshold is recorded with its ancestry),
+MTPU_SLO declares the objectives (inline JSON, `@file` or `off`), and
+`--audit-webhook URL` posts one audit record a completed request.
+Distributed, every record carries the node's id, and worker 0 serves the
+peer verbs `peer.metrics`, `peer.profile` and `trace.stream`, through
+which any node's `/minio/v2/metrics/cluster`, admin `trace?cluster=true`
+and profiling verbs reach every node.
 """
 
 from __future__ import annotations
@@ -146,7 +156,10 @@ from minio_tpu_torch.object.scanner import Scanner
 from minio_tpu_torch.object.sets import ErasureSets
 from minio_tpu_torch.ops import _build
 from minio_tpu_torch.ops.rs_device import GpuBackend
+from minio_tpu_torch.s3.metrics import peer_metrics_state
+from minio_tpu_torch.s3.profiling import PROFILE_HANDLER, make_profile_handler
 from minio_tpu_torch.s3.server import S3Server
+from minio_tpu_torch.s3.trace import AuditLogger, make_trace_stream
 from minio_tpu_torch.storage import bitrot
 from minio_tpu_torch.storage import group_commit
 from minio_tpu_torch.storage.health import wrap_disks
@@ -157,6 +170,7 @@ from minio_tpu_torch.storage.local import (LocalStorage, OfflineDisk,
 from minio_tpu_torch.storage.remote import RemoteStorage, StorageRPCService
 from minio_tpu_torch.topology import ellipses
 from minio_tpu_torch.topology import format as fmt_mod
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.latency import summarize
 
 # A node's grid listens on its S3 port + this (minio_tpu/server.py's
@@ -184,6 +198,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="seconds between scanner cycles; 0 disables it")
     p.add_argument("--boot-timeout", type=float, default=120.0,
                    help="seconds to wait for peer nodes at boot")
+    p.add_argument("--audit-webhook", default="",
+                   help="webhook URL that receives one audit record a "
+                        "completed request")
     p.add_argument("drives", nargs="+",
                    help="drive directories or http://host:port/path "
                         "endpoints; `{1...N}` ellipses expand, and each "
@@ -381,6 +398,8 @@ def wire_control_plane(topo: Topology, layer, grid_srv, host: str,
     ident = host if host not in ("", "0.0.0.0", "::") \
         else socket.gethostname()
     node_id = f"{ident}:{topo.port}"
+    # Slow-op records, trace entries and the federated metrics carry it.
+    tracing.set_node(node_id)
     peers = [client_for(h, p + GRID_PORT_OFFSET) for h, p in topo.remote_nodes]
     notifier = PeerNotifier(peers)
     layer.on_decom_change = lambda: notifier.broadcast("decom")
@@ -480,6 +499,7 @@ def boot(argv=None) -> S3Server:
     drives, each set locks through dsync over every node's lock server,
     and the background work is sharded over nodes x workers."""
     args = parse_args(argv)
+    tracing.set_slow_ms(float(os.environ.get("MTPU_SLOW_OP_MS") or 0))
     worker = os.environ.get("MTPU_WORKER_ID", "")
     owner = worker in ("", "0")
     recovers = owner and not os.environ.get("MTPU_WORKER_RESPAWN")
@@ -611,6 +631,9 @@ def boot(argv=None) -> S3Server:
     srv.coherence_gate = control.get("gate")
     if topo.distributed:
         srv.elastic_peers = layer.migration_peers
+        wire_observability(srv, topo, grid_srv)
+    if args.audit_webhook:
+        srv.audit = AuditLogger(args.audit_webhook)
     if recovers:
         print("recovery: " + ", ".join(
             f"{k} {len(v) if k == 'heal' else v}"
@@ -639,6 +662,23 @@ def boot(argv=None) -> S3Server:
     print(f"serving S3 on http://{srv.address} ({n} drives, "
           f"{'; '.join(descs)}, device {device}{fleet})", flush=True)
     return srv
+
+
+def wire_observability(srv, topo: Topology, grid_srv) -> None:
+    """The observability plane across nodes (minio_tpu/server.py): the
+    peer nodes' grid clients, which the cluster metrics, the
+    `?cluster=true` trace and the profiling verbs fan out to, and on
+    worker 0 (`grid_srv` given) the verbs they call here:
+    `peer.profile`, `peer.metrics` (this node's workers merged) and the
+    `trace.stream` relay."""
+    srv.profile_peers = [(f"{h}:{p}", client_for(h, p + GRID_PORT_OFFSET))
+                         for h, p in topo.remote_nodes]
+    if grid_srv is None:
+        return
+    grid_srv.register(PROFILE_HANDLER, make_profile_handler(srv.profiler))
+    grid_srv.register("peer.metrics",
+                      lambda payload: peer_metrics_state(srv))
+    grid_srv.register_stream("trace.stream", make_trace_stream(srv))
 
 
 def launch_counts() -> dict:

@@ -448,13 +448,18 @@ class CrashDisk:
 
     # -- group commit (storage/group_commit lanes) ---------------------------
 
-    def commit_group(self, ops, _info=None):
+    def commit_group(self, ops, _info=None, keep_prev=False):
         """The batched commit, with a cut point at each durable sub-step:
-        each member's data-dir move, the WAL frame, each journal write
-        (_GCHook)."""
+        each member's data-dir move, each kept journal's link, the WAL
+        frame, each journal write (_GCHook)."""
         self._check_alive()
         return self._disk.commit_group(ops, _info=_info,
-                                       _hook=_GCHook(self))
+                                       _hook=_GCHook(self),
+                                       keep_prev=keep_prev)
+
+    def settle_prevs(self, items):
+        self._check_alive()
+        return self._disk.settle_prevs(items, _hook=_KeptHook(self))
 
     def gc_checkpoint(self):
         self._check_alive()
@@ -496,7 +501,45 @@ def _restore(dest: str, prior: Optional[bytes]) -> None:
             f.write(prior)
 
 
-class _GCHook:
+class _KeptHook:
+    """The seam of a solo commit that keeps the journal it replaces
+    (LocalStorage._land_kept) and of its settle_prev, bound to one
+    CrashDisk. step ticks the shared clock before each durable sub-step
+    (a journal's cut under tear leaves its torn tmp file) and notes the
+    bytes of the paths it is about to change; once the change landed it
+    is the drive's last directory change not yet synced, which lose_entry
+    rolls back, until synced() reports the directory's fsync."""
+
+    __slots__ = ("cd", "_priors")
+
+    def __init__(self, cd: CrashDisk):
+        self.cd = cd
+        self._priors: list = []
+
+    def step(self, op: str, *paths: str) -> None:
+        cd = self.cd
+        if cd._clock.tick(op):
+            if op.endswith(".journal"):
+                cd._tear_tmp(b"x" * 256)
+            raise PowerCut(f"{cd.endpoint}: power cut in {op}")
+        self._priors = [(p, cd._file_prior(p)) for p in paths]
+
+    def landed(self) -> None:
+        cd = self.cd
+        if cd.mode == "lose_entry" and self._priors:
+            with cd._mu:
+                cd._last_commit = self._priors
+        self._priors = []
+
+    def synced(self, obj_dir: str) -> None:
+        cd = self.cd
+        with cd._mu:
+            last = cd._last_commit
+            if last and all(os.path.dirname(p) == obj_dir for p, _ in last):
+                cd._last_commit = None
+
+
+class _GCHook(_KeptHook):
     """commit_group's power-cut seam, bound to one CrashDisk.
 
     LocalStorage.commit_group calls these at each durable sub-step; a
@@ -504,12 +547,10 @@ class _GCHook:
     leaves at that instant, and raise PowerCut. note_* record effects
     that completed but are not durable yet, so that a LATER cut (any
     op, any drive) tears them in _on_power_cut: the page cache dies
-    with the node, not with the op that filled it."""
+    with the node, not with the op that filled it. A kept journal's link
+    (the lanes' batches) ticks through _KeptHook's step."""
 
-    __slots__ = ("cd",)
-
-    def __init__(self, cd: CrashDisk):
-        self.cd = cd
+    __slots__ = ()
 
     def step_move(self, op) -> None:
         cd = self.cd
@@ -567,41 +608,3 @@ class _GCHook:
             cd._unsynced.clear()
             cd._unsynced_wals.clear()
             cd._unsynced_files.clear()
-
-
-class _KeptHook:
-    """The seam of a solo commit that keeps the journal it replaces
-    (LocalStorage._land_kept) and of its settle_prev, bound to one
-    CrashDisk. step ticks the shared clock before each durable sub-step
-    (a journal's cut under tear leaves its torn tmp file) and notes the
-    bytes of the paths it is about to change; once the change landed it
-    is the drive's last directory change not yet synced, which lose_entry
-    rolls back, until synced() reports the directory's fsync."""
-
-    __slots__ = ("cd", "_priors")
-
-    def __init__(self, cd: CrashDisk):
-        self.cd = cd
-        self._priors: list = []
-
-    def step(self, op: str, *paths: str) -> None:
-        cd = self.cd
-        if cd._clock.tick(op):
-            if op.endswith(".journal"):
-                cd._tear_tmp(b"x" * 256)
-            raise PowerCut(f"{cd.endpoint}: power cut in {op}")
-        self._priors = [(p, cd._file_prior(p)) for p in paths]
-
-    def landed(self) -> None:
-        cd = self.cd
-        if cd.mode == "lose_entry" and self._priors:
-            with cd._mu:
-                cd._last_commit = self._priors
-        self._priors = []
-
-    def synced(self, obj_dir: str) -> None:
-        cd = self.cd
-        with cd._mu:
-            last = cd._last_commit
-            if last and all(os.path.dirname(p) == obj_dir for p, _ in last):
-                cd._last_commit = None

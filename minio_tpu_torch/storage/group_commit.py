@@ -28,6 +28,23 @@ acknowledged write is in its journal or in a WAL that the next boot
 replays (`replay_wals`, run first by storage/local.recovery_sweep). A
 journal torn by a power cut is repaired from the frame; replay never
 rolls a newer journal back and never brings a deleted object back.
+
+Each batch keeps the journals it replaces (PREV_FILE,
+storage/local.commit_group `keep_prev`) until write quorum is known:
+the request posts its verdict to each of its members, and once every
+member of a batch has one, the lane's thread settles the batch with ONE
+drive call (LocalStorage.settle_prevs); the request returns only then,
+still under its key's lock. A request whose deadline passes takes its
+members that no batch has taken off their lanes and still waits for the
+batches that hold the rest (the drive's own timeout bounds them): no
+commit or settle of its key lands after it lets the key's lock go. A
+cut between the drives of a batch thus never leaves an overwritten
+object without its old version at read quorum: the recovery sweep
+reports each kept journal, and the heal settles it.
+
+While tracing is armed ONE `commit.group` storage span a batch is
+fanned into every member's trace tree (utils/tracing.record_into, as
+the batcher's kernel span is).
 Every MTPU_GROUP_COMMIT_CKPT_S seconds ONE process-wide coordinator
 thread runs os.sync and truncates the WALs whose frames it covered.
 
@@ -36,7 +53,8 @@ the solo path (write_metadata / rename_data), counted in
 `solo_demotions`, except after a power cut (storage/local.PowerFault):
 the node is gone, so no member is acked and each gets the fault. A
 member whose deadline passed before its batch ran fails alone with
-DeadlineExceeded (`deadline_culls`). `bump` (the
+DeadlineExceeded (`deadline_culls`), as does one its request took off
+its lane when the deadline passed. `bump` (the
 set's MetaCache.bump) fires once per batch per bucket BEFORE any member
 is acked.
 
@@ -73,6 +91,7 @@ from typing import Callable, Optional
 
 from minio_tpu_torch.storage.local import PowerFault
 from minio_tpu_torch.utils import deadline as deadline_mod
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.deadline import DeadlineExceeded
 from minio_tpu_torch.utils.env import env_float, env_int
 from minio_tpu_torch.utils.latency import Histogram
@@ -384,6 +403,63 @@ def replay_wals(disk) -> dict:
     return out
 
 
+# -- the process's lanes, summed (the metrics render and admin info) ---------
+
+_REGISTRY: "weakref.WeakSet[GroupCommit]" = weakref.WeakSet()
+_SUMMED = ("batches", "members", "solo_bypass", "objects", "merged_members",
+           "noop_skips", "fsyncs_saved", "deadline_culls", "solo_demotions",
+           "settle_calls")
+
+
+def _zero_stats() -> dict:
+    out = {k: 0 for k in _SUMMED}
+    out.update(size_buckets={}, wait_hist=None, fill_mean=0.0)
+    return out
+
+
+def aggregate_stats() -> dict:
+    """Every live GroupCommit of the process summed
+    (minio_tpu/storage/group_commit.py `aggregate_stats`), with the
+    process's checkpoint counters."""
+    out = _zero_stats()
+    hists = []
+    for gc in list(_REGISTRY):
+        st = gc.stats()
+        for key in _SUMMED:
+            out[key] += st[key]
+        for b, v in st["size_buckets"].items():
+            out["size_buckets"][b] = out["size_buckets"].get(b, 0) + v
+        hists.append(st["wait_hist"])
+    out["wait_hist"] = Histogram.merge(hists)
+    out["fill_mean"] = (out["members"] / out["batches"]) \
+        if out["batches"] else 0.0
+    out["checkpoints"] = checkpoints_total
+    out["wals_retired"] = wals_retired_total
+    return out
+
+
+def merge_stats(states: list) -> dict:
+    """The fleet's view: per-worker aggregate_stats() snapshots summed
+    (each pre-forked worker runs its own lanes over the shared drives)."""
+    out = _zero_stats()
+    out["checkpoints"] = out["wals_retired"] = 0
+    hists = []
+    for st in states:
+        if not isinstance(st, dict):
+            continue
+        for key in (*_SUMMED, "checkpoints", "wals_retired"):
+            out[key] += st.get(key, 0)
+        for b, v in (st.get("size_buckets") or {}).items():
+            b = int(b)
+            out["size_buckets"][b] = out["size_buckets"].get(b, 0) + v
+        if st.get("wait_hist"):
+            hists.append(st["wait_hist"])
+    out["wait_hist"] = Histogram.merge(hists)
+    out["fill_mean"] = (out["members"] / out["batches"]) \
+        if out["batches"] else 0.0
+    return out
+
+
 # -- the coalescer -------------------------------------------------------------
 
 class _Latch:
@@ -409,15 +485,34 @@ class _Latch:
 
 
 class _Member:
-    __slots__ = ("op", "latch", "exc", "done", "expires_at", "t_enq")
+    __slots__ = ("op", "latch", "exc", "expires_at", "tctx",
+                 "tparent", "t_enq", "keep", "settle", "gone")
 
     def __init__(self, op: GroupOp, dl, latch: _Latch):
         self.op = op
         self.latch = latch
-        self.done = False
         self.exc: Optional[BaseException] = None
         self.expires_at = dl.expires_at if dl is not None else None
+        self.tctx, self.tparent = tracing.capture() if tracing.ACTIVE \
+            else (None, 0)
         self.t_enq = time.perf_counter()
+        self.keep: Optional[bool] = None      # the request's verdict
+        self.settle: Optional["_Settle"] = None
+        # What the settle reclaims once kept, where its batch knows it.
+        self.gone: Optional[list] = None
+
+
+class _Settle:
+    """The second half of one drive batch: settled by the lane's thread
+    once each member's request has posted its verdict (`left` reaches
+    0); `done` wakes the requests."""
+
+    __slots__ = ("members", "left", "done")
+
+    def __init__(self, members: list):
+        self.members = members
+        self.left = len(members)
+        self.done = threading.Event()
 
 
 @dataclass
@@ -429,6 +524,7 @@ class _Lane:
     cur_wait: float = 0.0
     min_expiry: Optional[float] = None   # earliest member deadline
     thread: Optional[threading.Thread] = None   # the lane's commit thread
+    settles: list = field(default_factory=list)  # batches to settle
 
     def bound(self) -> float:
         """When this window must close: the adaptive deadline, pulled in
@@ -471,9 +567,10 @@ class GroupCommit:
         self._st = {"batches": 0, "members": 0, "solo_bypass": 0,
                     "objects": 0, "merged_members": 0, "noop_skips": 0,
                     "fsyncs_saved": 0, "deadline_culls": 0,
-                    "solo_demotions": 0}
+                    "solo_demotions": 0, "settle_calls": 0}
         self._size_buckets: dict[int, int] = {}
         self._wait_hist = Histogram()
+        _REGISTRY.add(self)
 
     # -- submission -------------------------------------------------------
 
@@ -509,10 +606,12 @@ class GroupCommit:
         with self._stat_mu:
             self._st["solo_bypass"] += n
 
-    def commit_fanout(self, ops: list) -> list:
-        """Submit one op a drive (None skips the drive) and wait for
-        every ack; returns a per-drive error list aligned with the set's
-        drives (None = committed), the contract of ErasureSet._fanout."""
+    def commit_fanout(self, ops: list, quorum: int) -> list:
+        """Submit one op a drive (None skips the drive), wait for every
+        ack, then settle the kept journals: kept where at least `quorum`
+        drives committed, else put back. Returns a per-drive error list
+        aligned with the set's drives (None = committed), the contract
+        of ErasureSet._fanout."""
         n = len(ops)
         dl = deadline_mod.current()
         if dl is not None and dl.expired():
@@ -544,32 +643,98 @@ class GroupCommit:
                         or len(lane.pending) >= self._inflight:
                     wake = True         # the early-close rule holds
                 members[i] = m
-                if lane.thread is None or not lane.thread.is_alive():
-                    lane.thread = threading.Thread(
-                        target=self._lane_loop, args=(lane,), daemon=True,
-                        name=f"group-commit-{lane.idx}")
-                    lane.thread.start()
-                elif wake:
+                if not self._ensure_thread(lane) and wake:
                     # Only window openings, earlier bounds and early
                     # closes need the thread; its timed sleep covers the
                     # rest (and a thread mid-commit looks on its return).
                     lane.cond.notify()
-        if dl is None:
-            latch.event.wait()
-            done = True
-        else:
-            done = latch.event.wait(timeout=max(
-                0.0, dl.expires_at + 0.25 - time.monotonic()))
-        errors: list = [None] * n
-        for i, m in enumerate(members):
-            if m is None:
-                continue
-            if not done and not m.done:
-                errors[i] = DeadlineExceeded(
-                    "request deadline exceeded in group commit")
-                continue
-            errors[i] = m.exc
+        if dl is not None and not latch.event.wait(timeout=max(
+                0.0, dl.expires_at + 0.25 - time.monotonic())):
+            self._withdraw(members)
+        # A batch that took a member may still commit it: wait for it
+        # (the drive's timeout bounds it), so that nothing of this
+        # request lands after it lets its key's lock go.
+        latch.event.wait()
+        errors = [None if m is None else m.exc for m in members]
+        ok = sum(1 for m in members if m is not None and m.exc is None)
+        self._post_verdicts(members, ok >= quorum)
         return errors
+
+    def _withdraw(self, members: list) -> None:
+        """Take a request's members that no batch has taken off their
+        lanes (its deadline passed); each fails with DeadlineExceeded."""
+        culled = 0
+        with self._mu:
+            for i, m in enumerate(members):
+                if m is None:
+                    continue
+                pending = self._lanes[i].pending
+                for k, p in enumerate(pending):
+                    if p is m:
+                        del pending[k]
+                        m.exc = DeadlineExceeded(
+                            "request deadline exceeded in group commit")
+                        culled += 1
+                        m.latch.dec()
+                        break
+        if culled:
+            with self._stat_mu:
+                self._st["deadline_culls"] += culled
+
+    def _ensure_thread(self, lane: _Lane) -> bool:
+        """Start the lane's thread when it has none (under _mu); True
+        when one was started."""
+        if lane.thread is not None and lane.thread.is_alive():
+            return False
+        lane.thread = threading.Thread(
+            target=self._lane_loop, args=(lane,), daemon=True,
+            name=f"group-commit-{lane.idx}")
+        lane.thread.start()
+        return True
+
+    def _post_verdicts(self, members: list, keep: bool) -> None:
+        """A request's verdict on each of its members, once every one is
+        done; a batch whose last verdict this is goes to its lane's
+        thread. The request then waits until each of its batches that
+        ran is settled: it holds its key's lock, and no other commit of
+        the key may meet a kept journal. (A member that was culled,
+        withdrawn or cut has no batch to settle.)"""
+        mine = []
+        with self._mu:
+            for i, m in enumerate(members):
+                if m is None:
+                    continue
+                m.keep = keep
+                g = m.settle
+                if g is None:
+                    continue    # culled, withdrawn or cut
+                mine.append(g)
+                g.left -= 1
+                if g.left == 0:
+                    self._queue_settle(self._lanes[i], g)
+        for g in mine:
+            g.done.wait()
+
+    def _queue_settle(self, lane: _Lane, g: _Settle) -> None:
+        lane.settles.append(g)
+        if not self._ensure_thread(lane):
+            lane.cond.notify()
+
+    def _run_settles(self, lane: _Lane, groups: list) -> None:
+        """One settle_prevs call on the lane's drive for every batch
+        whose verdicts are in; a fault leaves the kept journals to the
+        heal (ErasureSet._settle_prevs)."""
+        items = [(m.op.volume, m.op.path, bool(m.keep), m.gone)
+                 for g in groups for m in g.members]
+        try:
+            with deadline_mod.shield():
+                self._disks[lane.idx].settle_prevs(items)
+        except BaseException:  # noqa: BLE001 - the heal settles it
+            pass
+        with self._stat_mu:
+            self._st["settle_calls"] += 1
+        for g in groups:
+            g.done.set()
 
     # -- dispatch ---------------------------------------------------------
 
@@ -577,8 +742,14 @@ class GroupCommit:
         """One lane's commit thread: gather a window, run it, repeat.
         Members that arrive while a batch runs wait for the next one."""
         while True:
+            settles = None
             with self._mu:
                 while True:
+                    if lane.settles:
+                        # A settle runs first: its requests hold their
+                        # keys' locks.
+                        settles, lane.settles = lane.settles, []
+                        break
                     if lane.pending:
                         now = time.monotonic()
                         bound = lane.bound()
@@ -595,12 +766,15 @@ class GroupCommit:
                         continue
                     if not self._closed:
                         lane.cond.wait(_IDLE_S)
-                    if not lane.pending and (self._closed
-                                             or self._inflight == 0):
+                    if not lane.pending and not lane.settles and (
+                            self._closed or self._inflight == 0):
                         # Clear the handle under the lock before leaving,
                         # so a racing submit starts another thread.
                         lane.thread = None
                         return
+            if settles is not None:
+                self._run_settles(lane, settles)
+                continue
             self._run_batch(lane, batch)
 
     def _adapt_window(self, lane: _Lane, size: int) -> None:
@@ -613,10 +787,10 @@ class GroupCommit:
 
     def _solo(self, disk, op: GroupOp) -> None:
         if op.kind == "wm":
-            disk.write_metadata(op.volume, op.path, op.fi)
+            disk.write_metadata(op.volume, op.path, op.fi, keep_prev=True)
         else:
             disk.rename_data(op.src_volume, op.src_path, op.fi,
-                             op.volume, op.path)
+                             op.volume, op.path, keep_prev=True)
 
     def _run_batch(self, lane: _Lane, batch: list) -> None:
         # Members whose budget is spent fail alone, counted.
@@ -633,12 +807,12 @@ class GroupCommit:
             for m in dead:
                 m.exc = DeadlineExceeded(
                     "request deadline exceeded before group commit")
-                m.done = True
                 m.latch.dec()
         if not live:
             return
         disk = self._disks[lane.idx]
         info: dict = {}
+        t_wall = time.time()
         t0 = time.perf_counter()
         results = None
         batch_exc: Optional[BaseException] = None
@@ -646,16 +820,20 @@ class GroupCommit:
             # The batch serves many requests with many budgets; their
             # deadlines were enforced at the cull.
             with deadline_mod.shield():
-                results = disk.commit_group([m.op for m in live], _info=info)
+                results = disk.commit_group([m.op for m in live], _info=info,
+                                            keep_prev=True)
         except BaseException as e:  # noqa: BLE001 - delivered per member
             batch_exc = e
         demotions = 0
         # A power cut takes the node: nothing may commit after it, so no
         # member is demoted and none is acked.
         cut = isinstance(batch_exc, PowerFault)
+        kept = info.get("kept", {})
         for k, m in enumerate(live):
             err = batch_exc if results is None else results[k]
-            if err is not None and not cut:
+            if err is None:
+                m.gone = kept.get((m.op.volume, m.op.path))
+            elif not cut:
                 # Demote this member, and only it, to the solo path; its
                 # own verdict is final.
                 demotions += 1
@@ -687,9 +865,28 @@ class GroupCommit:
                     self.bump(bucket)
                 except Exception:  # noqa: BLE001 - listeners best-effort
                     pass
+        if not cut:
+            # The batch's second half, once every verdict is in: each
+            # member's request posts its own once all of its members are
+            # done, so none has posted yet.
+            g = _Settle(live)
+            for m in live:
+                m.settle = g
+        dur_ms = (time.perf_counter() - t0) * 1000.0
         for m in live:
-            self._wait_hist.observe(max(0.0, t0 - m.t_enq))
-            m.done = True
+            wait_s = max(0.0, t0 - m.t_enq)
+            self._wait_hist.observe(wait_s)
+            if m.tctx is not None:
+                # ONE commit span fanned into each member's tree.
+                tracing.record_into(
+                    m.tctx, m.tparent, "storage", "commit.group",
+                    t_wall, dur_ms,
+                    tags={"drive": str(getattr(disk, "endpoint", "")
+                                       or getattr(disk, "root", "")
+                                       or lane.idx),
+                          "members": size,
+                          "objects": info.get("objects", 0),
+                          "wait_ms": round(wait_s * 1000.0, 3)})
             m.latch.dec()
         self._adapt_window(lane, size)
 
@@ -706,6 +903,11 @@ class GroupCommit:
                 lane.cond.notify()
         # The threads commit what is pending, then exit.
         for t in threads:
+            t.join()
+        with self._mu:
+            threads = [ln.thread for ln in self._lanes if ln.thread]
+        for t in threads:
+            # Settles queued by verdicts that came in after the join.
             t.join()
         for d in self._disks:
             for name in ("gc_checkpoint", "gc_close"):

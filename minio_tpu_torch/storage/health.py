@@ -30,8 +30,13 @@ from one pull of its chunk iterable to the next, so a slow client is
 never a slow drive. And a call that outlives its deadline raises with
 the still-running call attached as `pending` (a Future): a caller whose
 buffers that call reads or fills keeps them from their pool until it
-ends. The JAX package's tracing spans are left out (the port has no
-tracing plane yet).
+ends.
+
+While tracing is armed (utils/tracing.ACTIVE) every call is one
+`storage` span `disk.<op>` tagged with the drive: the per-drive
+attribution layer of a request's span tree. It covers admission, the
+pool's wait and the op; the trace scope is re-bound inside the pool's
+worker, so a remote drive's grid call below it parents under it.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from minio_tpu_torch.storage.local import (DiskAccessDenied, FaultyDisk,
 from minio_tpu_torch.storage.meta import (FileNotFoundErr, MetaError,
                                           VersionNotFoundErr)
 from minio_tpu_torch.utils import deadline as deadline_mod
+from minio_tpu_torch.utils import tracing
 from minio_tpu_torch.utils.deadline import DeadlineExceeded
 
 # Errors that mean "the drive answered correctly": never breaker fuel.
@@ -308,6 +314,15 @@ class DiskHealthWrapper:
 
     def _call(self, op: str, fn, args, kwargs,
               clock: "_PullClock | None" = None):
+        if tracing.ACTIVE:
+            with tracing.span("storage", f"disk.{op}",
+                              {"drive": str(self.endpoint or getattr(
+                                  self._disk, "root", "") or "")}):
+                return self._call_inner(op, fn, args, kwargs, clock)
+        return self._call_inner(op, fn, args, kwargs, clock)
+
+    def _call_inner(self, op: str, fn, args, kwargs,
+                    clock: "_PullClock | None" = None):
         # An exhausted budget fails before _admit, so it cannot take the
         # half-open probe slot.
         dl = deadline_mod.current()
@@ -318,13 +333,15 @@ class DiskHealthWrapper:
         base = self._bulk_timeout if op in _BULK_OPS else self._op_timeout
         t0 = time.monotonic()
         end = None if dl is None else t0 + dl.remaining()
-        if dl is None:
+        tctx, tparent = tracing.capture() if tracing.ACTIVE else (None, 0)
+        if dl is None and tctx is None:
             fut: Future = self._pool.submit(fn, *args, **kwargs)
         else:
-            # The budget is bound again inside the worker, so the layers
-            # below it keep consuming it.
-            def run(_dl=dl):
-                with deadline_mod.bind(_dl):
+            # The budget and the trace scope are bound again inside the
+            # worker, so the layers below it keep consuming the one and
+            # parenting under the other.
+            def run(_dl=dl, _tc=tctx, _tp=tparent):
+                with deadline_mod.bind(_dl), tracing.bind(_tc, _tp):
                     return fn(*args, **kwargs)
             fut = self._pool.submit(run)
         try:

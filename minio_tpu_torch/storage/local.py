@@ -759,10 +759,43 @@ class LocalStorage:
             self._settle_prev_locked(self._obj_dir(volume, path), keep,
                                      self._vol_dir(volume), _hook)
 
+    def settle_prevs(self, items: list, _hook=None) -> list:
+        """settle_prev over a batch's keys in one call: `items` is
+        [(volume, path, keep, gone)], `gone` the data dirs the kept
+        journal names beyond the new one where the caller knows them
+        (commit_group's `kept`: the lanes), else None; returns one error
+        (or None) an item. Kept with `gone` known, neither journal is
+        read."""
+        out: list = []
+        for volume, path, keep, gone in items:
+            try:
+                with self._path_lock(volume, path):
+                    self._settle_prev_locked(
+                        self._obj_dir(volume, path), keep,
+                        self._vol_dir(volume), _hook, gone)
+                out.append(None)
+            except PowerFault:
+                raise
+            except Exception as e:  # noqa: BLE001 - per key
+                out.append(e)
+        return out
+
     def _settle_prev_locked(self, obj_dir: str, keep: bool,
-                            vol_dir: str = "", _hook=None) -> None:
+                            vol_dir: str = "", _hook=None,
+                            gone: Optional[list] = None) -> None:
         prev = os.path.join(obj_dir, PREV_FILE)
         meta_path = os.path.join(obj_dir, META_FILE)
+        if keep and gone is not None:
+            # The commit that kept it named what only the kept journal
+            # holds, and its own journal stands: no journal is read.
+            if not os.path.exists(prev):
+                return
+            _step(_hook, "settle_prev.drop", prev)
+            os.remove(prev)
+            if _hook is not None:
+                _hook.landed()
+            self._reclaim_gone(obj_dir, gone, _hook)
+            return
         try:
             blob = _read_raw(prev)
             old = XLMeta.load(blob) if blob else XLMeta()
@@ -792,17 +825,21 @@ class LocalStorage:
                     except FileNotFoundError:
                         pass
             self._sync_entries(obj_dir, "settle_prev.sync", _hook)
+        self._reclaim_gone(obj_dir, gone, _hook)
+        if vol_dir:
+            self._rm_empty_parents(obj_dir, vol_dir)
+
+    @staticmethod
+    def _reclaim_gone(obj_dir: str, gone, _hook=None) -> None:
         if gone:
             _step(_hook, "settle_prev.reclaim")
             for dd in gone:
                 shutil.rmtree(os.path.join(obj_dir, dd), ignore_errors=True)
-        if vol_dir:
-            self._rm_empty_parents(obj_dir, vol_dir)
 
     # -- the group commit protocol (storage/group_commit.py lanes) ----------
 
     def commit_group(self, ops: list, _info: Optional[dict] = None,
-                     _hook=None) -> list:
+                     _hook=None, keep_prev: bool = False) -> list:
         """Commit a batch of write_metadata / rename_data ops
         (storage/group_commit.GroupOp) as one journal pass
         (minio_tpu/storage/local.py `commit_group`). Returns one result a
@@ -822,6 +859,15 @@ class LocalStorage:
              boot, group_commit.replay_wals);
           5. one directory fsync a distinct parent under MTPU_FS_OSYNC;
           6. replaced data dirs are reclaimed, staging is cleared.
+
+        With `keep_prev` (the lanes' batches) each changed object keeps
+        the journal it replaces as PREV_FILE, linked before the WAL frame
+        is appended, with no sync of its own: a cut that leaves the
+        frame leaves the link (the link's directory entry is synced with
+        the journal's, by step 5 under MTPU_FS_OSYNC); nothing is
+        reclaimed until the set settles the batch (settle_prevs) once
+        write quorum is known. `_info["kept"]` then maps each kept
+        object's (volume, path) to the data dirs that settle reclaims.
 
         `_info` receives the batch's accounting: objects, merged
         (same-object members past the first), noops, fsyncs_saved.
@@ -913,6 +959,19 @@ class LocalStorage:
                 if ok_idxs:
                     info["objects"] += 1
                     info["merged"] += len(ok_idxs) - 1
+                    if changed and keep_prev:
+                        try:
+                            self._keep_prev(meta_path, not fresh, _hook)
+                        except PowerFault:
+                            raise
+                        except Exception as e:  # noqa: BLE001 - per object
+                            for i in ok_idxs:
+                                results[i] = e
+                            continue
+                        # The settle reclaims what the kept one names.
+                        info.setdefault("kept", {})[(vol, path)] = \
+                            obj_reclaims
+                        obj_reclaims = []
                     if changed:
                         staged.append((vol, path, meta_path, xl.dump(),
                                        ok_idxs, obj_reclaims, fresh))

@@ -23,6 +23,9 @@ drive commits each journal on its own (object/erasure_object.py).
 A RemoteStorage has no `root`: nothing that writes beside the storage
 API (clean-shutdown stamps, recovery sweeps, persisted listings) picks
 it.
+
+For an armed caller each served drive op is one `disk.<op>` storage
+span on the owner, which the grid ships back into the caller's tree.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from minio_tpu_torch.storage.meta import (ErasureInfo, FileInfo,
                                           FileNotFoundErr, MetaError,
                                           ObjectPartInfo, VersionNotFoundErr)
 from minio_tpu_torch.storage.meta_scan import PREFIX_MARK
+from minio_tpu_torch.utils import tracing
 
 # One raw frame of a bulk transfer, and the batch size of a walk
 # stream: small enough to interleave with lock frames on the shared
@@ -334,6 +338,36 @@ class RemoteStorage:
             raise StorageError(f"remote drive {self.endpoint}: {e}") from None
 
 
+def _span_unary(name: str, fn):
+    """The owner's span of an armed caller's drive op: the grid server
+    runs the handler bound to the shipped trace context, so `disk.<op>`
+    lands in the subtree that goes back with the reply. Disarmed, one
+    attribute check."""
+    def handler(payload):
+        if not tracing.ACTIVE:
+            return fn(payload)
+        tags = {"drive": payload.get("d", "")} \
+            if isinstance(payload, dict) else None
+        with tracing.span("storage", f"disk.{name}", tags):
+            return fn(payload)
+    return handler
+
+
+def _span_stream(name: str, fn):
+    """_span_unary for a stream: the span covers the generator from its
+    first pull to its end, and is recorded before the EOF frame ships
+    the subtree."""
+    def handler(payload):
+        if not tracing.ACTIVE:
+            yield from fn(payload)
+            return
+        tags = {"drive": payload.get("d", "")} \
+            if isinstance(payload, dict) else None
+        with tracing.span("storage", f"disk.{name}", tags):
+            yield from fn(payload)
+    return handler
+
+
 class StorageRPCService:
     """The owner's side: serves this node's local drives on the grid."""
 
@@ -357,13 +391,17 @@ class StorageRPCService:
 
     def register_into(self, srv: GridServer) -> None:
         for name in self._UNARY:
-            srv.register(f"st.{name}", self._make_unary(name))
+            srv.register(f"st.{name}",
+                         _span_unary(name, self._make_unary(name)))
         for name in ("stat_vol", "list_vols", "stat_info_file",
                      "write_metadata", "read_version", "list_versions",
                      "rename_data", "disk_info"):
-            srv.register(f"st.{name}", getattr(self, f"_{name}"))
-        srv.register_stream("st.read_file_raw", self._read_file_raw)
-        srv.register_stream("st.walk_scan", self._walk_scan)
+            srv.register(f"st.{name}",
+                         _span_unary(name, getattr(self, f"_{name}")))
+        srv.register_stream("st.read_file_raw", _span_stream(
+            "read_file_raw", self._read_file_raw))
+        srv.register_stream("st.walk_scan",
+                            _span_stream("walk_scan", self._walk_scan))
         srv.register_sink("st.create_file_raw", self._create_file_raw)
 
     def _make_unary(self, name: str):

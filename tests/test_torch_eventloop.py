@@ -899,7 +899,9 @@ def test_fleet_workers_serve_through_their_loops(tmp_path):
         seen = _meet_workers(addr, 2)
         assert len(seen) == 2
         for info in seen.values():
-            assert info["front_end"]["enabled"] is True
+            # Admin info's `workers` carries each worker's own loop.
+            assert [w["connections"]["enabled"]
+                    for w in info["workers"]] == [True, True]
         victim = sorted(seen)[-1]
         parked = [_raw(addr) for _ in range(16)]
         for s in parked:
@@ -914,7 +916,8 @@ def test_fleet_workers_serve_through_their_loops(tmp_path):
                      timeout=240), lines[-20:]
         fresh = _meet_workers(addr, 2)
         assert len(fresh) == 2 and victim not in fresh
-        assert all(i["front_end"]["enabled"] for i in fresh.values())
+        assert all(w["connections"]["enabled"] for i in fresh.values()
+                   for w in i["workers"])
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
     finally:

@@ -214,6 +214,45 @@ def test_rename_data_members_batch(tmp_path):
     same_journals(disks, ["rk"])
 
 
+def test_kept_batch_names_what_its_settle_reclaims(tmp_path):
+    """A lane batch that keeps the journal it replaces (keep_prev) names
+    the data dirs only that journal holds (`_info["kept"]`), so its
+    settle reads no journal; kept or put back, the drive ends as the
+    settle that parses both journals leaves it."""
+    def stage(d, ddir):
+        os.makedirs(os.path.join(d.root, SYS_VOL, "stage", ddir))
+        with open(os.path.join(d.root, SYS_VOL, "stage", ddir, "part.1"),
+                  "wb") as f:
+            f.write(ddir.encode())
+
+    def tree(d):
+        top = os.path.join(d.root, BKT)
+        return sorted(os.path.relpath(os.path.join(r, f), top)
+                      for r, _, fs in os.walk(top) for f in fs)
+
+    for keep in (True, False):
+        ends = []
+        for hinted in (True, False):
+            d = mkdisk("p", tmp_path, f"k{keep}-{hinted}")
+            for t, ddir in enumerate(("dd1", "dd2")):
+                stage(d, ddir)
+                fi = mkfi("p", "rk", T0 + t, ddir=ddir, data=b"")
+                fi.inline_data = None
+                info = {}
+                res = d.commit_group([port_gc.GroupOp.rename(
+                    SYS_VOL, "stage", fi, BKT, "rk")], _info=info,
+                    keep_prev=True)
+                assert res == [None]
+            # The second commit replaced the null version held in dd1.
+            assert info["kept"] == {(BKT, "rk"): ["dd1"]}
+            gone = info["kept"][(BKT, "rk")] if hinted else None
+            assert d.settle_prevs([(BKT, "rk", keep, gone)]) == [None]
+            ends.append((tree(d), read_xl(d, "rk")))
+        assert ends[0] == ends[1]
+        assert ends[0][0] == ["rk/dd2/part.1", "rk/xl.meta"] if keep \
+            else ["rk/dd1/part.1", "rk/xl.meta"]
+
+
 def test_noop_short_circuit_solo_and_batched(tmp_path):
     """A byte-identical re-add rewrites no journal, solo or batched."""
     infos = {}
@@ -579,11 +618,14 @@ def test_solo_demotion_on_batch_fault(tmp_path):
             root = d.root
             endpoint = "flaky"
 
-            def commit_group(self, ops, _info=None):
+            def commit_group(self, ops, _info=None, **kw):
                 raise OSError("batch machinery failed")
 
-            def write_metadata(self, vol, path, fi):
-                return d.write_metadata(vol, path, fi)
+            def write_metadata(self, vol, path, fi, **kw):
+                return d.write_metadata(vol, path, fi, **kw)
+
+            def settle_prevs(self, items):
+                return d.settle_prevs(items)
 
         gc = mkgc(pkg, [Flaky()])
         latch = g._Latch(2)
@@ -671,7 +713,8 @@ def test_commit_fanout_all_none_returns(tmp_path):
     def run(pkg):
         gc = mkgc(pkg, [mkdisk(pkg, tmp_path)])
         t0 = time.monotonic()
-        errors = gc.commit_fanout([None])
+        # The port's lanes settle with the set's write quorum.
+        errors = gc.commit_fanout([None], *(() if pkg == "r" else (1,)))
         quick = time.monotonic() - t0 < 1.0
         gc.close()
         return errors, quick
@@ -717,9 +760,12 @@ def test_busy_lane_holds_next_batch(tmp_path):
             root = d.root
             endpoint = "slow"
 
-            def commit_group(self, ops, _info=None):
+            def commit_group(self, ops, _info=None, **kw):
                 time.sleep(0.05)
-                return d.commit_group(ops, _info=_info)
+                return d.commit_group(ops, _info=_info, **kw)
+
+            def settle_prevs(self, items):
+                return d.settle_prevs(items)
 
         gc = mkgc(pkg, [Slow()], _OneWorker())
         errs = []
@@ -729,7 +775,8 @@ def test_busy_lane_holds_next_batch(tmp_path):
                 for i in range(3):
                     time.sleep(gaps[t, i])
                     errs.extend(gc.commit_fanout([g.GroupOp.write_meta(
-                        BKT, f"w{t}-{i}", mkfi(pkg, f"w{t}-{i}", T0))]))
+                        BKT, f"w{t}-{i}", mkfi(pkg, f"w{t}-{i}", T0))],
+                        *(() if pkg == "r" else (1,))))
         ts = [threading.Thread(target=writer, args=(t,)) for t in range(16)]
         for th in ts:
             th.start()
@@ -745,3 +792,166 @@ def test_busy_lane_holds_next_batch(tmp_path):
     assert ref[0] == port[0] == [None] * 48
     assert ref[1] == port[1] == ref[3] == port[3] == 48
     assert port[2] < ref[2], (port[2], ref[2])
+
+
+@pytest.mark.parametrize("stands", [True, False])
+def test_lane_batch_settles_with_one_call_a_drive(tmp_path, monkeypatch,
+                                                 stands):
+    """Four concurrent inline overwrites ride one lane batch a drive;
+    each batch keeps the journals it replaces and settles them with ONE
+    settle_prevs call on its drive once write quorum is known: kept when
+    the writes stand, put back when they fall short (two drives failing
+    their commits). No kept journal is left either
+    way, and the answer is the new bodies or the old ones."""
+    monkeypatch.setenv("MTPU_GROUP_COMMIT_WAIT_MS", "20000")
+    calls = []
+
+    class Counting:
+        def __init__(self, d):
+            self._d = d
+            self.fail = False
+
+        def commit_group(self, ops, **kw):
+            if self.fail:
+                raise OSError("drive fault")
+            return self._d.commit_group(ops, **kw)
+
+        def write_metadata(self, *a, **kw):
+            if self.fail:
+                raise OSError("drive fault")
+            return self._d.write_metadata(*a, **kw)
+
+        def settle_prevs(self, items):
+            calls.append((self._d.root, sorted(items)))
+            return self._d.settle_prevs(items)
+
+        def settle_prev(self, *a, **kw):
+            raise AssertionError("a lane member settled on its own")
+
+        def __getattr__(self, name):
+            return getattr(self._d, name)
+
+    disks = [port_local.LocalStorage(str(tmp_path / f"d{i}"))
+             for i in range(4)]
+    wrapped = [Counting(d) for d in disks]
+    es = ErasureSet(wrapped, device="cpu")
+    try:
+        es.make_bucket(BKT)
+        old = [bytes([i]) * 700 for i in range(4)]
+        new = [bytes([i + 8]) * 800 for i in range(4)]
+        for i in range(4):
+            es.put_object(BKT, f"k{i}", old[i])
+        gc = es.group_commit
+        gc.worth_batching = lambda: True
+        if not stands:
+            wrapped[0].fail = wrapped[1].fail = True
+        gate = threading.Barrier(4)
+        errs = [None] * 4
+
+        def put(i):
+            gate.wait()
+            try:
+                es.put_object(BKT, f"k{i}", new[i])
+            except Exception as e:  # noqa: BLE001 - checked below
+                errs[i] = e
+        ts = [threading.Thread(target=put, args=(i,)) for i in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        st = gc.stats()
+        assert st["batches"] == 4 and st["members"] == 16, st
+        assert st["settle_calls"] == 4 and len(calls) == 4, calls
+        keys = [(BKT, f"k{i}", stands) for i in range(4)]
+        assert all([it[:3] for it in items] == keys
+                   for _, items in calls), calls
+        assert all((e is None) == stands for e in errs), errs
+        want = new if stands else old
+        assert [es.get_object(BKT, f"k{i}")[1] for i in range(4)] == want
+        for d in disks:
+            for i in range(4):
+                assert not os.path.exists(os.path.join(
+                    d.root, BKT, f"k{i}", port_local.PREV_FILE))
+    finally:
+        es.close()
+
+
+def test_member_past_its_deadline_never_settles_after_its_request(
+        tmp_path, monkeypatch):
+    """Twelve drives, one overwrite A of key k under a short request
+    deadline, batched on drives 0-5 with a second request C (key c)
+    whose commits there are held; C's batch on drive 5 is held longer.
+    A misses write quorum when its deadline passes. A later writer B of
+    k starts only once A's commit_fanout returns (as the key's lock
+    would let it). A's commits that were still running must not land,
+    nor settle, after A returned: every drive ends with B's journal and
+    no kept one."""
+    from minio_tpu_torch.utils import deadline as deadline_mod
+    # Windows close only when both tracked requests have a member
+    # pending, or at A's deadline: A and C share each batch on drives
+    # 0-5, and A is alone on 6-11.
+    monkeypatch.setenv("MTPU_GROUP_COMMIT_WAIT_MS", "20000")
+    held = threading.Event()        # drives 0-5: A's and C's batch
+    held_c5 = threading.Event()     # drive 5: released last
+
+    class Held:
+        def __init__(self, d, idx):
+            self._d, self._idx = d, idx
+
+        def commit_group(self, ops, **kw):
+            if self._idx < 6 and any(op.path == "c" for op in ops):
+                assert held.wait(30)
+                if self._idx == 5:
+                    assert held_c5.wait(30)
+            return self._d.commit_group(ops, **kw)
+
+        def __getattr__(self, name):
+            return getattr(self._d, name)
+
+    disks = [mkdisk("p", tmp_path, f"d{i}") for i in range(12)]
+    for d in disks:
+        d.write_metadata(BKT, "k", mkfi("p", "k", T0, data=b"0" * 64))
+    gc = port_gc.GroupCommit([Held(d, i) for i, d in enumerate(disks)])
+    op = port_gc.GroupOp.write_meta
+    a_fi = mkfi("p", "k", T0 + 1, data=b"A" * 64)
+    b_fi = mkfi("p", "k", T0 + 2, data=b"B" * 64)
+    c_fi = mkfi("p", "c", T0 + 1, data=b"C" * 64)
+    both_in = threading.Barrier(2)
+    out = {}
+
+    def req_a():
+        with gc.tracking():
+            both_in.wait()
+            with deadline_mod.bind(deadline_mod.Deadline(0.3)):
+                out["a"] = gc.commit_fanout([op(BKT, "k", a_fi)] * 12, 8)
+        out["a_at"] = time.monotonic()
+
+    def req_c():
+        with gc.tracking():
+            both_in.wait()
+            out["c"] = gc.commit_fanout(
+                [op(BKT, "c", c_fi)] * 6 + [None] * 6, 4)
+    ta = threading.Thread(target=req_a)
+    tc = threading.Thread(target=req_c)
+    t0 = time.monotonic()
+    ta.start()
+    tc.start()
+    # Drives 0-4 let A's and C's batch go after A's deadline; drive 5
+    # once a writer B that started when A returned had time to commit.
+    threading.Timer(0.8, held.set).start()
+    threading.Timer(1.6, held_c5.set).start()
+    ta.join(30)
+    assert not ta.is_alive()
+    # B untracked: its members close their windows at once.
+    out["b"] = gc.commit_fanout([op(BKT, "k", b_fi)] * 12, 8)
+    tc.join(30)
+    gc.close()
+    assert out["a_at"] - t0 >= 1.6, "A returned while its commits ran"
+    # A's held commits ran, so they count as committed.
+    assert out["a"][:6] == [None] * 6, out["a"]
+    assert out["b"] == [None] * 12 and out["c"] == [None] * 6 + [None] * 6
+    for i, d in enumerate(disks):
+        fi = d.read_version(BKT, "k", "")
+        assert fi.mod_time == T0 + 2, f"drive {i}: B's journal replaced"
+        assert not os.path.exists(os.path.join(
+            d.root, BKT, "k", port_local.PREV_FILE)), f"drive {i}"
